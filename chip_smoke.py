@@ -7,10 +7,25 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version at the main path's shapes and times both, then drives the
-OS4M main path — ``MapReduceJob(scheduler="os4m", pipeline_chunks=4)`` —
-on three full-size batches and checks every output against a numpy
-oracle. Any failed check raises, so the exit code is non-zero.
+PyTorch version at the shapes its path gives it and times both, then
+drives three paths of ``MapReduceJob`` (``scheduler="os4m"``,
+``pipeline_chunks=4``) on full-size batches and checks every output
+against a numpy oracle:
+
+* the main path: exact statistics, three batches, pipelined == sequential;
+* the reuse path: ``reuse=ReusePolicy()`` over the same three batches
+  (batch 0 plans, the others replay the cached plan), then the plan's
+  JSON snapshot loaded into a fresh job replays batch 0;
+* the sketch path: ``stats="sketch"`` (4 x 1024 count-min cells a slot)
+  at n = 2^17 clusters on batch 0, without and with ``stream_prefix=0.25``
+  (three runs, with the allocator's retries), and with the prefix on the
+  first half of batch 0's streams and on a copy of it whose tail overflows
+  the wave that its prefix committed, so that the escape hatch re-executes
+  phase B.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after. Any failed check raises, so the exit code is
+non-zero.
 
 The configuration is the PUMA InvertedIndex deployment the reference's
 simulator calibrates (``src/repro/core/simulator.py``): keys Zipf(0.97)
@@ -22,8 +37,8 @@ Values are integers in {0, 1, 2} and about 2% of pairs are invalid, so
 every sum is exact in float32 and the oracle comparison is bitwise.
 
 Output: one line per phase, a JSON line ``{"kernels": [...]}`` with each
-kernel's launches on the main path, its error against the plain version
-and its times, the card's name and power limit, and last
+kernel's launches on the paths, its error against the plain version and
+its times, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. All numbers also go to
 ``chiprun_out/chip_smoke.json``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -50,6 +65,11 @@ NUM_KEYS = 120_000      # distinct keys
 ZIPF_S = 0.97           # key skew of InvertedIndex
 INVALID = 0.02          # share of invalid pairs
 WIDE_BINS = 2 ** 17     # histogram width beyond one CTA's shared memory
+SKETCH_N = 2 ** 17      # clusters of the sketch path
+SKETCH_WIDTH, SKETCH_DEPTH = 1024, 4
+# Multipliers of the sketch's second kernel case: all >= 2^31, so the
+# uint32 wraparound of the hash is exercised on every row.
+HIGH_MULTIPLIERS = (0x9E3779B1, 0xFFFFFFFF, 0x80000001, 0xC2B2AE35)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -96,17 +116,21 @@ class Workload:
         self.hashes_np = (np.arange(NUM_KEYS, dtype=np.uint32)
                           * np.uint32(2654435761)).view(np.int32)
         self.hashes = torch.as_tensor(self.hashes_np, device=device)
-        # The oracle's cluster of every key: |hash| % n with int32
-        # wraparound and a floor-mod, as the engine defines it.
-        self.cluster_np = np.mod(np.abs(self.hashes_np), num_clusters)
+        self.cluster_np = self.clusters_of_keys(num_clusters)
         self.num_clusters = num_clusters
         self.device = device
 
-    def batch(self, seed: int):
+    def clusters_of_keys(self, num_clusters: int) -> np.ndarray:
+        """The oracle's cluster of every key: |hash| % n with int32
+        wraparound and a floor-mod, as the engine defines it."""
+        return np.mod(np.abs(self.hashes_np), num_clusters)
+
+    def batch(self, seed: int, extra_n=()):
         """One batch drawn with numpy from ``seed``: device tensors + oracle.
 
         Returns ``((keys, values, valid) on the device, key index on the
-        host, (oracle values, oracle counts))``.
+        host, (oracle values, oracle counts))``; with ``extra_n`` also a
+        dict ``{n: oracle}`` for those cluster counts.
         """
         rng = np.random.default_rng(seed)
         u = torch.as_tensor(rng.random((M, K)), device=self.device)
@@ -119,14 +143,25 @@ class Workload:
         del kidx
         values = torch.as_tensor(values_np, device=self.device).to(torch.float32)
         valid = torch.as_tensor(valid_np, device=self.device)
-        cid = self.cluster_np[kidx_np[valid_np]]
+        kidx_valid = kidx_np[valid_np]
         vals = values_np[valid_np]
-        n = self.num_clusters
-        oracle_counts = np.bincount(cid, minlength=n).astype(np.float64)
-        oracle_values = np.stack(
-            [np.bincount(cid, weights=vals[:, c], minlength=n) for c in range(V)],
-            axis=1)
-        return (keys, values, valid), kidx_np, (oracle_values, oracle_counts)
+
+        main = oracle_of(self.cluster_np[kidx_valid], vals, self.num_clusters)
+        if not extra_n:
+            return (keys, values, valid), kidx_np, main
+        extra = {n: oracle_of(self.clusters_of_keys(n)[kidx_valid], vals, n)
+                 for n in extra_n}
+        return (keys, values, valid), kidx_np, main, extra
+
+
+def oracle_of(cid, vals, n):
+    """Exact (float64) per-cluster value sums and pair counts of the valid
+    pairs, from their cluster ids ``cid`` and values ``vals`` (numpy)."""
+    counts = np.bincount(cid, minlength=n).astype(np.float64)
+    values = np.stack(
+        [np.bincount(cid, weights=vals[:, c], minlength=n) for c in range(vals.shape[1])],
+        axis=1)
+    return values, counts
 
 
 def nvidia_smi_line() -> str:
@@ -164,6 +199,105 @@ def histogram_phase(hist_ops, histogram_ref, ids, w, num_bins, dev):
     return res
 
 
+def sketch_phase(sk_ops, sketch_ref, sketch_cells, ids, w, multipliers):
+    """Sketch kernel vs plain at one case: bitwise check + times. Returns a dict.
+
+    The library yardstick is one ``torch.bincount`` over the precomputed
+    flat ``(slot, row, bin)`` cell of every pair: it excludes the hashing.
+    """
+    got = sk_ops.sketch_hist(ids, w, multipliers, SKETCH_WIDTH)
+    want = sketch_ref(ids, w, multipliers, SKETCH_WIDTH)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want),
+          f"sketch kernel == plain at {len(multipliers)} x {SKETCH_WIDTH}")
+    m, k = ids.shape
+    depth = len(multipliers)
+    cells = sketch_cells(ids, multipliers, SKETCH_WIDTH).reshape(-1)
+    wf = w[:, None, :].expand(m, depth, k).reshape(-1)
+    size = m * depth * SKETCH_WIDTH
+    lib = torch.bincount(cells, weights=wf, minlength=size).float()
+    check(torch.equal(lib.view(m, depth, SKETCH_WIDTH), want), "bincount yardstick == plain")
+    del lib
+    b, by = bound_ms(m * k * 8 + size * 4, m * k * depth)
+    res = {
+        "multipliers": [int(a) for a in multipliers],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: sk_ops.sketch_hist(ids, w, multipliers, SKETCH_WIDTH)),
+        "plain_ms": cuda_ms(lambda: sketch_ref(ids, w, multipliers, SKETCH_WIDTH),
+                            reps=5, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.bincount(cells, weights=wf, minlength=size)),
+        "bound_ms": b,
+        "bound_by": by,
+    }
+    return res
+
+
+def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
+    """The sorted segment-sum at one chunk's shape: checks + times. Returns a dict.
+
+    The chunk's received rows are put in rank order (the fused kernel's
+    gather, done once here), with the dump id ``num_segments`` as padding.
+    The kernel is held against the plain version bitwise (the values are
+    integers) and, on standard normals at the same shapes, against exact
+    float64 sums (|error| <= 1e-5 * sum of |values| of the segment). The
+    library yardstick is one ``index_add_`` over the sorted rows.
+    """
+    m, n, v = values.shape
+    dev = values.device
+    rows_sorted = torch.gather(values, 1, gather_idx.long()[..., None].expand(m, n, v))
+    got = seg_ops.segment_reduce_sorted(rows_sorted, seg_ids, num_segments)
+    want = seg_ref(rows_sorted, seg_ids, num_segments)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "segment_reduce kernel == plain on integer values")
+    err = float((got - want).abs().max())
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    rows = int(ok.sum())
+    flat = torch.where(ok, seg_ids.long(), num_segments)
+    flat = (flat + torch.arange(m, device=dev)[:, None] * (num_segments + 1)).reshape(-1)
+    vals_flat = rows_sorted.reshape(-1, v)
+
+    def library():
+        acc = torch.zeros(m * (num_segments + 1), v, device=dev)
+        return acc.index_add_(0, flat, vals_flat)
+
+    lib = library().view(m, num_segments + 1, v)[:, :num_segments]
+    check(torch.equal(lib, want), "index_add_ yardstick == plain")
+    del lib, got, want
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    normals = torch.randn(values.shape, generator=gen, device=dev)
+    got_n = seg_ops.segment_reduce_sorted(normals, seg_ids, num_segments).double()
+    dst = flat.view(m, n)[ok]
+    picked = normals[ok].double()
+    del normals
+    exact = torch.zeros(m * (num_segments + 1), v, dtype=torch.float64, device=dev)
+    exact.index_add_(0, dst, picked)
+    scale = torch.zeros_like(exact).index_add_(0, dst, picked.abs())
+    del picked
+    shape = (m, num_segments + 1, v)
+    exact = exact.view(shape)[:, :num_segments]
+    scale = scale.view(shape)[:, :num_segments]
+    diff = (got_n - exact).abs()
+    check(bool((diff <= 1e-5 * scale).all()),
+          "segment_reduce kernel on normals within 1e-5 * sum|x| of the exact sums")
+    float_err = float((diff / scale.clamp_min(1e-30)).max())
+    del got_n, exact, scale, diff
+
+    b, by = bound_ms(rows * (4 + 4 * v) + m * num_segments * v * 4, rows * v)
+    res = {
+        "shape": [m, n, v], "segments": num_segments, "valid_rows": rows,
+        "max_abs_err": err, "float_rel_err": float_err,
+        "ms": cuda_ms(lambda: seg_ops.segment_reduce_sorted(rows_sorted, seg_ids,
+                                                            num_segments), reps=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: seg_ref(rows_sorted, seg_ids, num_segments),
+                            reps=5, warmup=1),
+        "library_ms": cuda_ms(library, reps=5, warmup=1),
+        "bound_ms": b, "bound_by": by,
+    }
+    return res
+
+
 class FusedProbe:
     """Stands in for ``fused_shuffle_reduce`` during one engine run.
 
@@ -172,15 +306,19 @@ class FusedProbe:
     integers), against an exact float64 sum on standard normals at the
     same shapes (|error| <= 1e-5 * sum of |values| of the segment), and
     times the kernel, the plain version and one ``index_add_`` call that
-    computes the same function from the unsorted rows.
+    computes the same function from the unsorted rows. ``on_first`` is
+    called with the first launch's inputs (chunk 0, the largest).
     """
 
-    def __init__(self, real, ref):
+    def __init__(self, real, ref, on_first=None):
         self.real = real
         self.ref = ref
+        self.on_first = on_first
         self.chunks = []
 
     def __call__(self, values, gather_idx, seg_ids, num_segments):
+        if not self.chunks and self.on_first is not None:
+            self.on_first(values, gather_idx, seg_ids, num_segments)
         out = self.real(values, gather_idx, seg_ids, num_segments)
         want = self.ref(values, gather_idx, seg_ids, num_segments)
         torch.cuda.synchronize()
@@ -243,6 +381,92 @@ class FusedProbe:
         return float((diff / scale.clamp_min(1e-30)).max())
 
 
+class PlanSpy:
+    """Counts the host planner's calls of one job (``job._plan``) and keeps
+    the plans it returned."""
+
+    def __init__(self, job):
+        self.plans = []
+        self._plan = job._plan
+        job._plan = self
+
+    @property
+    def calls(self) -> int:
+        return len(self.plans)
+
+    def __call__(self, *args, **kwargs):
+        self.plans.append(self._plan(*args, **kwargs))
+        return self.plans[-1]
+
+
+def tail_burst(work, batch, kidx_np, oracle, plan1, n, prefix):
+    """A batch whose tail overflows the wave that its prefix committed.
+
+    ``plan1`` is the prefix plan of ``batch``: it committed wave 1 (its
+    chunk 0) and that wave's send capacity. Take the destination whose
+    wave-1 groups hold the most pairs, and the hottest key of a wave-1
+    cluster sent there. Past the prefix, pairs of clusters outside wave 1
+    that go to other slots are rewritten to that key: on each slot just
+    enough of them to carry its (slot, destination) group of wave 1 one
+    pair past the committed capacity. The prefix is untouched, so the
+    engine commits the same wave 1, and every slot overflows it by one
+    pair: a trending key that the prefix never saw. Returns the new batch,
+    its oracle at ``n`` clusters and a description.
+    """
+    keys, values, valid = batch
+    dev = keys.device
+    m, k = keys.shape
+    cl_np = work.clusters_of_keys(n)
+    wave1 = np.zeros(n, bool)
+    wave1[plan1.waves.chunk_members(0)] = True
+    cap = int(plan1.chunk_caps[0])
+    cl = torch.as_tensor(cl_np, device=dev)[torch.as_tensor(kidx_np, device=dev).long()]
+    assign = torch.as_tensor(plan1.schedule.assignment, device=dev)[cl]
+    in_wave1 = torch.as_tensor(wave1, device=dev)[cl]
+    slot = torch.arange(m, device=dev)[:, None].expand(m, k)
+    groups = torch.bincount((slot * m + assign)[valid & in_wave1], minlength=m * m)
+    groups = groups.view(m, m)                      # wave-1 pairs by (slot, destination)
+    dest = int(groups.sum(dim=0).argmax())
+    key = int(np.flatnonzero(wave1[cl_np] & (plan1.schedule.assignment[cl_np] == dest))[0])
+    own = groups[:, dest]
+    need = (cap + 1 - own).clamp_min(0)
+    tail = torch.arange(k, device=dev) >= int(np.ceil(prefix * k))
+    eligible = valid & ~in_wave1 & (assign != dest) & tail
+    from_end = eligible.flip(1).cumsum(1).flip(1)   # eligible pairs at or after t
+    pick = eligible & (from_end <= need[:, None])
+    check(bool((pick.sum(dim=1) == need).all()), "tail burst: enough tail pairs to rewrite")
+    new_keys = torch.where(pick, work.hashes[key], keys)
+    moved_cl = cl[pick].cpu().numpy()
+    moved_vals = values[pick].double().cpu().numpy()
+    del cl, assign, in_wave1, slot, eligible, from_end, pick
+    vals, counts = oracle[0].copy(), oracle[1].copy()
+    np.subtract.at(vals, moved_cl, moved_vals)
+    np.subtract.at(counts, moved_cl, 1.0)
+    vals[cl_np[key]] += moved_vals.sum(axis=0)
+    counts[cl_np[key]] += len(moved_cl)
+    info = {"key_rank": key + 1, "cluster": int(cl_np[key]), "dest": dest,
+            "wave1_cap": cap, "rewritten_pairs": int(len(moved_cl))}
+    return (new_keys, values, valid), (vals, counts), info
+
+
+def reset_launches(mods) -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for mod in mods.values():
+        mod.launches = 0
+
+
+def read_launches(mods) -> dict:
+    """Every kernel's launch count (just after a path ran)."""
+    return {name: mod.launches for name, mod in mods.items()}
+
+
+def check_oracle(res, oracle, what: str) -> None:
+    """Zero overflow and values and counts equal to the oracle, bit for bit."""
+    check(res.overflow == 0, f"{what}: no overflow")
+    check(np.array_equal(res.values, oracle[0]), f"{what}: values == numpy oracle")
+    check(np.array_equal(res.counts, oracle[1]), f"{what}: counts == numpy oracle")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -255,6 +479,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import clustering, scheduler as sched_lib
     from repro_torch.core.mapreduce import MapReduceConfig, MapReduceJob
+    from repro_torch.core.schedule_cache import ReusePolicy
+    from repro_torch.core.stats_provider import CountMinParams
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
     from repro_torch.kernels.fused_shuffle_reduce.ref import (
@@ -262,7 +488,13 @@ def main(argv=None) -> int:
     )
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.segment_reduce import ops as seg_ops
+    from repro_torch.kernels.segment_reduce.ref import segment_reduce_sorted_ref
+    from repro_torch.kernels.sketch_hist import ops as sk_ops
+    from repro_torch.kernels.sketch_hist.ref import sketch_cells, sketch_hist_ref
 
+    kernel_mods = {"histogram": hist_ops, "sketch_hist": sk_ops,
+                   "fused_shuffle_reduce": fused_ops, "segment_reduce": seg_ops}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -271,9 +503,9 @@ def main(argv=None) -> int:
           flush=True)
     record = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # ---- Build every kernel of the path (parallel nvcc).
+    # ---- Build every kernel (parallel nvcc).
     t0 = time.perf_counter()
-    libs = _build.build("histogram", "fused_shuffle_reduce")
+    libs = _build.build(*kernel_mods)
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.1f} s -> {sorted(str(p) for p in libs.values())}",
           flush=True)
@@ -281,9 +513,16 @@ def main(argv=None) -> int:
     n = clustering.recommended_num_clusters(M)
     work = Workload(n, dev)
     t0 = time.perf_counter()
-    batch0, kidx0, oracle0 = work.batch(args.seed)
-    print(f"data: batch {args.seed} in {time.perf_counter() - t0:.1f} s "
-          f"(m={M}, K={K}, V={V}, n={n})", flush=True)
+    batch0, kidx0, oracle0, extra0 = work.batch(args.seed, extra_n=(SKETCH_N,))
+    oracle0_wide = extra0[SKETCH_N]
+    batches = [(batch0, oracle0)]
+    for b in (1, 2):
+        batch, _, oracle = work.batch(args.seed + b)
+        batches.append((batch, oracle))
+    record["data_s"] = time.perf_counter() - t0
+    print(f"data: batches {args.seed}..{args.seed + 2} in {record['data_s']:.1f} s "
+          f"(m={M}, K={K}, V={V}, n={n}; oracle of batch {args.seed} also at "
+          f"n={SKETCH_N})", flush=True)
     for name, oracle in (("values", oracle0[0]), ("counts", oracle0[1])):
         check(float(oracle.max()) < 2 ** 24, f"oracle {name} below 2^24 (exact in f32)")
     hot = float(oracle0[1].max() / oracle0[1].sum())
@@ -298,49 +537,79 @@ def main(argv=None) -> int:
     wide_ids = torch.remainder(keys0, WIDE_BINS).to(torch.int32)
     wide_ids[:, ::1000] = -1                          # out-of-range ids dropped
     hist_wide = histogram_phase(hist_ops, histogram_ref, wide_ids, w, WIDE_BINS, dev)
-    del ids, wide_ids
+    del wide_ids
     for h in (hist_main, hist_wide):
         print(f"kernel histogram ({M}, {K}) -> {h['bins']} bins: bitwise ok | "
               f"kernel {h['ms']:.4f} ms | plain {h['plain_ms']:.4f} ms | "
               f"bincount {h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms",
               flush=True)
 
-    # ---- Kernel phase 2: fused reduce at the chunk shapes of a real plan
-    # (a probe run of batch 0 that checks and times every launch).
-    probe = FusedProbe(fused_ops.fused_shuffle_reduce, fused_gather_segment_reduce_ref)
+    # ---- Kernel phase 3: count-min sketch, bitwise, with the engine's
+    # multipliers on batch 0's cluster ids at n = 2^17 (what the sketch path
+    # launches it on) and at n, and on the raw key hashes (spread over int32)
+    # with multipliers >= 2^31.
+    engine_mult = CountMinParams(SKETCH_WIDTH, SKETCH_DEPTH, seed=0).multipliers
+    sketch_main = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, w, engine_mult)
+    del ids
+    ids = torch.as_tensor(work.clusters_of_keys(SKETCH_N), device=dev)[
+        torch.as_tensor(kidx0, device=dev).long()].to(torch.int32)
+    sketch_path = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, w, engine_mult)
+    del ids
+    sketch_high = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, keys0, w,
+                               HIGH_MULTIPLIERS)
+    torch.cuda.empty_cache()
+    for label, sk in ((f"cluster ids at n={SKETCH_N}", sketch_path),
+                      (f"cluster ids at n={n}", sketch_main),
+                      ("key hashes, multipliers >= 2^31", sketch_high)):
+        print(f"kernel sketch_hist ({M}, {K}) -> {SKETCH_DEPTH} x {SKETCH_WIDTH}, "
+              f"{label}: bitwise ok | kernel {sk['ms']:.4f} ms | plain "
+              f"{sk['plain_ms']:.4f} ms | bincount (no hashing) {sk['library_ms']:.4f} ms "
+              f"| bound {sk['bound_ms']:.4f} ms", flush=True)
+
+    # ---- Kernel phases 2 and 4: the fused reduce at the chunk shapes of a
+    # real plan (a probe run of batch 0 that checks and times every launch),
+    # and the sorted segment-sum at chunk 0's shape on its rank-sorted rows.
+    segment = {}
+
+    def on_chunk0(values, gather_idx, seg_ids, num_segments):
+        segment.update(segment_phase(seg_ops, segment_reduce_sorted_ref, values,
+                                     gather_idx, seg_ids, num_segments))
+
+    probe = FusedProbe(fused_ops.fused_shuffle_reduce, fused_gather_segment_reduce_ref,
+                       on_first=on_chunk0)
     fused_ops.fused_shuffle_reduce = probe
     try:
         MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n)).run(batch0)
     finally:
         fused_ops.fused_shuffle_reduce = probe.real
-    check(len(probe.chunks) > 0, "probe run reached the fused kernel")
+    check(len(probe.chunks) > 0 and bool(segment), "probe run reached the fused kernel")
     for c in probe.chunks:
         print(f"kernel fused_shuffle_reduce {tuple(c['shape'])} -> {c['segments']} "
               f"segments, {c['valid_rows']} valid rows: bitwise ok, normals rel err "
               f"{c['float_rel_err']:.2e} | kernel {c['ms']:.4f} ms | plain "
               f"{c['plain_ms']:.4f} ms | index_add_ {c['library_ms']:.4f} ms | "
               f"bound {c['bound_ms']:.4f} ms", flush=True)
-    record["histogram"] = [hist_main, hist_wide]
-    record["fused_chunks"] = probe.chunks
+    print(f"kernel segment_reduce {tuple(segment['shape'])} -> {segment['segments']} "
+          f"segments, {segment['valid_rows']} valid rows (chunk 0, rank order): bitwise "
+          f"ok, normals rel err {segment['float_rel_err']:.2e} | kernel "
+          f"{segment['ms']:.4f} ms | plain {segment['plain_ms']:.4f} ms | index_add_ "
+          f"{segment['library_ms']:.4f} ms | bound {segment['bound_ms']:.4f} ms",
+          flush=True)
+    record.update(histogram=[hist_main, hist_wide],
+                  sketch=[sketch_path, sketch_main, sketch_high],
+                  fused_chunks=probe.chunks, segment_reduce=segment)
     del probe
     torch.cuda.empty_cache()
 
-    # ---- End to end: the main path on three batches.
+    # ---- The main path: exact statistics on three batches.
     job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n))
     check(job.device.type == "cuda", "the job runs on the card by default")
-    hist_ops.launches = 0
-    fused_ops.launches = 0
+    reset_launches(kernel_mods)
     torch.cuda.reset_peak_memory_stats()
     runs = []
     pipelined0 = None
-    for b in range(3):
+    for b, (batch, oracle) in enumerate(batches):
         seed = args.seed + b
-        if b > 0:
-            t0 = time.perf_counter()
-            batch, _, oracle = work.batch(seed)
-            gen_s = time.perf_counter() - t0
-        else:
-            batch, oracle, gen_s = batch0, oracle0, 0.0
         h0 = hist_ops.launches
         f0 = fused_ops.launches
         torch.cuda.synchronize()
@@ -351,12 +620,10 @@ def main(argv=None) -> int:
         check(hist_ops.launches - h0 == 1, "phase A launched the histogram once")
         check(fused_ops.launches - f0 == chunks,
               "phase B launched the fused kernel once per chunk")
-        check(res.overflow == 0, "no overflow")
-        check(np.array_equal(res.values, oracle[0]), "values == numpy oracle")
-        check(np.array_equal(res.counts, oracle[1]), "counts == numpy oracle")
+        check_oracle(res, oracle, f"main path batch {seed}")
         hash_ratio = sched_lib.schedule_hash(
             res.key_distribution, M, keys=np.arange(n)).balance_ratio
-        run = {"seed": seed, "wall_ms": wall_ms, "gen_s": gen_s, "chunks": chunks,
+        run = {"seed": seed, "wall_ms": wall_ms, "chunks": chunks,
                "chunk_caps": list(job.last_plan.chunk_caps),
                **job.last_phase_ms, "balance_os4m": float(res.schedule.balance_ratio),
                "balance_hash": float(hash_ratio), "shuffle_bytes": res.shuffle_bytes}
@@ -366,31 +633,186 @@ def main(argv=None) -> int:
               f"{run['phase_b']:.1f} ms | run {wall_ms:.1f} ms | balance os4m "
               f"{run['balance_os4m']:.4f} vs hash {run['balance_hash']:.4f}", flush=True)
         if b == 0:
-            pipelined0 = (res.values, res.counts, batch)
-        del batch, res
-    launches = {"histogram": hist_ops.launches,
-                "fused_shuffle_reduce": fused_ops.launches}
+            pipelined0 = (res.values, res.counts)
+        del res
+    launches = {"main": read_launches(kernel_mods)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main path launches: {launches} | peak device memory {peak_gb:.1f} GB",
+    print(f"main path launches: {launches['main']} | peak device memory {peak_gb:.1f} GB",
           flush=True)
-    check(all(v > 0 for v in launches.values()), "every kernel ran on the main path")
 
     # ---- Sequential phase B on batch 0: bit-identical to the pipelined run.
     seq = MapReduceJob(lambda b: b, MapReduceConfig(
-        num_slots=M, num_clusters=n, pipelined=False)).run(pipelined0[2])
+        num_slots=M, num_clusters=n, pipelined=False)).run(batch0)
     check(np.array_equal(seq.values, pipelined0[0])
           and np.array_equal(seq.counts, pipelined0[1]),
           "pipelined == sequential, bit for bit")
     print("sequential phase B on batch 0: bit-identical to pipelined", flush=True)
-    record.update(runs=runs, launches=launches, peak_gb=peak_gb)
+    del seq
+    record.update(runs=runs, peak_gb=peak_gb)
 
-    # ---- Where the time goes: batch 0 once more, under the profiler.
+    # ---- The reuse path: the same three batches under ReusePolicy().
+    policy = ReusePolicy()
+    job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
+                                                    reuse=policy))
+    spy = PlanSpy(job)
+    reset_launches(kernel_mods)
+    reuse_runs = []
+    for b, (batch, oracle) in enumerate(batches):
+        seed = args.seed + b
+        calls0 = spy.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = job.run(batch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        planned = spy.calls - calls0
+        if b == 0:
+            check(res.plan_reason == "cold" and not res.reused, "reuse path: batch 0 plans")
+        else:
+            check(res.reused or res.plan_reason == "overflow",
+                  f"reuse path: batch {seed} replays the plan (or replans for overflow)")
+        check((planned == 0) == res.reused, "reuse path: the planner ran only on replans")
+        check_oracle(res, oracle, f"reuse path batch {seed}")
+        run = {"seed": seed, "wall_ms": wall_ms, "reused": res.reused,
+               "plan_reason": res.plan_reason, "drift": res.drift, "planner_calls": planned,
+               **job.last_phase_ms}
+        reuse_runs.append(run)
+        drift = "-" if res.drift is None else f"{res.drift:.5f}"
+        print(f"reuse path batch {seed}: {res.plan_reason}, reused={res.reused}, drift "
+              f"{drift}, planner calls {planned}, oracle ok | phase A "
+              f"{run['phase_a']:.1f} ms | plan {run['plan']:.1f} ms | phase B "
+              f"{run['phase_b']:.1f} ms | run {wall_ms:.1f} ms", flush=True)
+        del res
+    launches["reuse"] = read_launches(kernel_mods)
+    cache_stats = job.schedule_cache.stats()
+    print(f"reuse path launches: {launches['reuse']} | cache {cache_stats}", flush=True)
+
+    # A snapshot of the live plan, through JSON, into a fresh job: batch 0
+    # replays it with no planner call.
+    snapshot = json.loads(json.dumps(job.schedule_cache.snapshot.to_json()))
+    warm = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
+                                                     reuse=policy))
+    warm.load_snapshot(snapshot)
+    warm_spy = PlanSpy(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = warm.run(batch0)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(res.reused and warm_spy.calls == 0, "a loaded snapshot replays batch 0")
+    check_oracle(res, oracle0, "snapshot replay of batch 0")
+    check(np.array_equal(res.values, pipelined0[0]), "snapshot replay == main path, bitwise")
+    phases = warm.last_phase_ms
+    print(f"snapshot replay of batch {args.seed}: reused, drift {res.drift:.5f}, oracle ok "
+          f"| phase A {phases['phase_a']:.1f} ms | plan {phases['plan']:.1f} ms | phase B "
+          f"{phases['phase_b']:.1f} ms | run {warm_ms:.1f} ms", flush=True)
+    record["reuse"] = {"runs": reuse_runs, "cache": cache_stats,
+                       "snapshot_replay": {"wall_ms": warm_ms, "drift": res.drift,
+                                           **phases}}
+    del res, job, warm, batches, batch, oracle
+    torch.cuda.empty_cache()
+
+    # ---- The sketch path: count-min statistics at n = 2^17 on batch 0,
+    # without and with streaming-prefix planning (that one three times, with
+    # the allocator's retries), then the prefix path on a batch whose tail
+    # overflows the committed wave 1, which takes the escape hatch.
+    def sketch_run(batch, prefix, path, oracle, fallbacks, what):
+        job = MapReduceJob(lambda b: b, MapReduceConfig(
+            num_slots=M, num_clusters=SKETCH_N, stats="sketch", sketch_width=SKETCH_WIDTH,
+            sketch_depth=SKETCH_DEPTH, stream_prefix=prefix))
+        spy = PlanSpy(job)
+        executed = []                                 # chunk caps of each phase B
+        execute = job._execute
+
+        def spy_execute(intermediate, planned, caps=None):
+            executed.append(list(caps[1] if caps else planned.chunk_caps))
+            return execute(intermediate, planned, caps)
+
+        job._execute = spy_execute
+        reset_launches(kernel_mods)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t0 = time.perf_counter()
+        res = job.run(batch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches(kernel_mods)
+        if path is not None:
+            launches[path] = got
+        chunks = job.last_plan.waves.num_chunks
+        check(got["sketch_hist"] == (1 if prefix is None else 2),
+              f"{what}: phase A launched the sketch kernel {1 if prefix is None else 2}x")
+        check(got["histogram"] == 0, f"{what}: no exact histogram")
+        check(job.capacity_fallbacks == fallbacks, f"{what}: {fallbacks} capacity fallbacks")
+        check(got["fused_shuffle_reduce"] == chunks * (1 + fallbacks),
+              f"{what}: phase B ran {1 + fallbacks}x")
+        check_oracle(res, oracle, what)
+        run = {"stream_prefix": prefix, "wall_ms": wall_ms,
+               "chunk_caps": list(job.last_plan.chunk_caps),
+               "caps_estimated": job.last_plan.caps_estimated,
+               "capacity_fallbacks": job.capacity_fallbacks,
+               "executed_caps": executed,
+               "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **job.last_phase_ms}
+        hatch = f", executed caps {executed}" if fallbacks else ""
+        print(f"{what}, n={SKETCH_N}: oracle ok, overflow 0, launches {got}, capacity "
+              f"fallbacks {job.capacity_fallbacks}, caps {run['chunk_caps']}{hatch} | phase A "
+              f"{run['phase_a']:.1f} ms | plan {run['plan']:.1f} ms | phase B "
+              f"{run['phase_b']:.1f} ms | run {wall_ms:.1f} ms | peak "
+              f"{run['peak_gb']:.1f} GB, allocator retries {run['alloc_retries']}", flush=True)
+        plan1 = spy.plans[0]
+        del res, job, spy
+        torch.cuda.empty_cache()
+        return run, plan1
+
+    sketch_runs = [sketch_run(batch0, None, "sketch", oracle0_wide, 0, "sketch path")[0]]
+    for r in range(3):
+        run, _ = sketch_run(batch0, 0.25, "sketch_prefix" if r == 0 else None,
+                            oracle0_wide, 0,
+                            f"sketch path with stream_prefix=0.25 (run {r + 1} of 3)")
+        sketch_runs.append(run)
+    # The escape hatch runs on the first half of batch 0's streams (K/2
+    # pairs a slot): a burst as large as wave 1's cap also enters the
+    # distinct-bin bounds of the later waves, and the first phase B at those
+    # caps would not fit beside a full batch.
+    half = K // 2
+    base = tuple(t[:, :half].contiguous() for t in batch0)
+    kidx_half = np.ascontiguousarray(kidx0[:, :half])
+    valid_half = base[2].cpu().numpy()
+    base_oracle = oracle_of(work.clusters_of_keys(SKETCH_N)[kidx_half[valid_half]],
+                            base[1].cpu().numpy()[valid_half], SKETCH_N)
+    del valid_half
+    run, plan1 = sketch_run(base, 0.25, None, base_oracle, 0,
+                            f"sketch path with stream_prefix=0.25 at K/2={half}")
+    sketch_runs.append(run)
+    burst, burst_oracle, info = tail_burst(work, base, kidx_half, base_oracle, plan1,
+                                           SKETCH_N, 0.25)
+    print(f"tail burst: key of Zipf rank {info['key_rank']} (cluster {info['cluster']}, "
+          f"wave 1, slot {info['dest']}) takes {info['rewritten_pairs']} tail pairs; the "
+          f"committed wave-1 cap is {info['wave1_cap']}", flush=True)
+    hatch_run, _ = sketch_run(burst, 0.25, "sketch_hatch", burst_oracle, 1,
+                              f"sketch path with stream_prefix=0.25 at K/2={half} on the "
+                              f"tail burst")
+    reference_rows = M * M * half * len(hatch_run["chunk_caps"])
+    hatch_run.update(burst=info, reference_spill_rows=reference_rows,
+                     spill_rows=M * M * sum(hatch_run["executed_caps"][1]))
+    print(f"escape hatch: spill of {hatch_run['spill_rows']} rows in the batch's caps, "
+          f"against {reference_rows} rows in the escalated plan's caps", flush=True)
+    del burst, base
+    torch.cuda.empty_cache()
+    pull = {"sketch_bytes": M * SKETCH_DEPTH * SKETCH_WIDTH * 4, "exact_bytes": M * SKETCH_N * 4}
+    print(f"statistics pull at n={SKETCH_N}: sketch ({M}, {SKETCH_DEPTH * SKETCH_WIDTH}) f32 = "
+          f"{pull['sketch_bytes'] / 1e6:.2f} MB vs exact ({M}, {SKETCH_N}) f32 = "
+          f"{pull['exact_bytes'] / 1e6:.2f} MB", flush=True)
+    record["sketch_path"] = {"runs": sketch_runs, "hatch": hatch_run, "pull": pull}
+    record["launches"] = launches
+
+    # ---- Where the time goes: batch 0 on the main path once more, under
+    # the profiler.
     from torch.profiler import ProfilerActivity, profile
 
     prof_job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prof_job.run(pipelined0[2])
+        prof_job.run(batch0)
         prof_wall = (time.perf_counter() - t0) * 1e3
     on_device = torch.autograd.DeviceType.CUDA
     top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -413,29 +835,54 @@ def main(argv=None) -> int:
         print("profile: the profiler saw no device time; busy share not measured",
               flush=True)
 
-    # ---- Result lines.
+    # ---- Result lines. A kernel's launches are its counts over the paths
+    # (each path read with the counts set to 0 just before it).
+    def total_launches(name):
+        return sum(path[name] for path in launches.values())
+
     chunks = record["fused_chunks"]
     fused_bound = bound_ms(sum(c["bytes"] for c in chunks), sum(c["ops"] for c in chunks))
     kernels = [
         {"name": "histogram", "route": "cuda",
          "source": "src/repro_torch/csrc/histogram.cu",
          "replaces": "src/repro/kernels/histogram/histogram.py:58",
-         "launches": launches["histogram"], "max_abs_err": hist_main["max_abs_err"],
+         "launches": total_launches("histogram"), "max_abs_err": hist_main["max_abs_err"],
          "ms": hist_main["ms"], "plain_ms": hist_main["plain_ms"],
          "bound_ms": hist_main["bound_ms"], "bound_by": hist_main["bound_by"],
          "library_ms": hist_main["library_ms"]},
+        {"name": "sketch_hist", "route": "cuda",
+         "source": "src/repro_torch/csrc/sketch_hist.cu",
+         "replaces": "src/repro/kernels/sketch_hist/sketch_hist.py:69",
+         "launches": total_launches("sketch_hist"),
+         "max_abs_err": max(sk["max_abs_err"]
+                            for sk in (sketch_path, sketch_main, sketch_high)),
+         "ms": sketch_path["ms"], "plain_ms": sketch_path["plain_ms"],
+         "bound_ms": sketch_path["bound_ms"], "bound_by": sketch_path["bound_by"],
+         "library_ms": sketch_path["library_ms"]},
         # One main-path run launches the fused kernel once per chunk: its
         # times are the sums over those launches.
         {"name": "fused_shuffle_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_shuffle_reduce.cu",
          "replaces": "src/repro/kernels/fused_shuffle_reduce/fused_shuffle_reduce.py:75",
-         "launches": launches["fused_shuffle_reduce"],
+         "launches": total_launches("fused_shuffle_reduce"),
          "max_abs_err": max(c["max_abs_err"] for c in chunks),
          "ms": sum(c["ms"] for c in chunks),
          "plain_ms": sum(c["plain_ms"] for c in chunks),
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1],
          "library_ms": sum(c["library_ms"] for c in chunks)},
+        # No engine path launches it, in the reference either: its numbers
+        # are from chunk 0 of the main path's plan, in rank order.
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_reduce.cu",
+         "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:68",
+         "launches": total_launches("segment_reduce"), "on_engine_path": False,
+         "max_abs_err": segment["max_abs_err"], "ms": segment["ms"],
+         "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
+         "bound_by": segment["bound_by"], "library_ms": segment["library_ms"]},
     ]
+    check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
+          and launches["sketch"]["sketch_hist"] > 0,
+          "every kernel of an engine path was launched on it")
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -25,7 +25,30 @@ chunk ``c``, and each chunk's "sort" + "run" is one launch of the fused
 gather + segment-sum kernel over all slots, on pairs ordered by pipeline
 rank. Sums accumulate in float32 (the CUDA kernel takes float32 values).
 
-On CUDA tensors the two kernels run; on CPU tensors their plain PyTorch
+Statistics are pluggable (``stats``): the exact ``(m, n)`` histogram
+(the histogram kernel) or a count-min sketch of ``depth x width`` cells
+per slot (the sketch kernel), from which the host plans at bin
+granularity with overestimate-only capacities; ``stream_prefix`` plans
+wave 1 from a sketch of each slot's first pairs and refines the rest
+from the full sketch, with an exact overflow escape hatch. Outputs are
+the same under either statistics. ``scheduler="auto"`` picks the
+strategy with the lowest estimated Reduce makespan
+(``simulator.pick_strategy``).
+
+Steady-state serving: with ``MapReduceConfig(reuse=ReusePolicy(...))``
+each plan is snapshotted in a :class:`~repro_torch.core.schedule_cache.
+ScheduleCache` and replayed while the measured statistics stay close (a
+drift reduction on the device against a baseline uploaded once; only the
+scalar reaches the host). A reused batch pulls only the ``(S,)`` slot-sum
+of the statistics, calls no scheduler, and re-executes with a fresh plan
+if its replayed buffers overflow. The reference keys jitted executables
+on plan shapes, and its reused batches show "zero retraces". The port
+compiles nothing per shape: each CUDA library is built and loaded once
+per process and its kernels take any shape. Its counterpart of the rule
+is therefore: a reused batch calls the planner zero times and uploads no
+baseline again.
+
+On CUDA tensors the kernels run; on CPU tensors their plain PyTorch
 versions run, with the same semantics — the reference's
 ``use_kernels=True`` path either way, so the tests hold the port against
 the reference on the CPU.
@@ -40,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +72,7 @@ from repro_torch.core import clustering
 from repro_torch.core import pipeline as pipe
 from repro_torch.core import schedule_cache as sc
 from repro_torch.core import scheduler as sched_lib
+from repro_torch.core import simulator as sim
 from repro_torch.core import stats_provider as sp
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
 
@@ -62,41 +86,58 @@ REDUCE_OPS = ("sum", "max", "count")
 class MapReduceConfig:
     """Static configuration of one :class:`MapReduceJob`.
 
+    ``reuse`` switches the job into steady-state mode: plans are cached
+    in a :class:`repro_torch.core.schedule_cache.ScheduleCache` and
+    replayed until the policy (drift / age / speed drift / overflow)
+    demands a replan.
+
     Heterogeneous slots (Q||C_max): ``speeds`` pins a known per-slot
     relative speed vector. Speeds only move *where* clusters are reduced
     — outputs are bit-identical under any speed vector.
 
-    The fields after ``speeds`` name features of the reference that the
-    port does not have yet; any value but the default raises
-    ``NotImplementedError`` naming the ROADMAP Queue 1 item that brings it.
+    ``stats="sketch"`` plans from a per-slot count-min sketch of
+    ``sketch_depth x sketch_width`` cells instead of the ``(m, n)``
+    histogram; outputs stay bit-identical to the exact path, since
+    estimates only over-provision capacities. ``stream_prefix`` (sketch
+    only, in ``(0, 1]``) plans wave 1 from a sketch of the first
+    ``stream_prefix`` fraction of each slot's pairs, scaled up, and
+    refines the other waves from the full sketch; a committed wave-1 cap
+    that under-provisions re-executes the batch at the safe bound.
+
+    ``estimate_speeds``, ``measure_timings``, ``checkpoint_waves``,
+    ``shuffle_replication`` and ``quantize_shuffle`` name features of the
+    reference that the port does not have yet; any value but the default
+    raises ``NotImplementedError`` naming the ROADMAP Queue 1 item that
+    brings it.
     """
 
     num_slots: int                      # m — Reduce slots
     num_clusters: int                   # n — operation clusters (§4.3)
-    scheduler: str = "os4m"             # hash | lpt | multifit | bss | os4m
+    scheduler: str = "os4m"             # hash | lpt | multifit | bss | os4m | auto
     eta: float = 0.002                  # FPTAS precision (paper §5: 0.2%)
     reduce_op: str = "sum"              # sum | max | count
     pipeline_chunks: int = 4            # Reduce pipeline granularity (§4.4)
     pipelined: bool = True              # False = Hadoop-style single-shot phase B
     capacity_send: Optional[int] = None  # per-(shard,dest) send buffer; None = safe bound
     speeds: Optional[Tuple[float, ...]] = None  # static per-slot speeds (1.0 = nominal)
-    reuse: Optional[Any] = None         # schedule reuse (item 4)
+    reuse: Optional[sc.ReusePolicy] = None  # schedule-reuse policy; None = replan per run
     estimate_speeds: bool = False       # online speed estimation (item 6)
     measure_timings: Optional[bool] = None  # measured wave clocks (item 6)
     checkpoint_waves: bool = False      # elastic mesh (item 7)
     shuffle_replication: int = 1        # coded shuffle (item 8)
     quantize_shuffle: Optional[str] = None  # quantized wire (item 8)
-    stats: str = "exact"                # count-min statistics (item 5)
-    stream_prefix: Optional[float] = None   # streaming-prefix planning (item 5)
+    stats: str = "exact"                # exact | sketch (count-min statistics)
+    sketch_width: int = 1024            # count-min columns (power of two >= 8)
+    sketch_depth: int = 4               # count-min hash rows (min over rows)
+    stream_prefix: Optional[float] = None   # streaming-prefix planning (sketch only)
 
 
 @dataclasses.dataclass
 class JobResult:
-    """Outputs + provenance of one ``run()``.
+    """Outputs + provenance of one ``run()`` (fresh plan or cached replay).
 
-    The reference's fields that this slice can fill; those of features not
-    ported yet (reuse, auto strategy costs, coded and quantized wire) come
-    with their ROADMAP items.
+    The reference's fields that the port can fill; those of features not
+    ported yet (coded and quantized wire) come with their ROADMAP items.
     """
 
     values: np.ndarray          # (num_clusters, V) reduced outputs
@@ -105,8 +146,14 @@ class JobResult:
     key_distribution: np.ndarray  # K = (k_1..k_n) (cluster loads, §4.1)
     overflow: int               # pairs dropped by capacity clamp (0 in normal runs)
     network_cost: clustering.NetworkCost
-    strategy: str = ""          # scheduler used
+    strategy: str = ""          # scheduler actually used ("auto" resolves here)
+    strategy_costs: Optional[dict] = None  # auto mode: estimated cost per candidate
+    reused: bool = False        # True = phase B replayed a cached schedule
+    plan_reason: str = ""       # ReuseDecision.reason ("" when reuse is off)
+    drift: Optional[float] = None  # drift metric, when it was computed this run
+    replan_benefit: Optional[dict] = None  # cost-gate verdict (auto + cost_gate)
     slot_speeds: Optional[np.ndarray] = None  # speeds the plan was built for
+    speed_drift: Optional[float] = None  # slot-speed change vs the cached plan
     # Bytes-on-the-wire of phase B's shuffle: rows counted on the device,
     # converted to bytes with the static row size (payload + 4-byte id).
     shuffle_bytes: Optional[int] = None   # a2a payload bytes
@@ -117,10 +164,6 @@ class JobResult:
 def _unported(cfg: MapReduceConfig):
     """The (setting, ROADMAP Queue 1 item) pairs of ``cfg`` the port lacks."""
     checks = [
-        (cfg.scheduler == "auto", "scheduler='auto'", 4),
-        (cfg.reuse is not None, "reuse", 4),
-        (cfg.stats == "sketch", "stats='sketch'", 5),
-        (cfg.stream_prefix is not None, "stream_prefix", 5),
         (cfg.estimate_speeds, "estimate_speeds", 6),
         (bool(cfg.measure_timings), "measure_timings=True", 6),
         (cfg.checkpoint_waves, "checkpoint_waves", 7),
@@ -147,17 +190,31 @@ def _cluster_ids(key_hashes: torch.Tensor, num_clusters: int) -> torch.Tensor:
     return torch.remainder(mag, num_clusters)
 
 
-def _phase_a(inputs, map_fn: Callable, num_clusters: int, stats_fn: Callable):
+def _phase_a(inputs, map_fn: Callable, num_clusters: int, stats_fn: Callable,
+              prefix_fraction: Optional[float] = None):
     """Map + local statistics (paper §4.1 steps 1–3) for every slot.
 
     Returns ``((key_hashes, values, valid), state)``; ``state`` is the
-    provider's ``(m, n)`` float32 statistics — the TaskTracker →
-    JobTracker report of §4.1.
+    provider's ``(m, S)`` float32 statistics — the TaskTracker →
+    JobTracker report of §4.1: the exact histogram (``S = n``) or the
+    count-min cells (``S = depth * width``).
+
+    ``prefix_fraction`` (streaming ingestion): additionally collect the
+    statistics of only the first ``ceil(fraction * K)`` pair positions of
+    every slot — the pairs that would have "landed first" in a streaming
+    deployment — and return ``cat([full_state, prefix_state], dim=1)``.
     """
     key_hashes, values, valid = map_fn(inputs)
     key_hashes = key_hashes.to(torch.int32)
     valid = valid.to(torch.bool)
-    state = stats_fn(_cluster_ids(key_hashes, num_clusters), valid.to(torch.float32))
+    cluster_ids = _cluster_ids(key_hashes, num_clusters)
+    weights = valid.to(torch.float32)
+    state = stats_fn(cluster_ids, weights)
+    if prefix_fraction is not None:
+        k = int(cluster_ids.shape[1])
+        cut = int(np.ceil(prefix_fraction * k))
+        in_prefix = (torch.arange(k, device=weights.device) < cut).to(torch.float32)
+        state = torch.cat([state, stats_fn(cluster_ids, weights * in_prefix)], dim=1)
     return (key_hashes, values, valid), state
 
 
@@ -414,12 +471,39 @@ class MapReduceJob:
         if config.reduce_op not in REDUCE_OPS:
             raise ValueError(
                 f"unknown reduce_op {config.reduce_op!r}; use one of {REDUCE_OPS}")
-        self._stats = sp.make_provider(config.stats, config.num_clusters)
+        # Statistics provider: owns phase A's collection step and the
+        # host-side estimators _plan reads.
+        self._stats = sp.make_provider(
+            config.stats, config.num_clusters,
+            width=config.sketch_width, depth=config.sketch_depth)
+        if config.stream_prefix is not None:
+            if config.stats != "sketch":
+                raise ValueError(
+                    "stream_prefix requires stats='sketch' — prefix planning"
+                    " extrapolates a sketch, the exact path has no estimate"
+                    " to extrapolate")
+            if not 0.0 < config.stream_prefix <= 1.0:
+                raise ValueError(
+                    f"stream_prefix must be in (0, 1], got {config.stream_prefix}")
         if config.speeds is not None:
             sched_lib.normalize_speeds(config.speeds, config.num_slots)
+        # Overflow escape hatches taken for estimate-committed capacities
+        # (prefix-planned wave-1 caps; see _escalate_caps). Distinct from
+        # ScheduleCache.capacity_fallbacks, which counts reused-plan
+        # overflows.
+        self.capacity_fallbacks = 0
+        # Schedule-reuse state: the live CachedSchedule snapshot and the
+        # decision counters when cfg.reuse is set.
+        self.schedule_cache: Optional[sc.ScheduleCache] = (
+            sc.ScheduleCache(config.reuse) if config.reuse is not None else None)
+        # Last measured (wire bytes, non-local pairs): turns the cost
+        # model's modeled bytes/pair into a measured rate on the next plan.
+        self._last_wire: Optional[Tuple[int, int]] = None
         # Host-clock milliseconds of the last run() per phase: "phase_a"
-        # (map + statistics, ending with the statistics pull), "plan"
-        # (host scheduler), "phase_b" (shuffle + reduce, ending with the
+        # (map + statistics + the reuse decision, ending with the pull of
+        # the statistics the host needs), "plan" (cost gate and host
+        # scheduler; ~0 on a reused batch), "phase_b" (shuffle + reduce,
+        # with any overflow re-plan and re-execution, ending with the
         # output pull). Each phase ends in a device→host copy, so on CUDA
         # the device work is inside its phase.
         self.last_phase_ms: Optional[dict] = None
@@ -432,7 +516,53 @@ class MapReduceJob:
             return None
         return np.asarray(self.cfg.speeds, np.float64)
 
+    def attach_schedule_cache(self, cache: sc.ScheduleCache) -> None:
+        """Adopt an externally owned cache (multi-tenant coordination).
+
+        The job replays and records into ``cache`` from the next batch on
+        and takes its policy. The default drift reduction runs on the
+        job's device; the sharded drift of the multi-process backend is
+        ROADMAP Queue 1 item 10.
+        """
+        self.cfg = dataclasses.replace(self.cfg, reuse=cache.policy)
+        self.schedule_cache = cache
+
+    def load_snapshot(self, snapshot) -> sc.CachedSchedule:
+        """Install a persisted plan so a warm process skips the first replan.
+
+        ``snapshot`` is a :class:`~repro_torch.core.schedule_cache.
+        CachedSchedule` or its ``to_json`` dict (either package's).
+        Requires ``cfg.reuse`` — the snapshot lands in the schedule cache
+        and the first batch goes through the normal drift check instead of
+        the cold replan.
+        """
+        if self.schedule_cache is None:
+            raise ValueError("load_snapshot requires MapReduceConfig(reuse=...)")
+        if isinstance(snapshot, dict):
+            snapshot = sc.CachedSchedule.from_json(snapshot)
+        m, n = self.cfg.num_slots, self.cfg.num_clusters
+        if snapshot.schedule.num_slots != m:
+            raise ValueError(
+                f"snapshot has {snapshot.schedule.num_slots} slots, config {m}")
+        if snapshot.schedule.assignment.shape[0] != n:
+            raise ValueError(
+                f"snapshot covers {snapshot.schedule.assignment.shape[0]} "
+                f"clusters, config {n}")
+        self.schedule_cache.store(snapshot)
+        return snapshot
+
     # -- measured shuffle-volume accounting ----------------------------------
+
+    def _wire_rate(self) -> float:
+        """Measured wire bytes per non-local pair (model default until measured).
+
+        ``shuffle_bytes / shuffle_pairs`` of the last accounted batch: the
+        per-pair cost the flow-shop cost model's copy phase should charge.
+        Falls back to the simulator's modeled 64 B/pair.
+        """
+        if self._last_wire is not None and self._last_wire[1] > 0:
+            return max(1e-6, self._last_wire[0] / self._last_wire[1])
+        return 64.0
 
     @staticmethod
     def _wire_accounting(wire_rows: int, values) -> dict:
@@ -450,46 +580,122 @@ class MapReduceJob:
 
     # -- planning (the host "JobTracker" step) -------------------------------
 
-    def _plan(self, local_hist: np.ndarray, key_dist: Optional[np.ndarray],
-              k_per_shard: int) -> sc.CachedSchedule:
+    def _plan(
+        self,
+        local_hist: np.ndarray,
+        key_dist: Optional[np.ndarray],
+        k_per_shard: int,
+        prev: Optional[sc.CachedSchedule] = None,
+        assignment_override: Optional[np.ndarray] = None,
+        strategy_override: Optional[str] = None,
+        pinned_first: Optional[np.ndarray] = None,
+        chunk0_cap: Optional[int] = None,
+    ) -> sc.CachedSchedule:
         """One host planning step: schedule + §4.4 waves + send capacities.
 
-        Pure host computation from the per-shard ``(m, n)`` float32
-        statistics, the reference's exact-statistics planner line for
-        line. The returned :class:`~repro_torch.core.schedule_cache.
-        CachedSchedule` fully determines phase B.
+        Pure host computation from the per-shard statistics, the
+        reference's planner line for line; the returned
+        :class:`~repro_torch.core.schedule_cache.CachedSchedule` fully
+        determines phase B, so it can be replayed across batches. ``prev``
+        is the outgoing snapshot when replanning under a reuse policy —
+        capacities take the elementwise max with it, so repeated replans
+        of one workload converge on one set of buffer shapes.
+
+        ``local_hist`` is *provider state*: the exact ``(m, n)``
+        histogram, or ``(m, depth * width)`` count-min cells under
+        ``cfg.stats == "sketch"`` — in which case every planning input is
+        O(sketch size), capacities come from overestimate-only cell bounds,
+        and the passed ``key_dist`` is ignored (callers may pass ``None``).
+
+        The remaining keywords serve streaming-prefix refinement
+        (:meth:`_plan_prefixed`): ``assignment_override`` /
+        ``strategy_override`` replay a committed cluster → slot
+        assignment instead of invoking the scheduler, ``pinned_first``
+        pins the committed wave-1 members to chunk 0, and ``chunk0_cap``
+        clamps chunk 0 to the committed capacity — marking the plan
+        ``caps_estimated`` when that cap is below the full statistics'
+        bound (the runner's overflow escape hatch restores exactness).
         """
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
         speeds = self.current_speeds()
         provider = self._stats
         state = np.asarray(local_hist)
-        # f32 integer-exactness guard on the raw device counters: a
-        # saturated count voids the statistics-sized bounds, so all of
-        # them fall back to the safe k_per_shard.
+        # f32 integer-exactness guard on the RAW device counters — the
+        # histogram cells, or the count-min cells whose estimates are only
+        # trustworthy while every cell is still exact. A saturated counter
+        # voids the statistics-sized bounds, so all of them fall back to
+        # the safe k_per_shard.
         raw_max = float(state.max()) if state.size else 0.0
         hist_exact = raw_max < sp.F32_EXACT_MAX
-        dense_hist = state
-        key_dist = (np.asarray(key_dist) if key_dist is not None
-                    else provider.key_dist(state))
+        if provider.kind == "sketch":
+            # No (m, n) densify here: capacities come straight from the
+            # cells (provider.send_bound) and only the (n,) global
+            # estimate is materialized for the scheduler.
+            dense_hist = None
+            key_dist = provider.key_dist(state)
+        else:
+            dense_hist = state
+            key_dist = (np.asarray(key_dist) if key_dist is not None
+                        else provider.key_dist(state))
 
         # The JobTracker invokes the scheduling algorithm (§4.1 step 4),
         # assigning by earliest finish time under the per-slot speeds
-        # (Q||C_max; None ≡ identical slots).
-        strategy = cfg.scheduler
-        scheduler = sched_lib.get_scheduler(cfg.scheduler)
-        if cfg.scheduler == "hash":
-            schedule = scheduler(key_dist, m, keys=np.arange(n), speeds=speeds)
-        elif cfg.scheduler in ("bss", "os4m"):
-            schedule = scheduler(key_dist, m, eta=cfg.eta, speeds=speeds)
+        # (Q||C_max; None ≡ identical slots). "auto" tries every candidate
+        # and keeps the one with the lowest estimated Reduce makespan.
+        strategy_costs = None
+        if assignment_override is not None:
+            # Prefix refinement: the assignment was committed by the
+            # wave-1 plan; only waves and capacities are recomputed.
+            strategy = strategy_override or cfg.scheduler
+            schedule = sched_lib.Schedule.from_assignment(
+                np.asarray(assignment_override, np.int32), key_dist, m,
+                speeds=speeds)
+        elif cfg.scheduler == "auto":
+            strategy, schedule, strategy_costs = sim.pick_strategy(
+                key_dist, m, eta=cfg.eta,
+                pipelined=cfg.pipelined and cfg.pipeline_chunks > 1,
+                speeds=speeds,
+                # Measured wire rate (last batch) + per-slot locality.
+                bytes_per_pair=self._wire_rate(),
+                # The locality-aware wire model wants per-shard (m, n)
+                # counts; a sketch densifies its estimates only here.
+                local_hist=(provider.to_dense(state) if dense_hist is None
+                            else dense_hist),
+            )
         else:
-            schedule = scheduler(key_dist, m, speeds=speeds)
+            strategy = cfg.scheduler
+            scheduler = sched_lib.get_scheduler(cfg.scheduler)
+            if cfg.scheduler == "hash":
+                schedule = scheduler(key_dist, m, keys=np.arange(n), speeds=speeds)
+            elif dense_hist is None:
+                # Sketch plans schedule at *bin* granularity: the row-0
+                # cell sums are the exact total mass landing in each bin,
+                # so Q||C_max runs over ``width`` loads instead of ``n``.
+                # The per-cluster assignment is a gather through the
+                # row-0 hash — clusters sharing a bin travel together.
+                cells = state.reshape(m, provider.depth, provider.width)
+                bin_loads = np.asarray(cells[:, 0, :].sum(axis=0), np.float64)
+                if cfg.scheduler in ("bss", "os4m"):
+                    bin_sched = scheduler(bin_loads, m, eta=cfg.eta, speeds=speeds)
+                else:
+                    bin_sched = scheduler(bin_loads, m, speeds=speeds)
+                assignment = bin_sched.assignment[provider.bins()[0]]
+                schedule = sched_lib.Schedule.from_assignment(
+                    np.asarray(assignment, np.int32), key_dist, m, speeds=speeds)
+            elif cfg.scheduler in ("bss", "os4m"):
+                schedule = scheduler(key_dist, m, eta=cfg.eta, speeds=speeds)
+            else:
+                schedule = scheduler(key_dist, m, speeds=speeds)
 
         # Static capacity for the all-to-all: the per-(shard,dest) worst
         # case from the per-shard statistics — shard i sends dest d exactly
         # the pairs of d's clusters that i holds. Bounds are quantized
-        # (≤12.5% slack) to a bounded alphabet of buffer shapes.
+        # (≤12.5% slack) to a bounded alphabet of buffer shapes. Under a
+        # reuse policy the bound gains ``capacity_slack`` headroom first,
+        # so sub-threshold drift rarely overflows a replayed plan.
         capacity = cfg.capacity_send or k_per_shard
+        slack = 1.0 + (cfg.reuse.capacity_slack if cfg.reuse is not None else 0.0)
 
         def _quantize_cap(c: int) -> int:
             """Round up to ~1/8-octave steps: bounded cache-key alphabet."""
@@ -500,19 +706,23 @@ class MapReduceJob:
             return -(-c // g) * g
 
         def _send_bound(members) -> int:
-            """max over (shard, dest) of pairs shard sends dest."""
+            """max over (shard, dest) of pairs shard sends dest (+ slack)."""
             if not hist_exact:
                 return k_per_shard      # saturated f32 counts: safe bound
             if len(members) == 0:
                 return 1
             dests = schedule.assignment[members]
-            worst = 0.0
-            for i in range(m):
-                per_dest = np.bincount(
-                    dests, weights=dense_hist[i, members], minlength=m
-                )
-                worst = max(worst, float(per_dest.max()))
-            return min(k_per_shard, _quantize_cap(int(np.ceil(worst))))
+            if dense_hist is None:
+                # Count-min distinct-bin bound: O(sketch), still >= the
+                # true per-(shard, dest) worst case (overestimate-only).
+                worst = provider.send_bound(state, dests, members, m)
+            else:
+                worst = 0.0
+                for i in range(m):
+                    per_dest = np.bincount(
+                        dests, weights=dense_hist[i, members], minlength=m)
+                    worst = max(worst, float(per_dest.max()))
+            return min(k_per_shard, _quantize_cap(int(np.ceil(worst * slack))))
 
         all_members = np.arange(n)
         capacity = max(1, int(min(capacity, k_per_shard, _send_bound(all_members))))
@@ -521,14 +731,31 @@ class MapReduceJob:
         # job-wide chunks, globally ordered by finish time under the slot
         # speeds — see ``pipeline.plan_waves``.
         waves = pipe.plan_waves(key_dist, schedule.assignment, m,
-                                cfg.pipeline_chunks, speeds=speeds)
+                                cfg.pipeline_chunks, speeds=speeds,
+                                pinned_first=pinned_first)
         chunk_caps = [
             int(min(capacity, _send_bound(waves.chunk_members(ci))))
             for ci in range(waves.num_chunks)
         ]
+        caps_estimated = False
+        if chunk0_cap is not None:
+            # Streaming commitment: wave 1's buffer was sized from the
+            # prefix extrapolation before the tail landed, so the refined
+            # plan must replay it — even if the full statistics now say
+            # it is too small (that is what the overflow hatch is for).
+            chunk_caps[0] = max(1, int(min(capacity, chunk0_cap)))
+            caps_estimated = chunk_caps[0] < _send_bound(waves.chunk_members(0))
+
+        # Shape hysteresis: buffer shapes may only grow across replans of
+        # one workload (bounded by k_per_shard).
+        if prev is not None and prev.waves.num_chunks == waves.num_chunks:
+            capacity = max(capacity, prev.capacity)
+            chunk_caps = [max(a, b) for a, b in zip(chunk_caps, prev.chunk_caps)]
+
         return sc.CachedSchedule(
             schedule=schedule,
             strategy=strategy,
+            strategy_costs=strategy_costs,
             waves=waves,
             capacity=capacity,
             chunk_caps=tuple(int(c) for c in chunk_caps),
@@ -537,23 +764,109 @@ class MapReduceJob:
             k_per_shard=int(k_per_shard),
             stats_provider=provider.kind,
             stats_params=provider.params(),
+            stats_overestimate=not caps_estimated,
+            caps_estimated=caps_estimated,
         )
+
+    def _plan_prefixed(self, state: np.ndarray, prefix_state: np.ndarray,
+                       k_per_shard: int,
+                       prev: Optional[sc.CachedSchedule] = None) -> sc.CachedSchedule:
+        """Streaming-prefix planning: commit wave 1 early, refine the rest.
+
+        1. Plan from the *prefix* sketch scaled by ``1 / stream_prefix``
+           (the prefix extrapolated to the full batch). This commits the
+           cluster → slot assignment, wave 1's membership, and wave 1's
+           send capacity — everything a streaming deployment would have
+           dispatched before the tail landed.
+        2. Re-plan from the full-batch sketch, replaying the committed
+           assignment, pinning the committed wave-1 members to chunk 0 and
+           clamping chunk 0 to the committed capacity — only the tail
+           waves are re-cut and re-sized.
+
+        The refined plan is what phase B executes; when the committed
+        wave-1 cap under-provisions, the overflow hatch
+        (:meth:`_escalate_caps`) restores exactness.
+        """
+        frac = self.cfg.stream_prefix
+        plan1 = self._plan(prefix_state / frac, None, k_per_shard)
+        return self._plan(
+            state, None, k_per_shard, prev=prev,
+            assignment_override=plan1.schedule.assignment,
+            strategy_override=plan1.strategy,
+            pinned_first=plan1.waves.chunk_members(0),
+            chunk0_cap=plan1.chunk_caps[0],
+        )
+
+    def _escalate_caps(self, planned: sc.CachedSchedule) -> sc.CachedSchedule:
+        """Exactness escape hatch for estimate-committed capacities.
+
+        Capacities only gate buffer sizing — assignment, wave membership
+        and reduce order are untouched — so the recovery is not a replan:
+        the same plan is re-issued with every capacity raised to the safe
+        bound ``min(capacity_send, k_per_shard)``, which no slot can
+        overflow. The re-execution sizes its buffers by
+        :meth:`_needed_caps`, not by that bound.
+        """
+        k = int(planned.k_per_shard)
+        safe = max(1, int(min(self.cfg.capacity_send or k, k)))
+        return dataclasses.replace(
+            planned,
+            capacity=safe,
+            chunk_caps=tuple(safe for _ in range(planned.waves.num_chunks)),
+            stats_overestimate=True,
+            caps_estimated=False,
+        )
+
+    def _needed_caps(self, intermediate, planned: sc.CachedSchedule):
+        """Buffer sizes that run ``planned`` with the same drops, and no more.
+
+        Each planned capacity is cut to the most pairs that any (sender,
+        destination) group under it holds in this batch. A group's pairs
+        past its capacity are the ones dropped, so the cut caps drop the
+        same pairs, keep every pair's place in its cluster's stream, and
+        give the same outputs and overflow bit for bit. The escalated
+        plan's safe bound, ``k_per_shard`` for every chunk, would size the
+        spill at ``m² · k_per_shard · chunks`` rows; the cut caps size it
+        by what the batch holds. One ``(chunks,)`` pull; returns
+        ``(capacity, chunk_caps)``.
+        """
+        m, n = self.cfg.num_slots, self.cfg.num_clusters
+        key_hashes, _, valid = intermediate
+        dev = self.device
+        chunks = planned.waves.num_chunks
+        cid = _cluster_ids(key_hashes, n).long()
+        assign = torch.as_tensor(planned.schedule.assignment, dtype=torch.long, device=dev)
+        chunk_of = torch.as_tensor(planned.waves.chunk_of_cluster, dtype=torch.long,
+                                   device=dev)
+        groups = chunks * m
+        group = torch.where(valid, chunk_of[cid] * m + assign[cid], groups)
+        flat = group + torch.arange(m, device=dev)[:, None] * (groups + 1)
+        per_group = torch.bincount(flat.reshape(-1), minlength=m * (groups + 1))
+        per_group = per_group.view(m, groups + 1)[:, :groups].reshape(m, chunks, m)
+        need = torch.cat([per_group.amax(dim=(0, 2)),
+                          per_group.sum(dim=1).amax().reshape(1)]).cpu().numpy()
+        chunk_caps = tuple(max(1, min(int(c), int(k)))
+                           for c, k in zip(planned.chunk_caps, need[:-1]))
+        return max(1, min(int(planned.capacity), int(need[-1]))), chunk_caps
 
     # -- execution (phase B under one plan) ----------------------------------
 
-    def _execute(self, intermediate, planned: sc.CachedSchedule):
-        """Run phase B under one plan (fresh or loaded); device results.
+    def _execute(self, intermediate, planned: sc.CachedSchedule, caps=None):
+        """Run phase B under one plan (fresh or replayed); device results.
 
-        Returns ``(out (m, n, V), counts (m, n), overflow, wire_rows)``.
+        ``caps`` (``(capacity, chunk_caps)``) overrides the plan's buffer
+        sizes (see :meth:`_needed_caps`). Returns ``(out (m, n, V), counts
+        (m, n), overflow, wire_rows)``.
         """
         cfg = self.cfg
         if planned.waves.replication != 1:
             raise NotImplementedError(
                 "plans for the coded shuffle are not ported yet: ROADMAP"
                 " Queue 1 item 8")
+        capacity, chunk_caps = caps or (planned.capacity, planned.chunk_caps)
         static = (
-            cfg.num_slots, cfg.num_clusters, planned.capacity,
-            tuple(planned.chunk_caps), cfg.reduce_op, cfg.pipelined,
+            cfg.num_slots, cfg.num_clusters, capacity,
+            tuple(chunk_caps), cfg.reduce_op, cfg.pipelined,
             planned.waves.num_chunks,
         )
         dev = self.device
@@ -568,13 +881,21 @@ class MapReduceJob:
     # -- public API ----------------------------------------------------------
 
     def run(self, inputs) -> JobResult:
-        """Execute the full job: phase A → host plan → phase B."""
+        """Execute the full job: phase A → {replay cached | host plan} → phase B.
+
+        Without a reuse policy this is the paper's per-job workflow (host
+        schedule every run). With ``cfg.reuse`` set, the per-shard
+        statistics feed a drift check on the device first; a reused batch
+        pulls only the ``(S,)`` slot-sum of the statistics, skips the
+        scheduler and replays the cached plan.
+        """
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
         t0 = time.perf_counter()
 
         # ---- Phase A: map + statistics (all Maps finish before any Reduce).
-        intermediate, local_k = _phase_a(inputs, self.map_fn, n, self._stats.collect)
+        intermediate, state = _phase_a(inputs, self.map_fn, n, self._stats.collect,
+                                       cfg.stream_prefix)
         for t in intermediate:
             if t.device != self.device:
                 raise ValueError(
@@ -583,26 +904,117 @@ class MapReduceJob:
         if intermediate[0].shape[0] != m:
             raise ValueError(
                 f"map_fn returned {intermediate[0].shape[0]} slots, config has {m}")
-        # The planner reads the (m, n) float32 statistics as pulled — no
-        # dtype cast, so ties break as in the reference.
-        local_hist = local_k.reshape(m, -1).cpu().numpy()
+        # Provider state, still on the device: (m, S), S = n exact or
+        # depth * width sketch; streaming-prefix mode doubles it (columns
+        # [0:S) full batch, [S:2S) the prefix — see _phase_a).
+        provider = self._stats
+        local_k = state.reshape(m, -1)
+        prefix_k = None
+        if cfg.stream_prefix is not None:
+            s = provider.state_size
+            prefix_k = local_k[:, s:]
+            local_k = local_k[:, :s]
+        k_per_shard = int(intermediate[0].shape[-1])
+        cache = self.schedule_cache
+
+        # ---- Reuse decision (drift on the device; only a scalar reaches the
+        # host), then the pull of what the host needs: the full (m, S)
+        # statistics to plan, or only their (S,) slot-sum to replay. The
+        # planner reads the statistics as pulled — no dtype cast, so ties
+        # break as in the reference.
+        decision = cache.decide(local_k, fresh_speeds=self.current_speeds()) \
+            if cache is not None else None
+        local_hist = slot_sum = None
+        if decision is None or decision.action == "replan":
+            local_hist = local_k.cpu().numpy()
+        else:
+            slot_sum = local_k.sum(dim=0).cpu().numpy()
         t1 = time.perf_counter()
 
-        # ---- Host plan.
-        provider = self._stats
-        key_dist = provider.key_dist(local_hist)
-        k_per_shard = int(intermediate[0].shape[-1])
-        planned = self._plan(local_hist, key_dist, k_per_shard)
-        self.last_plan = planned
+        benefit = None
+        if (decision is not None and decision.action == "replan"
+                and decision.reason == "drift" and cache.policy.cost_gate
+                and cfg.scheduler == "auto"):
+            # The distribution drifted — but is a fresh plan actually
+            # better than the stale schedule's expected imbalance, net of
+            # the scheduler's own cost? (simulator cost model)
+            benefit = sim.estimate_replan_benefit(
+                provider.key_dist(local_hist), cache.snapshot.schedule,
+                eta=cfg.eta,
+                pipelined=cfg.pipelined and cfg.pipeline_chunks > 1,
+                speeds=self.current_speeds(),
+                bytes_per_pair=self._wire_rate(),
+                local_hist=provider.to_dense(local_hist),
+            )
+            if benefit["benefit"] <= 0.0:
+                # Not worth it: keep the plan, re-anchor the drift
+                # baseline so the question isn't re-asked every batch.
+                cache.snapshot.refresh_baseline(
+                    local_hist, key_dist=provider.key_dist(local_hist))
+                decision = sc.ReuseDecision("reuse", "cost_gate", decision.drift,
+                                            speed_drift=decision.speed_drift)
+
+        # ---- Host plan (cold / drift / max_age / no policy) or replay.
+        if decision is not None and decision.action == "reuse":
+            planned = cache.snapshot
+            key_dist = provider.key_dist(local_hist if local_hist is not None
+                                         else slot_sum)
+        else:
+            key_dist = provider.key_dist(local_hist)
+            prev = cache.snapshot if cache is not None else None
+            if prefix_k is not None:
+                planned = self._plan_prefixed(local_hist, prefix_k.cpu().numpy(),
+                                              k_per_shard, prev=prev)
+            else:
+                planned = self._plan(local_hist, key_dist, k_per_shard, prev=prev)
+            if cache is not None:
+                cache.store(planned)
         t2 = time.perf_counter()
 
-        # ---- Phase B; each cluster is reduced on exactly one slot, so the
-        # merge is a sum over slots (done on the pulled float32 arrays).
+        # ---- Phase B.
         out, counts, overflow, wire_rows = self._execute(intermediate, planned)
+        overflow_total = int(overflow)
+
+        # ---- Capacity fallback: a replayed plan's statistics-sized
+        # buffers were too small for this batch. Overflow counting is
+        # exact, so replan from the fresh statistics and re-execute —
+        # outputs are always the no-drop ones.
+        if decision is not None and decision.action == "reuse" and overflow_total > 0:
+            cache.capacity_fallbacks += 1
+            local_hist = local_k.cpu().numpy()
+            key_dist = provider.key_dist(local_hist)
+            planned = self._plan(local_hist, key_dist, k_per_shard,
+                                 prev=cache.snapshot)
+            cache.store(planned)
+            decision = sc.ReuseDecision("replan", "overflow", decision.drift,
+                                        speed_drift=decision.speed_drift)
+            out, counts, overflow, wire_rows = self._execute(intermediate, planned)
+            overflow_total = int(overflow)
+
+        # ---- Estimate-commitment fallback (streaming prefix): wave 1's
+        # committed cap under-provisioned this batch. Not a replan — every
+        # cap escalates to the safe bound and the batch re-executes
+        # drop-free (see _escalate_caps) in buffers sized by the batch.
+        if planned.caps_estimated and overflow_total > 0:
+            self.capacity_fallbacks += 1
+            planned = self._escalate_caps(planned)
+            if cache is not None:
+                cache.store(planned)
+            del out, counts
+            out, counts, overflow, wire_rows = self._execute(
+                intermediate, planned, caps=self._needed_caps(intermediate, planned))
+            overflow_total = int(overflow)
+
+        if cache is not None:
+            cache.record(decision)
+        self.last_plan = planned
+
+        # Each cluster is reduced on exactly one slot, so the merge is a
+        # sum over slots (done on the pulled float32 arrays).
         values = out.cpu().numpy().reshape(m, n, -1).sum(axis=0)
         counts_np = counts.cpu().numpy().reshape(m, n).sum(axis=0)
-        overflow_total = int(overflow)
         acct = self._wire_accounting(int(wire_rows), intermediate[1])
+        self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
         t3 = time.perf_counter()
         self.last_phase_ms = {
             "phase_a": (t1 - t0) * 1e3,
@@ -622,6 +1034,12 @@ class MapReduceJob:
             overflow=overflow_total,
             network_cost=net,
             strategy=planned.strategy,
+            strategy_costs=planned.strategy_costs,
+            reused=bool(decision is not None and decision.action == "reuse"),
+            plan_reason=decision.reason if decision is not None else "",
+            drift=decision.drift if decision is not None else None,
+            replan_benefit=benefit,
             slot_speeds=planned.schedule.slot_speeds,
+            speed_drift=decision.speed_drift if decision is not None else None,
             **acct,
         )

@@ -1,16 +1,35 @@
-"""The plan snapshot phase B executes: :class:`CachedSchedule`.
+"""Steady-state schedule reuse with drift detection.
 
-A :class:`CachedSchedule` holds everything the host produced for one
-plan — the Q||C_max assignment (with the per-slot speeds it was built
-for), the §4.4 wave plan, the statistics-sized send capacities, and the
-per-shard ``K^(i)`` histograms the plan was derived from. Its JSON form is
-the reference's, so a snapshot written by ``repro`` loads here and
-executes to the same outputs.
+OS4M's schedule is a function of the measured key distribution, and key
+distributions are stable across batches of one workload. This module
+decouples *planning* from *execution*: a :class:`CachedSchedule`
+snapshots everything the host produced for one plan — the Q||C_max
+assignment (with the per-slot speeds it was built for), the §4.4 wave
+plan, the statistics-sized send capacities, and the per-shard ``K^(i)``
+histograms (or count-min cells) the plan was derived from — and a
+:class:`ReusePolicy` decides per batch whether to replay that snapshot or
+replan from fresh statistics. Replans trigger on *key* drift (the
+distribution moved) or *speed* drift (a slot slowed past
+``max_speed_drift`` — see :mod:`repro_torch.core.slot_speeds`).
 
-The reuse machinery of the reference module (``drift_metric``,
-``ReusePolicy``, ``ScheduleCache``, ``MultiTenantScheduleCache``) is
-ROADMAP Queue 1 item 4; the elastic re-projection (``rebin_hist``,
-``CachedSchedule.reproject``) is item 7.
+The decision is cheap by construction: the drift metric is a torch
+reduction on the statistics' own device against a baseline uploaded once
+(:meth:`CachedSchedule.hist_device`); only the scalar crosses to the
+host. A reused batch therefore never pulls the full ``(m, S)``
+statistics and never runs a scheduler.
+
+Correctness backstop: a reused schedule's send capacities were sized from
+*plan-time* statistics, so a sub-threshold drift could still overflow a
+buffer. Phase B counts overflowed pairs exactly; the job treats a nonzero
+count on a reused run as a forced replan + re-execution
+(``capacity_fallbacks`` in :meth:`ScheduleCache.stats`), so outputs are
+always exact. :class:`ReusePolicy.capacity_slack` sizes the headroom that
+makes this rare.
+
+The JSON form of :class:`CachedSchedule` is the reference's, so a
+snapshot written by ``repro`` loads here and the reverse. The elastic
+re-projection (``rebin_hist``, ``CachedSchedule.reproject``) is ROADMAP
+Queue 1 item 7, and ``MultiTenantScheduleCache`` item 9.
 """
 
 from __future__ import annotations
@@ -19,11 +38,132 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import pipeline as pipe
 from repro_torch.core import scheduler as sched_lib
+from repro_torch.core import slot_speeds as ss
 
-__all__ = ["CachedSchedule"]
+__all__ = [
+    "DRIFT_METRICS",
+    "drift_metric",
+    "ReusePolicy",
+    "ReuseDecision",
+    "CachedSchedule",
+    "ScheduleCache",
+]
+
+DRIFT_METRICS = ("l1", "chi2")
+
+
+def drift_metric(ref_hist, new_hist, kind: str = "l1") -> torch.Tensor:
+    """Distance in ``[0, 1]`` between two key histograms, as a 0-d tensor.
+
+    Both inputs are ``(n,)`` or ``(m, n)`` count arrays (``K`` or the
+    per-shard ``K^(i)``), tensors or numpy arrays; 2-D inputs score each
+    shard's distribution separately and return the **max over shards** —
+    the per-shard view is what the statistics-sized send capacities depend
+    on. The reduction runs in float32 on ``new_hist``'s device (the CPU
+    for numpy input); the caller pulls the scalar.
+
+    ``kind="l1"``   — total variation: ``0.5 * sum |p - q|``.
+    ``kind="chi2"`` — symmetric chi-square: ``0.5 * sum (p-q)^2 / (p+q)``.
+
+    Rows are normalised to distributions first, so the metric sees shape
+    change only — batch-size change alone is zero drift.
+    """
+    if kind not in DRIFT_METRICS:
+        raise ValueError(f"unknown drift metric {kind!r}; use one of {DRIFT_METRICS}")
+    dev = new_hist.device if isinstance(new_hist, torch.Tensor) else torch.device("cpu")
+    p = torch.as_tensor(ref_hist, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(new_hist, dtype=torch.float32, device=dev)
+    if p.dim() == 1:
+        p = p[None, :]
+    if q.dim() == 1:
+        q = q[None, :]
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    q = q / q.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    if kind == "l1":
+        per_shard = 0.5 * (p - q).abs().sum(dim=-1)
+    else:
+        per_shard = 0.5 * ((p - q) ** 2 / (p + q).clamp_min(1e-9)).sum(dim=-1)
+    return per_shard.max()
+
+
+@dataclasses.dataclass(frozen=True)
+class ReusePolicy:
+    """When may a cached schedule be replayed instead of replanned?
+
+    ``max_drift``        — replan when the measured drift (``metric``)
+                           between the plan-time and fresh ``K^(i)``
+                           exceeds this threshold.
+    ``max_age``          — replan after this many batches regardless of
+                           drift (``None`` = never force; age counts
+                           batches *executed with* the cached plan).
+    ``revalidate_every`` — compute the drift metric only every k-th batch;
+                           in between, reuse unconditionally. 1 = check
+                           every batch.
+    ``metric``           — ``"l1"`` (total variation) or ``"chi2"``.
+    ``capacity_slack``   — fractional headroom added to the plan's send
+                           capacities so sub-threshold drift rarely
+                           overflows (overflow forces a replan + re-run).
+    ``max_speed_drift``  — replan when any slot's measured relative speed
+                           moved more than this fraction from the speeds
+                           the plan was built for (see
+                           :func:`repro_torch.core.slot_speeds.speed_drift`).
+    ``cost_gate``        — with ``scheduler="auto"``: when drift trips,
+                           first ask :func:`repro_torch.core.simulator.
+                           estimate_replan_benefit` whether a fresh plan
+                           actually beats the stale schedule's expected
+                           imbalance; if not, keep reusing (the drift
+                           baseline is refreshed so the question is not
+                           re-asked every batch).
+    """
+
+    max_drift: float = 0.15
+    max_age: Optional[int] = None
+    revalidate_every: int = 1
+    metric: str = "l1"
+    capacity_slack: float = 0.25
+    max_speed_drift: float = 0.25
+    cost_gate: bool = False
+
+    def __post_init__(self):
+        """Validate thresholds at construction (fail loud, not per batch)."""
+        if self.max_drift < 0:
+            raise ValueError("max_drift must be >= 0")
+        if self.max_age is not None and self.max_age < 1:
+            raise ValueError("max_age must be >= 1 (or None)")
+        if self.revalidate_every < 1:
+            raise ValueError("revalidate_every must be >= 1")
+        if self.metric not in DRIFT_METRICS:
+            raise ValueError(f"metric must be one of {DRIFT_METRICS}")
+        if self.capacity_slack < 0:
+            raise ValueError("capacity_slack must be >= 0")
+        if self.max_speed_drift < 0:
+            raise ValueError("max_speed_drift must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReuseDecision:
+    """One per-batch reuse-or-replan verdict (``JobResult.plan_reason`` echoes it).
+
+    ``action`` is ``"reuse"`` or ``"replan"``; ``reason`` one of ``cold``
+    (no snapshot yet), ``ok`` (drift under threshold), ``unchecked``
+    (between revalidations), ``drift``, ``speed_drift`` (a slot's measured
+    speed moved past ``max_speed_drift``), ``slot_dead`` (the set of
+    exact-0.0 speeds changed between plan time and now), ``max_age``,
+    ``cost_gate`` (drift tripped but the simulator found replanning not
+    worth it), ``overflow`` (a reused run overflowed its capacities and
+    was re-run). ``drift`` is the measured key-distribution metric and
+    ``speed_drift`` the measured slot-speed change, when they were
+    computed this batch.
+    """
+
+    action: str
+    reason: str
+    drift: Optional[float] = None
+    speed_drift: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -32,31 +172,78 @@ class CachedSchedule:
 
     ``schedule`` + ``waves`` + the capacities fully determine phase B's
     shapes, and ``local_hist`` is the per-shard statistics the plan was
-    derived from. ``key_dist`` is its shard-sum. :meth:`to_json` /
+    derived from — the drift reference. ``key_dist`` is its shard-sum
+    for exact statistics. Sketch snapshots store the raw counter cells in
+    ``local_hist`` (shape ``(m, depth * width)``), which keeps the drift
+    metric working unchanged, and carry ``key_dist`` explicitly in JSON
+    (it is an estimate, not a column sum of the cells). :meth:`to_json` /
     :meth:`from_json` are a lossless pair and share the reference's
     layout.
     """
 
     schedule: sched_lib.Schedule
     strategy: str
+    strategy_costs: Optional[Dict[str, float]]
     waves: pipe.WavePlan
     capacity: int                    # sequential-path per-(shard,dest) cap
     chunk_caps: Tuple[int, ...]      # per-wave caps (pipelined path)
-    local_hist: np.ndarray           # (m, n) plan-time K^(i)
-    key_dist: np.ndarray             # (n,)  plan-time K
+    local_hist: np.ndarray           # (m, n) plan-time K^(i) (or sketch cells)
+    key_dist: np.ndarray             # (n,)  plan-time K (exact or estimated)
     age: int = 0                     # batches executed with this plan
+    batches_since_check: int = 0
     k_per_shard: Optional[int] = None  # plan-time pairs per shard
     stats_provider: str = "exact"    # which provider produced local_hist
     stats_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    # True when every capacity came from overestimate-only statistics
-    # (always, for exact statistics).
+    # True when every capacity in this plan came from overestimate-only
+    # statistics (exact counts or a pure count-min read with intact f32
+    # guard) — such caps can never under-provision. False only for
+    # estimate-committed caps (prefix-planned wave 1), which instead arm
+    # the overflow escape hatch below.
     stats_overestimate: bool = True
-    # True when a chunk capacity was committed from a prefix estimate
-    # (streaming-prefix planning, not ported yet).
+    # True when a chunk capacity was committed from a prefix estimate and
+    # may under-provision; the runner's overflow escape hatch
+    # (``MapReduceJob._escalate_caps``) watches this flag.
     caps_estimated: bool = False
+    _hist_dev: Any = dataclasses.field(default=None, repr=False)
+
+    @property
+    def slot_speeds(self) -> np.ndarray:
+        """The per-slot relative speeds this plan was built for (Q||C_max)."""
+        return self.schedule.slot_speeds
+
+    def hist_device(self, device) -> torch.Tensor:
+        """The plan-time statistics as a float32 tensor on ``device``.
+
+        Uploaded at the first call and kept: every later drift check on
+        the same device reads the resident baseline and uploads nothing.
+        """
+        device = torch.device(device)
+        if self._hist_dev is None or self._hist_dev.device != device:
+            h = np.asarray(self.local_hist, np.float32)
+            self._hist_dev = torch.as_tensor(h, device=device)
+        return self._hist_dev
+
+    def refresh_baseline(self, local_hist: np.ndarray,
+                         key_dist: Optional[np.ndarray] = None) -> None:
+        """Re-anchor the drift reference without replanning (cost-gated reuse).
+
+        ``key_dist`` must be supplied when ``local_hist`` is provider
+        state whose global distribution is not its column sum (sketch
+        cells); exact callers can omit it.
+        """
+        self.local_hist = np.asarray(local_hist)
+        self.key_dist = (self.local_hist.sum(axis=0) if key_dist is None
+                         else np.asarray(key_dist))
+        self._hist_dev = None
 
     def to_json(self) -> Dict[str, Any]:
-        """Serialize plan + provenance to plain types (the reference's layout)."""
+        """Serialize plan + provenance (not the device mirror) to plain types.
+
+        Sketch snapshots additionally serialize ``key_dist`` — for exact
+        snapshots it is recomputed from ``local_hist`` on load, but a
+        sketch's global distribution is an estimate, not a column sum of
+        its counter cells.
+        """
         out = {
             "assignment": self.schedule.assignment.tolist(),
             "num_slots": int(self.schedule.num_slots),
@@ -97,6 +284,7 @@ class CachedSchedule:
         return CachedSchedule(
             schedule=schedule,
             strategy=d["strategy"],
+            strategy_costs=None,
             waves=pipe.WavePlan.from_json(d["waves"]),
             capacity=int(d["capacity"]),
             chunk_caps=tuple(int(c) for c in d["chunk_caps"]),
@@ -110,3 +298,108 @@ class CachedSchedule:
             stats_overestimate=bool(stats.get("overestimate", True)),
             caps_estimated=bool(stats.get("caps_estimated", False)),
         )
+
+
+class ScheduleCache:
+    """Per-job reuse state: the live snapshot, the policy, and telemetry.
+
+    Drift is computed on the fresh statistics' device: the baseline is
+    uploaded there once (:meth:`CachedSchedule.hist_device`) and
+    :func:`drift_metric` runs beside it, so only the scalar is pulled.
+    """
+
+    def __init__(self, policy: ReusePolicy):
+        self.policy = policy
+        self.snapshot: Optional[CachedSchedule] = None
+        self.replans = 0
+        self.reuses = 0
+        self.drift_checks = 0
+        self.capacity_fallbacks = 0
+        self.speed_replans = 0
+        self.dead_replans = 0
+        self.reprojections = 0
+        self.last_drift: Optional[float] = None
+        self.last_speed_drift: Optional[float] = None
+        self.last_decision: Optional[ReuseDecision] = None
+
+    def decide(self, fresh_local_hist, fresh_speeds=None) -> ReuseDecision:
+        """Reuse-or-replan for one batch, given phase A's fresh ``K^(i)``.
+
+        ``fresh_local_hist`` may be a device tensor — the drift reduction
+        then runs on that device and only the scalar is pulled.
+        ``fresh_speeds`` is the current per-slot speed estimate; a slot
+        whose measured speed moved more than ``max_speed_drift`` from the
+        plan-time speeds forces a replan even when the key distribution is
+        stationary. ``fresh_speeds=None`` means *no measurement*: against a
+        plan built for nominal speeds that is no evidence of change (drift
+        0), but against a plan built for measured, non-nominal speeds it is
+        conservative (``inf``, a replan). Check order: cold → max_age →
+        revalidation cadence → dead-slot mask → speed drift → key drift.
+
+        Dead slots are checked *structurally* before any ratio math: when
+        the set of exact-0.0 speeds differs between the plan and
+        ``fresh_speeds``, the verdict is a forced replan with reason
+        ``"slot_dead"``.
+        """
+        p, s = self.policy, self.snapshot
+        if s is None:
+            return ReuseDecision("replan", "cold")
+        if p.max_age is not None and s.age >= p.max_age:
+            return ReuseDecision("replan", "max_age")
+        if p.revalidate_every > 1 and s.batches_since_check + 1 < p.revalidate_every:
+            s.batches_since_check += 1
+            return ReuseDecision("reuse", "unchecked")
+        s.batches_since_check = 0
+        if fresh_speeds is not None:
+            fresh_arr = np.asarray(fresh_speeds, np.float64)
+            ref_dead = np.asarray(s.slot_speeds, np.float64) == 0.0
+            if (fresh_arr.shape == ref_dead.shape
+                    and np.any((fresh_arr == 0.0) != ref_dead)):
+                self.dead_replans += 1
+                return ReuseDecision("replan", "slot_dead")
+        sd = ss.speed_drift(s.slot_speeds, fresh_speeds)
+        self.last_speed_drift = sd
+        if sd > p.max_speed_drift:
+            self.speed_replans += 1
+            return ReuseDecision("replan", "speed_drift", speed_drift=sd)
+        dev = (fresh_local_hist.device if isinstance(fresh_local_hist, torch.Tensor)
+               else "cpu")
+        d = float(drift_metric(s.hist_device(dev), fresh_local_hist, p.metric))
+        self.drift_checks += 1
+        self.last_drift = d
+        if d > p.max_drift:
+            return ReuseDecision("replan", "drift", d, speed_drift=sd)
+        return ReuseDecision("reuse", "ok", d, speed_drift=sd)
+
+    def record(self, decision: ReuseDecision) -> None:
+        """Count the decision and age the snapshot on reuse."""
+        self.last_decision = decision
+        if decision.action == "reuse":
+            self.reuses += 1
+            if self.snapshot is not None:
+                self.snapshot.age += 1
+        else:
+            self.replans += 1
+
+    def store(self, snapshot: CachedSchedule) -> None:
+        """Install a freshly planned snapshot (age and cadence reset)."""
+        snapshot.age = 0
+        snapshot.batches_since_check = 0
+        self.snapshot = snapshot
+
+    def stats(self) -> Dict[str, Any]:
+        """Telemetry counters (replan rate is ``replans / batches``)."""
+        batches = self.replans + self.reuses
+        return {
+            "batches": batches,
+            "replans": self.replans,
+            "reuses": self.reuses,
+            "drift_checks": self.drift_checks,
+            "capacity_fallbacks": self.capacity_fallbacks,
+            "speed_replans": self.speed_replans,
+            "dead_replans": self.dead_replans,
+            "reprojections": self.reprojections,
+            "replan_rate": self.replans / batches if batches else 0.0,
+            "last_drift": self.last_drift,
+            "last_speed_drift": self.last_speed_drift,
+        }

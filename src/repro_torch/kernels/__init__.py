@@ -7,5 +7,8 @@ Each subpackage has:
   ref.py    — the plain PyTorch version of the same function
 
   histogram            — phase A's per-slot K^(i) (paper §4.1)
+  sketch_hist          — phase A's count-min grid under stats="sketch"
   fused_shuffle_reduce — phase B's gather + sorted segment-sum (§4.4)
+  segment_reduce       — sorted segment-sum without the gather (its own
+                         entry point; no engine path launches it)
 """

@@ -18,7 +18,11 @@ PORT = SRC / "repro_torch"
 def test_import_pulls_in_no_jax_repro_or_triton():
     code = (
         "import sys, repro_torch, repro_torch.core.mapreduce, "
+        "repro_torch.core.schedule_cache, repro_torch.core.simulator, "
+        "repro_torch.core.slot_speeds, repro_torch.core.stats_provider, "
         "repro_torch.kernels.histogram.ops, "
+        "repro_torch.kernels.sketch_hist.ops, "
+        "repro_torch.kernels.segment_reduce.ops, "
         "repro_torch.kernels.fused_shuffle_reduce.ops\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
@@ -57,10 +61,6 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("scheduler", "auto", 4),
-    ("reuse", object(), 4),
-    ("stats", "sketch", 5),
-    ("stream_prefix", 0.5, 5),
     ("estimate_speeds", True, 6),
     ("measure_timings", True, 6),
     ("checkpoint_waves", True, 7),
@@ -71,3 +71,29 @@ def test_unported_settings_name_their_roadmap_item(field, value, item):
     cfg = MapReduceConfig(num_slots=2, num_clusters=4, **{field: value})
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         MapReduceJob(lambda x: x, cfg, device="cpu")
+
+
+def _reuse_with_negative_drift(sc_module):
+    return {"reuse": sc_module.ReusePolicy(max_drift=-1)}
+
+
+@pytest.mark.parametrize("settings,match", [
+    ({"stats": "exact", "stream_prefix": 0.5}, "stream_prefix"),
+    ({"stats": "sketch", "stream_prefix": 1.5}, "stream_prefix"),
+    (_reuse_with_negative_drift, "max_drift"),
+    ({"stats": "bogus"}, "stats provider"),
+], ids=["prefix-exact", "prefix-1.5", "negative-drift", "unknown-stats"])
+def test_invalid_settings_raise_the_reference_errors(settings, match):
+    """Each setting the reference refuses with ValueError, the port refuses too."""
+    from repro.core import mapreduce as ref_mr
+    from repro.core import schedule_cache as ref_sc
+
+    from repro_torch.core import mapreduce as port_mr
+    from repro_torch.core import schedule_cache as port_sc
+
+    for mr, sc_module, kwargs in ((ref_mr, ref_sc, {"backend": "vmap"}),
+                                  (port_mr, port_sc, {"device": "cpu"})):
+        with pytest.raises(ValueError, match=match):
+            extra = settings(sc_module) if callable(settings) else settings
+            mr.MapReduceJob(lambda x: x, mr.MapReduceConfig(
+                num_slots=2, num_clusters=4, **extra), **kwargs)

@@ -16,6 +16,10 @@ from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
 from repro_torch.kernels.fused_shuffle_reduce.ref import fused_gather_segment_reduce_ref
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.histogram.ref import histogram_ref
+from repro_torch.kernels.segment_reduce import ops as seg_ops
+from repro_torch.kernels.segment_reduce.ref import segment_reduce_sorted_ref
+from repro_torch.kernels.sketch_hist import ops as sk_ops
+from repro_torch.kernels.sketch_hist.ref import sketch_hist_ref
 
 
 def _cuda():
@@ -179,6 +183,155 @@ def test_fused_kernel_matches_plain(n_rows, num_segments, v, pad):
             fused_ops.fused_shuffle_reduce(values2, idx2, seg2, num_segments), got)
 
 
+# ---------------------------------------------------------------------------
+# Count-min sketch.
+# ---------------------------------------------------------------------------
+
+# Odd multipliers below and above 2^31 (the reference draws them over all
+# of uint32), and the extremes.
+MULTIPLIERS = np.array([0x9E3779B1, 12345, 0xFFFFFFFF, 2 ** 31 + 1], np.uint32)
+
+
+def _sketch_inputs(rng, m, k, weights):
+    """Ids over all of int32 (negatives, INT32_MIN, INT32_MAX, 0), 0/1 or real weights."""
+    ids = rng.integers(-2 ** 31, 2 ** 31, size=(m, k), dtype=np.int64).astype(np.int32)
+    ids.flat[:4] = [-2 ** 31, 2 ** 31 - 1, 0, -1][:ids.size]
+    if weights == "binary":
+        w = (rng.random((m, k)) < 0.8).astype(np.float32)
+    else:
+        w = rng.random((m, k)).astype(np.float32)
+    return ids, w
+
+
+@pytest.mark.parametrize("k", [1, 1000, 2500])
+@pytest.mark.parametrize("width", [8, 64, 1024, 4096])
+@pytest.mark.parametrize("depth", [1, 4])
+def test_sketch_plain_matches_pallas(k, width, depth):
+    import jax.numpy as jnp
+
+    from repro.kernels.sketch_hist.sketch_hist import sketch_hist_pallas
+
+    m = 2
+    ids, w = _sketch_inputs(np.random.default_rng(k + width + depth), m, k, "binary")
+    mult = MULTIPLIERS[:depth]
+    got = sk_ops.sketch_hist(torch.from_numpy(ids), torch.from_numpy(w), mult, width).numpy()
+    assert got.shape == (m, depth, width) and got.dtype == np.float32
+    for i in range(m):
+        want = np.asarray(sketch_hist_pallas(
+            jnp.asarray(ids[i]), jnp.asarray(w[i]), jnp.asarray(mult), width,
+            interpret=True))
+        np.testing.assert_array_equal(got[i], want)
+
+
+def test_sketch_provider_multipliers_match_reference():
+    from repro.core import stats_provider as ref_sp
+
+    from repro_torch.core import stats_provider as port_sp
+
+    for width, depth, seed in ((8, 1, 0), (1024, 4, 0), (4096, 5, 7)):
+        ref = ref_sp.CountMinParams(width=width, depth=depth, seed=seed)
+        port = port_sp.CountMinParams(width=width, depth=depth, seed=seed)
+        np.testing.assert_array_equal(port.multipliers, ref.multipliers)
+        assert port.multipliers.dtype == ref.multipliers.dtype
+        ids = np.arange(-50, 3000)
+        np.testing.assert_array_equal(port.bin_ids(ids), ref.bin_ids(ids))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,width,depth", [(1, 1, 8, 1), (3, 1000, 64, 4),
+                                             (4, 70_001, 1024, 4), (2, 50_000, 16384, 4),
+                                             (2, 30_000, 2 ** 16, 2)])
+def test_sketch_kernel_matches_plain(m, k, width, depth):
+    dev = _cuda()
+    rng = np.random.default_rng(m + k + width)
+    mult = MULTIPLIERS[:depth]
+    ids, w = _sketch_inputs(rng, m, k, "binary")
+    ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+    before = sk_ops.launches
+    got = sk_ops.sketch_hist(ids_t, w_t, mult, width)
+    torch.cuda.synchronize()
+    assert sk_ops.launches == before + 1
+    # 0/1 weights: integer sums, exact in any order of the atomics.
+    assert torch.equal(got, sketch_hist_ref(ids_t, w_t, mult, width))
+    ids, w = _sketch_inputs(rng, m, k, "random")
+    ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
+    torch.testing.assert_close(sk_ops.sketch_hist(ids_t, w_t, mult, width),
+                               sketch_hist_ref(ids_t, w_t, mult, width),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Sorted segment-sum.
+# ---------------------------------------------------------------------------
+
+
+def _segment_inputs(rng, m, n_rows, num_segments, v, kind, pad_rows):
+    """Per slot: sorted segment ids with a few negatives and a padding tail."""
+    if kind == "int":
+        values = rng.integers(-3, 4, size=(m, n_rows, v)).astype(np.float32)
+    else:
+        values = rng.standard_normal((m, n_rows, v)).astype(np.float32)
+    seg = rng.integers(-1, num_segments, size=(m, n_rows))
+    seg[:, n_rows - pad_rows:] = num_segments + rng.integers(0, 3, size=(m, pad_rows))
+    seg = np.sort(seg, axis=1).astype(np.int32)
+    return values, seg
+
+
+@pytest.mark.parametrize("n_rows,num_segments,v,pad", CASES)
+@pytest.mark.parametrize("kind", ["int", "normal"])
+def test_segment_plain_matches_pallas(n_rows, num_segments, v, pad, kind):
+    import jax.numpy as jnp
+
+    from repro.kernels.segment_reduce.segment_reduce import segment_reduce_sorted_pallas
+
+    m = 2
+    values, seg = _segment_inputs(
+        np.random.default_rng(n_rows + v + 1), m, n_rows, num_segments, v, kind, pad)
+    got = seg_ops.segment_reduce_sorted(
+        torch.from_numpy(values), torch.from_numpy(seg), num_segments).numpy()
+    assert got.shape == (m, num_segments, v) and got.dtype == np.float32
+    for i in range(m):
+        want = np.asarray(segment_reduce_sorted_pallas(
+            jnp.asarray(values[i]), jnp.asarray(seg[i]), num_segments, interpret=True))
+        if kind == "int":
+            np.testing.assert_array_equal(got[i], want)
+        else:
+            # Both sum float32 in different orders over segments of up to
+            # ~400 rows: a relative 1e-6 of the sum does not hold where the
+            # sum cancels, 1e-5 of the sum of magnitudes does.
+            ok = (seg[i] >= 0) & (seg[i] < num_segments)
+            scale = np.zeros((num_segments, v))
+            np.add.at(scale, seg[i][ok], np.abs(values[i][ok]).astype(np.float64))
+            assert (np.abs(got[i].astype(np.float64) - want) <= 1e-5 * scale).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,num_segments,v,pad", CASES + [(300_000, 40, 17, 1000)])
+def test_segment_kernel_matches_plain(n_rows, num_segments, v, pad):
+    dev = _cuda()
+    rng = np.random.default_rng(n_rows + num_segments + 1)
+    for kind in ("int", "normal"):
+        values, seg = (torch.from_numpy(a).to(dev) for a in _segment_inputs(
+            rng, 3, n_rows, num_segments, v, kind, pad))
+        before = seg_ops.launches
+        got = seg_ops.segment_reduce_sorted(values, seg, num_segments)
+        torch.cuda.synchronize()
+        assert seg_ops.launches == before + 1
+        want = segment_reduce_sorted_ref(values, seg, num_segments)
+        if kind == "int":
+            assert torch.equal(got, want)
+        else:
+            idx = torch.arange(n_rows, dtype=torch.int32, device=dev).expand(3, n_rows)
+            exact, scale = _exact_segment_sums(values, idx.contiguous(), seg, num_segments)
+            for out in (got, want):
+                assert ((out.double() - exact).abs() <= 1e-5 * scale).all()
+        # A longer padded slab leaves every segment's sum bit-identical.
+        extra = 777
+        values2 = torch.cat([values, torch.ones_like(values[:, :extra])], dim=1)
+        seg2 = torch.cat([seg, torch.full_like(seg[:, :extra], num_segments)], dim=1)
+        assert torch.equal(seg_ops.segment_reduce_sorted(values2, seg2, num_segments), got)
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_bad_inputs():
     dev = _cuda()
@@ -191,3 +344,11 @@ def test_cuda_wrappers_reject_bad_inputs():
         fused_ops.fused_shuffle_reduce(values, idx, idx, 4)
     with pytest.raises(ValueError):
         fused_ops.fused_shuffle_reduce(values.float().transpose(0, 1), idx.t(), idx.t(), 4)
+    with pytest.raises(TypeError):
+        sk_ops.sketch_hist(ids, torch.ones((2, 8), device=dev), MULTIPLIERS, 64)
+    with pytest.raises(ValueError):
+        sk_ops.sketch_hist(ids.int(), torch.ones((2, 8), device=dev), MULTIPLIERS, 48)
+    with pytest.raises(TypeError):
+        seg_ops.segment_reduce_sorted(values, idx, 4)
+    with pytest.raises(ValueError):
+        seg_ops.segment_reduce_sorted(values.float().transpose(0, 1), idx.t(), 4)
