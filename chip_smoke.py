@@ -8,7 +8,7 @@ Run from the repository root:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
 PyTorch version at the shapes its path gives it and times both, then
-drives three paths of ``MapReduceJob`` (``scheduler="os4m"``,
+drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
 against a numpy oracle:
 
@@ -21,7 +21,17 @@ against a numpy oracle:
   (three runs, with the allocator's retries), and with the prefix on the
   first half of batch 0's streams and on a copy of it whose tail overflows
   the wave that its prefix committed, so that the escape hatch re-executes
-  phase B.
+  phase B;
+* the coded path: Coded MapReduce's r = 2 XOR multicast shuffle on the
+  paper's 8 nodes (m = 8, one Reduce slot each; n =
+  recommended_num_clusters(8) = 88) over slots 0-7 of batch 0, the first
+  K = 2^20 pairs of each: uncoded (oracle, bitwise), coded (== uncoded,
+  bitwise), coded with a sequential phase B (== coded), uncoded and coded
+  with an int8 wire (== each other; within 1e-4 of a float64 oracle of the
+  dequantized pairs) and coded with an fp8 wire (exact for {0, 1, 2}:
+  == uncoded). Cut from m = 32 and K = 2^21 because the coded spills hold
+  m^3 * sum(cap2) rows of W + 2 words: about 300 GB at m = 32, and at m = 8
+  and K = 2^21 two 15.9 GB spills and a peak near 75 GB.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
@@ -67,12 +77,14 @@ INVALID = 0.02          # share of invalid pairs
 WIDE_BINS = 2 ** 17     # histogram width beyond one CTA's shared memory
 SKETCH_N = 2 ** 17      # clusters of the sketch path
 SKETCH_WIDTH, SKETCH_DEPTH = 1024, 4
+CODED_M, CODED_K = 8, 2 ** 20   # the coded path: 8 nodes, the first 2^20 pairs a slot
 # Multipliers of the sketch's second kernel case: all >= 2^31, so the
 # uint32 wraparound of the hash is exercised on every row.
 HIGH_MULTIPLIERS = (0x9E3779B1, 0xFFFFFFFF, 0x80000001, 0xC2B2AE35)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
+INT32_OPS_PER_S = 33.5e12   # int32 lanes: 64 an SM against float32's 128
 
 
 def check(cond: bool, what: str) -> None:
@@ -97,10 +109,10 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    """Least time on the card: max(bytes / memory rate, ops / f32 rate)."""
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
+    """Least time on the card: max(bytes / memory rate, ops / their rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -298,6 +310,41 @@ def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
     return res
 
 
+def xor_phase(cs_ops, xor_ref, m, cap2, w_row, dev):
+    """The XOR kernel at the coded path's chunk-0 encode shape: ``(m^3 * cap2,
+    w_row)`` int32 words (random bits: XOR does the same work on any data).
+
+    Bitwise against the plain version, which is also the library call
+    (``torch.bitwise_xor``); times both and the ``.contiguous()`` copy that
+    materialises the encode's (partner, dst)-swapped operand. Returns a dict.
+    """
+    rows = m ** 3 * cap2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randint(-2 ** 31, 2 ** 31, (rows, w_row), generator=gen, device=dev,
+                      dtype=torch.int32)
+    b = a.view(m, m, m, cap2, w_row).transpose(1, 2).contiguous().view(rows, w_row)
+    got = cs_ops.xor_words(a, b)
+    want = xor_ref(a, b)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "xor_words kernel == plain, bitwise")
+    check(torch.equal(cs_ops.xor_words(got, b), a), "xor_words decode restores the slab")
+    err = float((got.long() - want.long()).abs().max())
+    del got, want
+    words = rows * w_row
+    b_ms, by = bound_ms(3 * 4 * words, words, INT32_OPS_PER_S)
+    res = {
+        "shape": [rows, w_row], "cap2": cap2, "max_abs_err": err,
+        "ms": cuda_ms(lambda: cs_ops.xor_words(a, b), reps=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: xor_ref(a, b), reps=5, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.bitwise_xor(a, b), reps=5, warmup=1),
+        "swap_ms": cuda_ms(lambda: a.view(m, m, m, cap2, w_row).transpose(1, 2).contiguous(),
+                           reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": by,
+    }
+    del a, b
+    return res
+
+
 class FusedProbe:
     """Stands in for ``fused_shuffle_reduce`` during one engine run.
 
@@ -467,6 +514,129 @@ def check_oracle(res, oracle, what: str) -> None:
     check(np.array_equal(res.counts, oracle[1]), f"{what}: counts == numpy oracle")
 
 
+def coded_path(work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, n):
+    """The coded shuffle and the quantized wire at m = 8, K = 2^20 (see the
+    module docstring). Every check raises. Returns ``(record, launches)``
+    with the path's kernel counts (set to 0 just before it)."""
+    batch = tuple(t[:CODED_M, :CODED_K].contiguous() for t in batch0)
+    valid_np = batch[2].cpu().numpy()
+    vals = batch[1].cpu().numpy()[valid_np]
+    cid = work.clusters_of_keys(n)[kidx0[:CODED_M, :CODED_K][valid_np]]
+    oracle = oracle_of(cid, vals, n)
+    # The int8 wire as the engine defines it, in float32: one scale from
+    # the largest valid magnitude, round half to even, dequantize.
+    scale = np.float32(max(float(np.abs(vals).max()), 1e-12)) / np.float32(127.0)
+    q = np.clip(np.round(vals / scale), -127, 127).astype(np.float32)
+    oracle_int8 = oracle_of(cid, q * scale, n)
+    del vals, q, cid, valid_np
+    xor_mod = kernel_mods["xor_words"]
+    fused_mod = kernel_mods["fused_shuffle_reduce"]
+    reset_launches(kernel_mods)
+    runs = {}
+
+    def run(label, **cfg):
+        job = MapReduceJob(lambda b: b, MapReduceConfig(
+            num_slots=CODED_M, num_clusters=n, **cfg))
+        x0, f0 = xor_mod.launches, fused_mod.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = job.run(batch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        chunks = job.last_plan.waves.num_chunks if job.cfg.pipelined else 1
+        coded = job.cfg.shuffle_replication == 2
+        check(job.last_plan.waves.replication == job.cfg.shuffle_replication,
+              f"coded path {label}: the plan carries r")
+        check(xor_mod.launches - x0 == (2 * chunks if coded else 0),
+              f"coded path {label}: xor_words launched twice a chunk on a coded run only")
+        check(fused_mod.launches - f0 == chunks,
+              f"coded path {label}: the fused kernel launched once a chunk")
+        check(res.overflow == 0, f"coded path {label}: no overflow")
+        info = {"wall_ms": wall_ms, **job.last_phase_ms, "chunks": chunks,
+                "chunk_caps": list(job.last_plan.chunk_caps),
+                "shuffle_bytes": res.shuffle_bytes, "shuffle_rows": res.shuffle_rows,
+                "shuffle_pairs": res.shuffle_pairs,
+                "replication_bytes": res.replication_bytes,
+                "quantize_exact": res.quantize_exact,
+                "xor_launches": xor_mod.launches - x0,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        runs[label] = info
+        print(f"coded path {label}: shuffle {res.shuffle_bytes} B in {res.shuffle_rows} rows "
+              f"({res.shuffle_pairs} non-local pairs), replication {res.replication_bytes} B, "
+              f"quantize_exact {res.quantize_exact}, xor_words launches "
+              f"{info['xor_launches']} | phase A {info['phase_a']:.1f} ms | plan "
+              f"{info['plan']:.1f} ms | phase B {info['phase_b']:.1f} ms | run "
+              f"{wall_ms:.1f} ms | peak {info['peak_gb']:.1f} GB", flush=True)
+        del job
+        torch.cuda.empty_cache()
+        return res
+
+    uncoded = run("uncoded")
+    check_oracle(uncoded, oracle, "coded path uncoded")
+    coded = run("coded", shuffle_replication=2)
+    check(np.array_equal(coded.values, uncoded.values)
+          and np.array_equal(coded.counts, uncoded.counts), "coded == uncoded, bit for bit")
+    seq = run("coded sequential", shuffle_replication=2, pipelined=False)
+    check(np.array_equal(seq.values, coded.values)
+          and np.array_equal(seq.counts, coded.counts), "coded sequential == coded pipelined")
+    check(coded.shuffle_pairs == uncoded.shuffle_pairs, "coded path: same non-local pairs")
+    u8 = run("uncoded int8", quantize_shuffle="int8")
+    c8 = run("coded int8", shuffle_replication=2, quantize_shuffle="int8")
+    check(np.array_equal(u8.values, c8.values) and np.array_equal(u8.counts, c8.counts),
+          "coded int8 == uncoded int8, bit for bit")
+    check(u8.quantize_exact is False and c8.quantize_exact is False,
+          "int8 wire: 1 -> 64 * 2/127 is inexact, and the jobs say so")
+    check(np.array_equal(u8.counts, oracle[1]), "int8 counts == oracle")
+    rel = float(np.max(np.abs(u8.values - oracle_int8[0])
+                       / np.maximum(np.abs(oracle_int8[0]), 1e-30)))
+    check(rel <= 1e-4, f"int8 values within 1e-4 of the dequantized oracle (got {rel:.2e})")
+    f8 = run("coded fp8", shuffle_replication=2, quantize_shuffle="fp8")
+    check(f8.quantize_exact is True, "fp8 wire: {0, 1, 2} are exact in e4m3")
+    check(np.array_equal(f8.values, uncoded.values) and np.array_equal(f8.counts, uncoded.counts),
+          "coded fp8 == uncoded exact, bit for bit")
+    launches = read_launches(kernel_mods)
+    ratio = uncoded.shuffle_bytes / coded.shuffle_bytes
+    theory = 2 * (CODED_M - 1) / (CODED_M - 2)
+    print(f"coded path: wire bytes uncoded / coded = {ratio:.4f} (full groups: "
+          f"{theory:.4f}); int8 {u8.shuffle_bytes} B uncoded, {c8.shuffle_bytes} B coded; "
+          f"int8 values within {rel:.2e} of the dequantized oracle; launches {launches}",
+          flush=True)
+    del batch, uncoded, coded, seq, u8, c8, f8
+    torch.cuda.empty_cache()
+    return {"m": CODED_M, "k": CODED_K, "n": n, "runs": runs, "wire_ratio": ratio,
+            "wire_ratio_theory": theory, "int8_rel_err": rel}, launches
+
+
+def profile_run(label, fn, job) -> dict:
+    """One ``fn()`` under the profiler: its wall time, the device's busy time
+    (the union of kernel and copy intervals) and the top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = torch.autograd.DeviceType.CUDA
+    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages() if e.device_type == on_device),
+                 key=lambda r: -r[1])
+    device_ms, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events() if e.device_type == on_device):
+        device_ms += max(0.0, hi - max(lo, end)) / 1e3
+        end = max(end, hi)
+    if device_ms > 0:
+        print(f"{label}: run {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
+              f"({device_ms / wall_ms:.3f} of the run)", flush=True)
+        for name, ms, count in top[:8]:
+            print(f"  {ms:9.3f} ms  {count:4d}x  {name[:90]}", flush=True)
+    else:
+        print(f"{label}: the profiler saw no device time; busy share not measured",
+              flush=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "phases": job.last_phase_ms,
+            "top": top[:12]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -482,6 +652,8 @@ def main(argv=None) -> int:
     from repro_torch.core.schedule_cache import ReusePolicy
     from repro_torch.core.stats_provider import CountMinParams
     from repro_torch.kernels import _build
+    from repro_torch.kernels.coded_shuffle import ops as cs_ops
+    from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
     from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
     from repro_torch.kernels.fused_shuffle_reduce.ref import (
         fused_gather_segment_reduce_ref,
@@ -494,7 +666,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sketch_hist.ref import sketch_cells, sketch_hist_ref
 
     kernel_mods = {"histogram": hist_ops, "sketch_hist": sk_ops,
-                   "fused_shuffle_reduce": fused_ops, "segment_reduce": seg_ops}
+                   "fused_shuffle_reduce": fused_ops, "segment_reduce": seg_ops,
+                   "xor_words": cs_ops}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -504,8 +677,9 @@ def main(argv=None) -> int:
     record = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # ---- Build every kernel (parallel nvcc).
+    check(set(kernel_mods) == set(_build.SOURCES), "every kernel source is driven here")
     t0 = time.perf_counter()
-    libs = _build.build(*kernel_mods)
+    libs = _build.build()
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.1f} s -> {sorted(str(p) for p in libs.values())}",
           flush=True)
@@ -803,37 +977,33 @@ def main(argv=None) -> int:
           f"{pull['sketch_bytes'] / 1e6:.2f} MB vs exact ({M}, {SKETCH_N}) f32 = "
           f"{pull['exact_bytes'] / 1e6:.2f} MB", flush=True)
     record["sketch_path"] = {"runs": sketch_runs, "hatch": hatch_run, "pull": pull}
+
+    # ---- The coded path (m = 8, K = 2^20 of batch 0), then kernel phase 5:
+    # the XOR kernel at its chunk-0 encode shape.
+    coded_n = clustering.recommended_num_clusters(CODED_M)
+    record["coded_path"], launches["coded"] = coded_path(
+        work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, coded_n)
+    n_rep = -(-CODED_K // (CODED_M - 1))
+    cap2 = min(n_rep, record["coded_path"]["runs"]["coded"]["chunk_caps"][0])
+    xor = xor_phase(cs_ops, xor_words_ref, CODED_M, cap2, V + 2, dev)
+    print(f"kernel xor_words {tuple(xor['shape'])} (chunk 0's encode): bitwise ok | kernel "
+          f"{xor['ms']:.4f} ms | plain = bitwise_xor {xor['plain_ms']:.4f} ms | swap copy "
+          f"{xor['swap_ms']:.4f} ms | bound {xor['bound_ms']:.4f} ms", flush=True)
+    record["xor_words"] = xor
+    torch.cuda.empty_cache()
     record["launches"] = launches
 
-    # ---- Where the time goes: batch 0 on the main path once more, under
-    # the profiler.
-    from torch.profiler import ProfilerActivity, profile
-
+    # ---- Where the time goes: batch 0 on the main path once more, and the
+    # coded path's coded run, under the profiler.
     prof_job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prof_job.run(batch0)
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    on_device = torch.autograd.DeviceType.CUDA
-    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages() if e.device_type == on_device),
-                 key=lambda r: -r[1])
-    # Busy time: the union of the device-side intervals (kernels, copies).
-    device_ms, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in prof.events() if e.device_type == on_device):
-        device_ms += max(0.0, hi - max(lo, end)) / 1e3
-        end = max(end, hi)
-    record["profile"] = {"wall_ms": prof_wall, "device_ms": device_ms,
-                         "phases": prof_job.last_phase_ms, "top": top[:12]}
-    if device_ms > 0:
-        print(f"profile batch {args.seed}: run {prof_wall:.1f} ms, device busy "
-              f"{device_ms:.1f} ms ({device_ms / prof_wall:.3f} of the run)", flush=True)
-        for name, ms, count in top[:8]:
-            print(f"  {ms:9.3f} ms  {count:4d}x  {name[:90]}", flush=True)
-    else:
-        print("profile: the profiler saw no device time; busy share not measured",
-              flush=True)
+    record["profile"] = profile_run(f"profile batch {args.seed}", lambda: prof_job.run(batch0),
+                                    prof_job)
+    coded_batch = tuple(t[:CODED_M, :CODED_K].contiguous() for t in batch0)
+    coded_job = MapReduceJob(lambda b: b, MapReduceConfig(
+        num_slots=CODED_M, num_clusters=coded_n, shuffle_replication=2))
+    record["coded_path"]["profile"] = profile_run(
+        "profile coded run", lambda: coded_job.run(coded_batch), coded_job)
+    del coded_batch, coded_job
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).
@@ -879,10 +1049,21 @@ def main(argv=None) -> int:
          "max_abs_err": segment["max_abs_err"], "ms": segment["ms"],
          "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
          "bound_by": segment["bound_by"], "library_ms": segment["library_ms"]},
+        # The coded path launches it twice a chunk (encode, decode) on each
+        # coded run; its times are at chunk 0's encode shape. The plain
+        # version is torch.bitwise_xor, which is also the library call.
+        {"name": "xor_words", "route": "cuda",
+         "source": "src/repro_torch/csrc/xor_words.cu",
+         "replaces": "src/repro/kernels/coded_shuffle/coded_shuffle.py:40",
+         "launches": total_launches("xor_words"), "max_abs_err": xor["max_abs_err"],
+         "ms": xor["ms"], "plain_ms": xor["plain_ms"], "bound_ms": xor["bound_ms"],
+         "bound_by": xor["bound_by"], "library_ms": xor["library_ms"]},
     ]
     check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
-          and launches["sketch"]["sketch_hist"] > 0,
+          and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0,
           "every kernel of an engine path was launched on it")
+    check(all(launches[p]["xor_words"] == 0 for p in launches if p != "coded"),
+          "no uncoded path launched xor_words")
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -35,6 +35,16 @@ the same under either statistics. ``scheduler="auto"`` picks the
 strategy with the lowest estimated Reduce makespan
 (``simulator.pick_strategy``).
 
+Coded shuffle (``shuffle_replication=2``, Coded MapReduce, arXiv
+1512.01625): every record is also held by one partner slot, and phase B
+sends one XOR multicast packet per slot pair instead of two unicast slabs
+(the XOR word kernel encodes and decodes them). Receivers re-order what
+they decode into the uncoded stream's ``(src, position)`` order before
+the same reduce, so outputs are bit-identical to the uncoded engine.
+``quantize_shuffle`` ships int8 (one global scale) or fp8 payloads; every
+delivered value goes through encode → decode, so coded and uncoded runs
+of one quantized job agree bit for bit.
+
 Steady-state serving: with ``MapReduceConfig(reuse=ReusePolicy(...))``
 each plan is snapshotted in a :class:`~repro_torch.core.schedule_cache.
 ScheduleCache` and replayed while the measured statistics stay close (a
@@ -74,12 +84,18 @@ from repro_torch.core import schedule_cache as sc
 from repro_torch.core import scheduler as sched_lib
 from repro_torch.core import simulator as sim
 from repro_torch.core import stats_provider as sp
+from repro_torch.kernels.coded_shuffle import ops as cs_ops
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
 
 __all__ = ["MapReduceConfig", "JobResult", "MapReduceJob"]
 
 _INT32_MIN = -(2 ** 31)
 REDUCE_OPS = ("sum", "max", "count")
+_FP8 = torch.float8_e4m3fn
+# Half-way between 448, e4m3fn's largest finite value, and 480: the
+# reference's cast rounds every larger magnitude (and +-inf) to NaN, while
+# PyTorch's saturates it to +-448.
+_FP8_NAN_ABOVE = 464.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,11 +120,19 @@ class MapReduceConfig:
     refines the other waves from the full sketch; a committed wave-1 cap
     that under-provisions re-executes the batch at the safe bound.
 
-    ``estimate_speeds``, ``measure_timings``, ``checkpoint_waves``,
-    ``shuffle_replication`` and ``quantize_shuffle`` name features of the
-    reference that the port does not have yet; any value but the default
-    raises ``NotImplementedError`` naming the ROADMAP Queue 1 item that
-    brings it.
+    ``shuffle_replication=2`` runs the coded shuffle: each record is
+    pair-placed on two slots and phase B ships XOR multicast packets,
+    with outputs bit-identical to ``1`` (uncoded); the replica exchange's
+    bytes are accounted apart (``JobResult.replication_bytes``).
+    ``quantize_shuffle`` (``"int8"``: symmetric, one global scale a batch;
+    ``"fp8"``: a ``float8_e4m3fn`` cast) is a lossy wire format: every
+    delivered value, local pairs included, goes through encode → decode,
+    and ``JobResult.quantize_exact`` says whether that changed any record.
+
+    ``estimate_speeds``, ``measure_timings`` and ``checkpoint_waves`` name
+    features of the reference that the port does not have yet; any value
+    but the default raises ``NotImplementedError`` naming the ROADMAP
+    Queue 1 item that brings it.
     """
 
     num_slots: int                      # m — Reduce slots
@@ -124,8 +148,8 @@ class MapReduceConfig:
     estimate_speeds: bool = False       # online speed estimation (item 6)
     measure_timings: Optional[bool] = None  # measured wave clocks (item 6)
     checkpoint_waves: bool = False      # elastic mesh (item 7)
-    shuffle_replication: int = 1        # coded shuffle (item 8)
-    quantize_shuffle: Optional[str] = None  # quantized wire (item 8)
+    shuffle_replication: int = 1        # 1 uncoded | 2 coded pair placement
+    quantize_shuffle: Optional[str] = None  # None | int8 | fp8 wire payload
     stats: str = "exact"                # exact | sketch (count-min statistics)
     sketch_width: int = 1024            # count-min columns (power of two >= 8)
     sketch_depth: int = 4               # count-min hash rows (min over rows)
@@ -136,8 +160,7 @@ class MapReduceConfig:
 class JobResult:
     """Outputs + provenance of one ``run()`` (fresh plan or cached replay).
 
-    The reference's fields that the port can fill; those of features not
-    ported yet (coded and quantized wire) come with their ROADMAP items.
+    The reference's fields that the port can fill.
     """
 
     values: np.ndarray          # (num_clusters, V) reduced outputs
@@ -156,9 +179,11 @@ class JobResult:
     speed_drift: Optional[float] = None  # slot-speed change vs the cached plan
     # Bytes-on-the-wire of phase B's shuffle: rows counted on the device,
     # converted to bytes with the static row size (payload + 4-byte id).
-    shuffle_bytes: Optional[int] = None   # a2a payload bytes
+    shuffle_bytes: Optional[int] = None   # a2a payload bytes (packets once per multicast)
     shuffle_rows: Optional[int] = None    # wire rows behind those bytes
     shuffle_pairs: Optional[int] = None   # non-local pairs the wire carried
+    replication_bytes: int = 0            # coded replica-exchange bytes (not shuffle)
+    quantize_exact: Optional[bool] = None  # quantized round trip lossless? (None = off)
 
 
 def _unported(cfg: MapReduceConfig):
@@ -167,10 +192,41 @@ def _unported(cfg: MapReduceConfig):
         (cfg.estimate_speeds, "estimate_speeds", 6),
         (bool(cfg.measure_timings), "measure_timings=True", 6),
         (cfg.checkpoint_waves, "checkpoint_waves", 7),
-        (cfg.shuffle_replication != 1, "shuffle_replication", 8),
-        (cfg.quantize_shuffle is not None, "quantize_shuffle", 8),
     ]
     return [(name, item) for hit, name, item in checks if hit]
+
+
+def _validate_wire(cfg: MapReduceConfig) -> None:
+    """The reference's ``ValueError``s for the coded and quantized wire.
+
+    Checked before the unported settings, so a combination the reference
+    refuses is refused alike, not reported as not ported.
+    """
+    if cfg.shuffle_replication not in (1, 2):
+        raise ValueError(
+            "shuffle_replication must be 1 (uncoded) or 2 (coded pair"
+            f" placement), got {cfg.shuffle_replication}")
+    if cfg.quantize_shuffle not in (None, "int8", "fp8"):
+        raise ValueError(
+            f"quantize_shuffle must be None, 'int8' or 'fp8', got"
+            f" {cfg.quantize_shuffle!r}")
+    if cfg.shuffle_replication > 1:
+        if cfg.num_slots < 2:
+            raise ValueError(
+                "shuffle_replication=2 needs at least 2 slots (the pair"
+                " placement replicates across distinct slots)")
+        if cfg.checkpoint_waves:
+            raise ValueError(
+                "shuffle_replication>1 is incompatible with checkpoint_waves —"
+                " the checkpointed walk has its own per-wave copy programs")
+        if cfg.measure_timings:
+            raise ValueError(
+                "shuffle_replication>1 is incompatible with measured timings —"
+                " the coded decode is not stamp-instrumented")
+    if cfg.quantize_shuffle and cfg.checkpoint_waves:
+        raise ValueError(
+            "quantize_shuffle is incompatible with checkpoint_waves — the"
+            " checkpointed copy programs ship the exact wire")
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +421,65 @@ def _reduce_chunk(rv, rc, rm, rank_of_cluster, num_clusters: int, reduce_op: str
     return out, counts
 
 
+def _wire_payload_dtype(quantize: Optional[str], value_dtype: torch.dtype) -> torch.dtype:
+    """The dtype the shuffle wire carries: int8, fp8 as its uint8 bit
+    patterns (every PyTorch op that moves data takes uint8), or the values'."""
+    if quantize == "int8":
+        return torch.int8
+    if quantize == "fp8":
+        return torch.uint8
+    return value_dtype
+
+
+def _quantize_scale(values, valid, quantize: Optional[str]):
+    """One global int8 scale a batch: the largest valid magnitude over every
+    slot (the reference's ``pmax``) over 127, a float32 device scalar.
+
+    A single scale, not one a chunk, so that the sequential and pipelined
+    engines encode alike and stay bit-identical to each other.
+    """
+    if quantize != "int8":
+        return None
+    mag = (values.float().abs() * valid.float()[..., None]).amax()
+    return mag.clamp_min(1e-12) / 127.0
+
+
+def _quantize_encode(values, scale, quantize: str) -> torch.Tensor:
+    """Values → wire payload: symmetric int8, or fp8 e4m3fn bits as uint8.
+
+    The fp8 cast follows the reference's bits: magnitudes above 464 and
+    +-inf become a NaN of the value's sign (bytes 0x7f / 0xff) first,
+    where PyTorch's cast alone would saturate them to +-448.
+    """
+    x = values.float()
+    if quantize == "int8":
+        return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    x = torch.where(x.abs() > _FP8_NAN_ABOVE, torch.copysign(torch.full_like(x, torch.nan), x), x)
+    return x.to(_FP8).view(torch.uint8)
+
+
+def _quantize_decode(q, scale, value_dtype: torch.dtype, quantize: str) -> torch.Tensor:
+    """Wire payload → delivered values (deterministic: one scale, one cast)."""
+    if quantize == "int8":
+        return (q.float() * scale).to(value_dtype)
+    return q.view(_FP8).float().to(value_dtype)
+
+
+def _quantize_wire(values, valid, quantize: Optional[str]):
+    """``(scale, wire payload, delivered values, inexact)`` of a batch.
+
+    ``inexact`` counts the valid records whose round trip changed them (a
+    device scalar). Without quantization the wire carries the values.
+    """
+    if not quantize:
+        return None, values, values, torch.zeros((), dtype=torch.int64, device=values.device)
+    scale = _quantize_scale(values, valid, quantize)
+    wire = _quantize_encode(values, scale, quantize)
+    delivered = _quantize_decode(wire, scale, values.dtype, quantize)
+    inexact = (valid & (delivered != values).any(dim=-1)).sum()
+    return scale, wire, delivered, inexact
+
+
 def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static):
     """Chunked shuffle ("copy") + pipelined reduce ("run") — §4.1 step 6 + §4.4.
 
@@ -373,25 +488,38 @@ def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static
     writes every chunk's bucket file in one spill and walks the chunks in
     increasing-load order, issuing the copy of chunk ``c+1`` before the
     reduce of chunk ``c`` — the reference's double-buffered order, which
-    overlaps the two once the copy is a collective between devices.
+    overlaps the two once the copy is a collective between devices. A
+    quantized wire spills and copies the encoded payload and decodes each
+    received chunk.
 
-    Returns ``(out (m, n, V), counts (m, n), overflow, wire_rows)``, the
-    last two as device scalars.
+    Returns ``(out (m, n, V), counts (m, n), overflow, wire)``, the last
+    two on the device: the overflow count and the int64 ``[wire_rows,
+    replica_rows, inexact, nonlocal_pairs]`` vector.
     """
-    (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks) = static
+    (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks, quantize) = static
     key_hashes, values, valid = intermediate
     v_dim = values.shape[-1]
     cluster_ids = _cluster_ids(key_hashes, n)
     cid = cluster_ids.long()
+    scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize)
+
+    def _deliver(recv):
+        rv, rc, rm = recv
+        if quantize:
+            rv = _quantize_decode(rv, scale, values.dtype, quantize)
+        return rv, rc, rm
+
+    def _wire(wire_rows):
+        return torch.stack([wire_rows, torch.zeros_like(wire_rows), inexact, wire_rows])
 
     if not pipelined or num_chunks <= 1:
         dest = torch.where(valid, assignment[cid], m).to(torch.int32)
         bv, bc, bm, overflow = _counting_sort_to_buckets(
-            dest, values, cluster_ids, m, capacity)
+            dest, send_vals, cluster_ids, m, capacity)
         wire_rows = _wire_rows(bm)
-        rv, rc, rm = _copy_chunk((bv, bc, bm))
+        rv, rc, rm = _deliver(_copy_chunk((bv, bc, bm)))
         out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
-        return out, counts, overflow, wire_rows
+        return out, counts, overflow, _wire(wire_rows)
 
     # ---- Every chunk's bucket file in ONE counting-sort spill: groups are
     # (chunk, dest) pairs with statistics-derived capacities, laid out
@@ -401,7 +529,7 @@ def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static
     group_caps = np.repeat(np.asarray(chunk_caps, np.int64), m)
     total = int(group_caps.sum())
     fv, fc, fm, overflow = _ragged_counting_sort_to_buckets(
-        group, values, cluster_ids, group_caps, total)
+        group, send_vals, cluster_ids, group_caps, total)
     send = []
     wire_rows = torch.zeros((), dtype=torch.int64, device=values.device)
     off = 0
@@ -420,20 +548,248 @@ def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static
     cnt = torch.zeros((m, n), dtype=torch.float32, device=values.device)
     recv = _copy_chunk(send[0])
     for c in range(num_chunks):
-        rv, rc, rm = recv
+        rv, rc, rm = _deliver(recv)
         if c + 1 < num_chunks:
             recv = _copy_chunk(send[c + 1])
         out_c, cnt_c = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
-        # Every cluster lives in exactly one chunk, so merging is a
-        # *replace* where this chunk saw data — correct for max (a
-        # maximum() merge would clamp negative maxima at the zero init)
-        # and equivalent to += for sum/count (out_c is 0 elsewhere).
-        if reduce_op == "max":
-            acc = torch.where(cnt_c[..., None] > 0, out_c.to(acc_dtype), acc)
+        acc, cnt = _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op)
+    return acc, cnt, overflow, _wire(wire_rows)
+
+
+def _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op: str):
+    """Fold one chunk's reduce into the accumulators.
+
+    Every cluster lives in exactly one chunk, so merging is a *replace*
+    where this chunk saw data — correct for max (a maximum() merge would
+    clamp negative maxima at the zero init) and equivalent to += for
+    sum/count (``out_c`` is 0 elsewhere).
+    """
+    if reduce_op == "max":
+        acc = torch.where(cnt_c[..., None] > 0, out_c.to(acc.dtype), acc)
+    else:
+        acc = acc + out_c.to(acc.dtype)
+    return acc, cnt + cnt_c
+
+
+def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static):
+    """Coded phase B: r=2 pair placement + XOR multicast (arXiv 1512.01625).
+
+    The coded execution of the same §4.4 chunk walk. Record ``j`` of slot
+    ``s`` is *pair-placed* on ``{s, π(s, j)}`` with partner ``π(s, j) = (s
+    + 1 + (j mod (m−1))) mod m``: every slot holds a replica of ``1/(m−1)``
+    of each other slot's records, the coded analogue of running each map
+    shard on two nodes. The replicas arrive by an exchange whose rows are
+    accounted apart (``replication_bytes``), a stand-in for the storage
+    replication or redundant map work that the scheme assumes.
+
+    The shuffle then sends one XOR **multicast packet** per slot pair
+    ``{d, q}`` instead of two unicast slabs: sender ``s`` XORs its
+    (partner=d → dst=q) slab with its (partner=q → dst=d) slab word by word
+    (:func:`~repro_torch.kernels.coded_shuffle.ops.xor_words`). Receiver
+    ``d`` rebuilds the first slab from its replicas with the *identical*
+    stable counting sort and XORs it out, which leaves the slab addressed
+    to it, bit for bit. Pairs whose partner is their destination arrive
+    with the replicas, so wire rows shrink by up to ``2(m−1)/(m−2)``.
+
+    Bit-identity with the uncoded engine: each slab row carries the sender
+    record index ``j`` and the cluster id beside the packed value words;
+    the receiver re-orders every delivered pair by ``(src, j)`` — the
+    uncoded stream's per-cluster order — and feeds the same per-chunk
+    :func:`_reduce_chunk`. Invalid rows are all-zero words (XOR-neutral)
+    and masked out.
+
+    Stacked over slots, the reference's all-to-alls are transposes of the
+    ``(src, dst, ...)`` axes. Both ragged spills run over all slots' rows
+    as one stream with the slot inside the chunk-major group id —
+    ``(chunk, slot, partner | src, dst)`` — so each chunk's slab of every
+    slot is one contiguous block, as the kernel takes it. Returns what
+    :func:`_phase_b` returns; ``wire`` holds the packet rows (each
+    multicast once), the replica rows, the inexact records and the
+    non-local pairs.
+    """
+    (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks, quantize) = static
+    key_hashes, values, valid = intermediate
+    dev = values.device
+    _, k, v_dim = values.shape
+    v_dtype = values.dtype
+    cluster_ids = _cluster_ids(key_hashes, n)
+    cid = cluster_ids.long()
+    me = torch.arange(m, device=dev)[:, None]        # each slot's own index
+    dest = assignment[cid].long()
+    if pipelined and num_chunks > 1:
+        chunks, caps = num_chunks, tuple(chunk_caps)
+        chunk_of_pair = chunk_of_cluster[cid].long()
+    else:
+        chunks, caps = 1, (capacity,)
+        chunk_of_pair = torch.zeros_like(cid)
+    # Replica rows a (src, partner): each partner offset is hit every m−1
+    # records, so ⌈K/(m−1)⌉ bounds every (chunk, partner, dst) group.
+    n_rep = -(-k // (m - 1))
+    cap2 = tuple(int(min(n_rep, c)) for c in caps)
+
+    # ---- Quantized wire payload (optional): one global scale, so sender,
+    # replica holder and receiver encode a record to the same bits.
+    scale, wire_vals, deliv_vals, inexact = _quantize_wire(values, valid, quantize)
+    pay_dtype = _wire_payload_dtype(quantize, v_dtype)
+    w_pay = cs_ops.packed_width(v_dim, pay_dtype)
+    w_row = w_pay + 2        # + cluster_id+1 word, + j+1 word (0 = invalid)
+    jidx = torch.arange(k, device=dev, dtype=torch.int32).expand(m, k)
+    aug = torch.cat([cs_ops.pack_payload_words(wire_vals), (cluster_ids + 1)[..., None],
+                     (jidx + 1)[..., None]], dim=2)
+
+    # ---- r=2 replica exchange: slot p receives the records j of slot s
+    # with π(s, j) == p, i.e. j ≡ (p − s − 1) (mod m−1) — a strided slice.
+    ofs = (torch.arange(m, device=dev) - me - 1) % m          # (src, partner)
+    sidx = ofs[..., None] + torch.arange(n_rep, device=dev) * (m - 1)
+    smask = (sidx < k) & (ofs < m - 1)[..., None]             # partner == src: none
+    pick = sidx.clamp(max=k - 1).reshape(m, -1)
+    send_kh = torch.where(smask, key_hashes.gather(1, pick).view(m, m, n_rep), 0)
+    send_v = torch.where(smask[..., None], values.gather(
+        1, pick[..., None].expand(m, m * n_rep, v_dim)).view(m, m, n_rep, v_dim), 0)
+    send_ok = smask & valid.gather(1, pick).view(m, m, n_rep)
+    # The exchange: (src, partner, ...) → (partner, src, ...).
+    r_kh = send_kh.transpose(0, 1)
+    r_v = send_v.transpose(0, 1)
+    r_ok = send_ok.transpose(0, 1)
+    r_j = sidx.transpose(0, 1).to(torch.int32)
+    rows_rep = r_ok.sum()
+    r_cluster = _cluster_ids(r_kh, n)
+    r_dest = assignment[r_cluster.long()].long()
+    r_chunk = (chunk_of_cluster[r_cluster.long()].long() if chunks > 1
+               else torch.zeros_like(r_dest))
+    r_wire = _quantize_encode(r_v, scale, quantize) if quantize else r_v
+    r_aug = torch.cat([cs_ops.pack_payload_words(r_wire), (r_cluster + 1)[..., None],
+                       (r_j + 1)[..., None]], dim=3)
+    del send_kh, send_v, send_ok, r_v, r_wire
+
+    # ---- Two ragged spills with the same group layout. Sender side: my
+    # records by (chunk, me, partner, dst), dst ≠ me — the packets' XOR
+    # terms. Replica side: received replicas by (chunk, me, src, dst) —
+    # bit-equal rebuilds of each src's (partner=me, dst) slabs (same stable
+    # sort, same caps, same j order), which open the packets; their dst=me
+    # column carries the pairs the replicas deliver.
+    groups = chunks * m * m * m
+    caps2_np = np.repeat(np.asarray(cap2, np.int64), m * m * m)
+    total2 = int(caps2_np.sum())
+    partner = (me + 1 + jidx % (m - 1)) % m
+    gid = torch.where(valid & (dest != me),
+                      ((chunk_of_pair * m + me) * m + partner) * m + dest,
+                      groups).to(torch.int32)
+    s_aug, _, s_bm, ovf_send = _ragged_counting_sort_to_buckets(
+        gid.reshape(1, -1), aug.reshape(1, m * k, w_row), cluster_ids.reshape(1, -1),
+        caps2_np, total2)
+    del aug, gid
+    src = torch.arange(m, device=dev)[:, None]
+    r_gid = torch.where(r_ok, ((r_chunk * m + me[..., None]) * m + src) * m + r_dest,
+                        groups).to(torch.int32)
+    k_aug, _, _, ovf_rep = _ragged_counting_sort_to_buckets(
+        r_gid.reshape(1, -1), r_aug.reshape(1, -1, w_row), r_cluster.reshape(1, -1),
+        caps2_np, total2)
+    del r_aug, r_gid
+
+    # ---- Pairs a slot both holds and reduces (dst == me): delivered
+    # locally with the decoded value and the same j tag. (A float32
+    # carrier is exact for f32/bf16 payloads and for j < 2^24.)
+    caps_own = np.asarray(caps, np.int64)
+    total_own = int(caps_own.sum())
+    gid_own = torch.where(valid & (dest == me), chunk_of_pair, chunks).to(torch.int32)
+    own_carrier = torch.cat([deliv_vals.float(), jidx.float()[..., None]], dim=2)
+    o_vals, o_bc, o_bm, ovf_own = _ragged_counting_sort_to_buckets(
+        gid_own, own_carrier, cluster_ids, caps_own, total_own)
+    del own_carrier
+
+    # ---- Per-chunk packets X[s, d, q] = S[s, p=d→q] ⊕ S[s, p=q→d], one
+    # multicast per unordered pair {d, q} (both copies carry the same
+    # packet; accounted once below).
+    ids = torch.arange(m, device=dev)
+    a0, a1, a2 = ids[:, None, None], ids[None, :, None], ids[None, None, :]
+    pair_ok = (a1 != a2) & (a1 != a0) & (a2 != a0)       # (s, d, q)
+    send_pkts = []
+    wire_rows = torch.zeros((), dtype=torch.int64, device=dev)
+    off = 0
+    for c in range(chunks):
+        size = m * m * m * cap2[c]
+        slab = s_aug[0, off:off + size]
+        swapped = slab.view(m, m, m, cap2[c], w_row).transpose(1, 2).contiguous()
+        x = cs_ops.xor_words(slab, swapped.view(size, w_row)).view(m, m, m, cap2[c], w_row)
+        del swapped
+        send_pkts.append(x.masked_fill_(~pair_ok[..., None, None], 0))
+        # Packet {d, q} rows = the larger of its two slabs; each unordered
+        # pair appears twice in the ordered sum, hence the halving.
+        cnt = s_bm[0, off:off + size].view(m, m, m, cap2[c]).sum(dim=3)
+        wire_rows = wire_rows + torch.where(
+            pair_ok, torch.maximum(cnt, cnt.transpose(1, 2)), 0).sum() // 2
+        off += size
+    del s_aug, s_bm, slab, x
+    pairs_nonlocal = (valid & (dest != me)).sum()
+
+    # ---- Double-buffered decode → reduce walk (the §4.4 shape: chunk
+    # c+1's packet exchange is issued before chunk c's reduce).
+    acc_dtype = torch.float32 if reduce_op == "sum" else v_dtype
+    acc = torch.zeros((m, n, v_dim), dtype=acc_dtype, device=dev)
+    cnt_acc = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    big = torch.iinfo(torch.int64).max
+    # A decoded row (me, src, q) counts when src ≠ me and it is either a
+    # packet from a pair (q ≠ src) or the replica-delivered column q == me.
+    d_ok_static = ((a1 != a0) & ((a2 == a0) | (a2 != a1)))[..., None]
+    src_of_row = a1[..., None]
+    off = own_off = 0
+
+    def _exchange(x):
+        """The packet all-to-all: (src, dst, ...) → (dst, src, ...)."""
+        return x.transpose(0, 1).contiguous()
+
+    recv = _exchange(send_pkts[0])
+    for c in range(chunks):
+        rx = recv
+        send_pkts[c] = None
+        if c + 1 < chunks:
+            recv = _exchange(send_pkts[c + 1])
+        size = m * m * m * cap2[c]
+        # One XOR opens everything: for q ≠ me the packet minus my rebuilt
+        # slab leaves src's (partner=q → me) slab; the q == me column has no
+        # packet (zeros), so my replica-delivered (partner=me → me) slab
+        # passes straight through.
+        dec = cs_ops.xor_words(rx.view(size, w_row), k_aug[0, off:off + size])
+        del rx
+        dec = dec.view(m, m, m, cap2[c], w_row)
+        meta = dec[..., w_pay]
+        d_ok = ((meta > 0) & d_ok_static).reshape(m, -1)
+        d_vals = cs_ops.unpack_payload_words(dec[..., :w_pay], pay_dtype, v_dim)
+        d_vals = (_quantize_decode(d_vals, scale, v_dtype, quantize) if quantize
+                  else d_vals).reshape(m, -1, v_dim)
+        d_cl = (meta - 1).reshape(m, -1)
+        d_key = (src_of_row * k + dec[..., w_pay + 1] - 1).reshape(m, -1)
+        del dec, meta
+
+        own = o_vals[:, own_off:own_off + caps[c]]
+        own_key = me * k + own[..., v_dim].long()
+        sv = torch.cat([own[..., :v_dim].to(v_dtype), d_vals], dim=1)
+        scl = torch.cat([o_bc[:, own_off:own_off + caps[c]], d_cl], dim=1)
+        sok = torch.cat([o_bm[:, own_off:own_off + caps[c]], d_ok], dim=1)
+        skey = torch.cat([own_key, d_key], dim=1)
+        own_off += caps[c]
+        off += size
+        # The uncoded stream orders each cluster's pairs by (src slot,
+        # bucket position) = (src, j); restoring exactly that order feeds
+        # the same reduce the same sequence → bit-identity. Sender and
+        # receiver must break equal keys alike, so the sort is stable.
+        order = torch.argsort(torch.where(sok, skey, big), dim=1, stable=True)
+        del skey
+        out_c, cnt_c = _reduce_chunk(
+            sv.gather(1, order[..., None].expand_as(sv)), scl.gather(1, order),
+            sok.gather(1, order), rank_of_cluster, n, reduce_op)
+        del sv, scl, sok, order
+        if chunks == 1:
+            # As the uncoded sequential branch: the reduce output is the
+            # result (shape included — count yields (m, n, 1)).
+            acc, cnt_acc = out_c, cnt_c
         else:
-            acc = acc + out_c.to(acc_dtype)
-        cnt = cnt + cnt_c
-    return acc, cnt, overflow, wire_rows
+            acc, cnt_acc = _merge_chunk(acc, cnt_acc, out_c, cnt_c, reduce_op)
+
+    overflow = ovf_send + ovf_rep + ovf_own
+    wire = torch.stack([wire_rows, rows_rep, inexact, pairs_nonlocal])
+    return acc, cnt_acc, overflow, wire
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +819,7 @@ class MapReduceJob:
         self.device = device
         self.map_fn = map_fn
         self.cfg = config
+        _validate_wire(config)
         missing = _unported(config)
         if missing:
             raise NotImplementedError(
@@ -564,18 +921,30 @@ class MapReduceJob:
             return max(1e-6, self._last_wire[0] / self._last_wire[1])
         return 64.0
 
-    @staticmethod
-    def _wire_accounting(wire_rows: int, values) -> dict:
-        """Convert the device row count into bytes (static row size).
+    def _wire_accounting(self, wire, values, replication: int) -> dict:
+        """Convert the device row counters into bytes (static row sizes).
 
-        An uncoded, unquantized wire row carries the value payload plus a
-        4-byte cluster id.
+        ``wire`` is phase B's ``[wire_rows, replica_rows, inexact,
+        nonlocal_pairs]`` vector. Bytes a row are static properties of the
+        wire format: uncoded rows carry the payload (quantized or native)
+        plus a 4-byte cluster id; coded packet rows are XOR word slabs
+        (payload words + cluster word + position word); replica rows ship
+        the raw record (payload + 4-byte key hash).
         """
-        row_bytes = int(values.shape[-1]) * values.element_size() + 4
+        rows, rep_rows, inexact, pairs = (int(x) for x in wire.tolist())
+        quantize = self.cfg.quantize_shuffle
+        v_dim = int(values.shape[-1])
+        if replication > 1:
+            pay = _wire_payload_dtype(quantize, values.dtype)
+            row_bytes = (cs_ops.packed_width(v_dim, pay) + 2) * 4
+        else:
+            row_bytes = v_dim * (1 if quantize else values.element_size()) + 4
         return {
-            "shuffle_bytes": wire_rows * row_bytes,
-            "shuffle_rows": wire_rows,
-            "shuffle_pairs": wire_rows,
+            "shuffle_bytes": rows * row_bytes,
+            "shuffle_rows": rows,
+            "shuffle_pairs": pairs,
+            "replication_bytes": rep_rows * (v_dim * values.element_size() + 4),
+            "inexact": inexact,
         }
 
     # -- planning (the host "JobTracker" step) -------------------------------
@@ -732,6 +1101,7 @@ class MapReduceJob:
         # speeds — see ``pipeline.plan_waves``.
         waves = pipe.plan_waves(key_dist, schedule.assignment, m,
                                 cfg.pipeline_chunks, speeds=speeds,
+                                replication=cfg.shuffle_replication,
                                 pinned_first=pinned_first)
         chunk_caps = [
             int(min(capacity, _send_bound(waves.chunk_members(ci))))
@@ -855,22 +1225,21 @@ class MapReduceJob:
         """Run phase B under one plan (fresh or replayed); device results.
 
         ``caps`` (``(capacity, chunk_caps)``) overrides the plan's buffer
-        sizes (see :meth:`_needed_caps`). Returns ``(out (m, n, V), counts
-        (m, n), overflow, wire_rows)``.
+        sizes (see :meth:`_needed_caps`). The wire format rides the plan,
+        not the config: a replayed or loaded snapshot runs coded exactly
+        when it was planned coded. Returns ``(out (m, n, V), counts (m,
+        n), overflow, wire)`` (see :func:`_phase_b`).
         """
         cfg = self.cfg
-        if planned.waves.replication != 1:
-            raise NotImplementedError(
-                "plans for the coded shuffle are not ported yet: ROADMAP"
-                " Queue 1 item 8")
         capacity, chunk_caps = caps or (planned.capacity, planned.chunk_caps)
         static = (
             cfg.num_slots, cfg.num_clusters, capacity,
             tuple(chunk_caps), cfg.reduce_op, cfg.pipelined,
-            planned.waves.num_chunks,
+            planned.waves.num_chunks, cfg.quantize_shuffle,
         )
         dev = self.device
-        return _phase_b(
+        phase_b = _phase_b_coded if planned.waves.replication > 1 else _phase_b
+        return phase_b(
             intermediate,
             torch.as_tensor(planned.schedule.assignment, dtype=torch.int32, device=dev),
             torch.as_tensor(planned.waves.rank_of_cluster, dtype=torch.int32, device=dev),
@@ -972,7 +1341,7 @@ class MapReduceJob:
         t2 = time.perf_counter()
 
         # ---- Phase B.
-        out, counts, overflow, wire_rows = self._execute(intermediate, planned)
+        out, counts, overflow, wire = self._execute(intermediate, planned)
         overflow_total = int(overflow)
 
         # ---- Capacity fallback: a replayed plan's statistics-sized
@@ -988,7 +1357,7 @@ class MapReduceJob:
             cache.store(planned)
             decision = sc.ReuseDecision("replan", "overflow", decision.drift,
                                         speed_drift=decision.speed_drift)
-            out, counts, overflow, wire_rows = self._execute(intermediate, planned)
+            out, counts, overflow, wire = self._execute(intermediate, planned)
             overflow_total = int(overflow)
 
         # ---- Estimate-commitment fallback (streaming prefix): wave 1's
@@ -1001,7 +1370,7 @@ class MapReduceJob:
             if cache is not None:
                 cache.store(planned)
             del out, counts
-            out, counts, overflow, wire_rows = self._execute(
+            out, counts, overflow, wire = self._execute(
                 intermediate, planned, caps=self._needed_caps(intermediate, planned))
             overflow_total = int(overflow)
 
@@ -1013,8 +1382,9 @@ class MapReduceJob:
         # sum over slots (done on the pulled float32 arrays).
         values = out.cpu().numpy().reshape(m, n, -1).sum(axis=0)
         counts_np = counts.cpu().numpy().reshape(m, n).sum(axis=0)
-        acct = self._wire_accounting(int(wire_rows), intermediate[1])
+        acct = self._wire_accounting(wire, intermediate[1], planned.waves.replication)
         self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
+        inexact = acct.pop("inexact")
         t3 = time.perf_counter()
         self.last_phase_ms = {
             "phase_a": (t1 - t0) * 1e3,
@@ -1041,5 +1411,6 @@ class MapReduceJob:
             replan_benefit=benefit,
             slot_speeds=planned.schedule.slot_speeds,
             speed_drift=decision.speed_drift if decision is not None else None,
+            quantize_exact=(inexact == 0) if cfg.quantize_shuffle else None,
             **acct,
         )

@@ -11,4 +11,6 @@ Each subpackage has:
   fused_shuffle_reduce — phase B's gather + sorted segment-sum (§4.4)
   segment_reduce       — sorted segment-sum without the gather (its own
                          entry point; no engine path launches it)
+  coded_shuffle        — XOR of word slabs: the coded shuffle's packet
+                         encode and decode (shuffle_replication=2)
 """

@@ -24,7 +24,7 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "SOURCES", "build", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,6 +32,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+# Every kernel library of the port: ``csrc/<name>.cu``.
+SOURCES = ("histogram", "sketch_hist", "fused_shuffle_reduce", "segment_reduce",
+           "xor_words")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -64,12 +68,13 @@ def _library_path(name: str) -> Path:
 
 
 def build(*names: str) -> Dict[str, Path]:
-    """Compile every named kernel library that is not built yet, in parallel.
+    """Compile every named kernel library (all of :data:`SOURCES` when none
+    is named) that is not built yet, in parallel.
 
     Returns ``{name: library path}``. Raises ``RuntimeError`` with the
     compiler's output if any ``nvcc`` fails.
     """
-    paths = {name: _library_path(name) for name in names}
+    paths = {name: _library_path(name) for name in names or SOURCES}
     missing = {n: p for n, p in paths.items() if not p.is_file()}
     if not missing:
         return paths

@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.kernels.histogram.ops, "
         "repro_torch.kernels.sketch_hist.ops, "
         "repro_torch.kernels.segment_reduce.ops, "
+        "repro_torch.kernels.coded_shuffle.ops, "
         "repro_torch.kernels.fused_shuffle_reduce.ops\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
@@ -64,8 +65,6 @@ def test_default_device_raises_without_cuda():
     ("estimate_speeds", True, 6),
     ("measure_timings", True, 6),
     ("checkpoint_waves", True, 7),
-    ("shuffle_replication", 2, 8),
-    ("quantize_shuffle", "int8", 8),
 ])
 def test_unported_settings_name_their_roadmap_item(field, value, item):
     cfg = MapReduceConfig(num_slots=2, num_clusters=4, **{field: value})

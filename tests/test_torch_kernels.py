@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.coded_shuffle import ops as cs_ops
+from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
 from repro_torch.kernels.fused_shuffle_reduce.ref import fused_gather_segment_reduce_ref
 from repro_torch.kernels.histogram import ops as hist_ops
@@ -330,6 +332,51 @@ def test_segment_kernel_matches_plain(n_rows, num_segments, v, pad):
         values2 = torch.cat([values, torch.ones_like(values[:, :extra])], dim=1)
         seg2 = torch.cat([seg, torch.full_like(seg[:, :extra], num_segments)], dim=1)
         assert torch.equal(seg_ops.segment_reduce_sorted(values2, seg2, num_segments), got)
+
+
+# ---------------------------------------------------------------------------
+# XOR word slabs (the coded shuffle; CPU parity in test_torch_coded.py).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w", [(1, 1), (1, 13), (7, 5), (1000, 13), (3001, 5),
+                                 (70_001, 13), (1 << 20, 4)])
+@pytest.mark.parametrize("word", [torch.int32, torch.uint32])
+def test_xor_kernel_matches_plain(n, w, word):
+    dev = _cuda()
+    rng = np.random.default_rng(n + w)
+    raw = rng.integers(0, 2 ** 32, (2, n * w + 1), dtype=np.uint32).view(np.int32)
+    a_buf, b_buf = (torch.from_numpy(r).to(dev).view(word) for r in raw)
+    a, b = a_buf[:-1].view(n, w), b_buf[:-1].view(n, w)
+    before = cs_ops.launches
+    got = cs_ops.xor_words(a, b)
+    torch.cuda.synchronize()
+    assert cs_ops.launches == before + 1
+    assert torch.equal(got, xor_words_ref(a, b))
+    # A view one word into its slab takes the one-word loop: same bits.
+    shifted = a_buf[1:].view(n, w)
+    assert torch.equal(cs_ops.xor_words(shifted, b), xor_words_ref(shifted, b))
+    # Self-inverse, as decode needs.
+    assert torch.equal(cs_ops.xor_words(got, b), a)
+
+
+@pytest.mark.gpu
+def test_xor_wrapper_rejects_bad_inputs():
+    dev = _cuda()
+    a = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        cs_ops.xor_words(a.float(), a.float())
+    with pytest.raises(TypeError):
+        cs_ops.xor_words(a, a.to(torch.int64))
+    with pytest.raises(ValueError):
+        cs_ops.xor_words(a, a[:, :2])
+    with pytest.raises(ValueError):
+        cs_ops.xor_words(a, a.cpu())
+    with pytest.raises(ValueError):
+        cs_ops.xor_words(a.t(), a.t())
+    with pytest.raises(ValueError):
+        cs_ops.xor_words(a.view(-1), a.view(-1))
 
 
 @pytest.mark.gpu
