@@ -22,6 +22,12 @@ against a numpy oracle:
   first half of batch 0's streams and on a copy of it whose tail overflows
   the wave that its prefix committed, so that the escape hatch re-executes
   phase B;
+* the measured path: the sharded backend (one program and one CUDA stream
+  per slot, 32 streams on the one card) on batches 0-2 at the main path's
+  size, untimed (== oracle, == the main path's output and plan), then with
+  ``estimate_speeds=True, measure_timings=True`` (per-slot wave clocks from
+  the %globaltimer stamp kernels): three batches, then three more with slot
+  0 slowed 2x, whose speed estimate and planned load must fall;
 * the coded path: Coded MapReduce's r = 2 XOR multicast shuffle on the
   paper's 8 nodes (m = 8, one Reduce slot each; n =
   recommended_num_clusters(8) = 88) over slots 0-7 of batch 0, the first
@@ -36,6 +42,11 @@ against a numpy oracle:
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
 non-zero.
+
+CUDA maps streams onto ``CUDA_DEVICE_MAX_CONNECTIONS`` hardware queues (8
+by default), so the measured path's 32 slot streams would share queues.
+The script sets it to 32 unless the environment sets it, before the first
+CUDA call, and prints the value it ran with.
 
 The configuration is the PUMA InvertedIndex deployment the reference's
 simulator calibrates (``src/repro/core/simulator.py``): keys Zipf(0.97)
@@ -58,13 +69,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# CUDA reads it when it creates the context: set before torch touches
+# the device.
+os.environ.setdefault("CUDA_DEVICE_MAX_CONNECTIONS", "32")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
@@ -81,6 +97,9 @@ CODED_M, CODED_K = 8, 2 ** 20   # the coded path: 8 nodes, the first 2^20 pairs 
 # Multipliers of the sketch's second kernel case: all >= 2^31, so the
 # uint32 wraparound of the hash is exercised on every row.
 HIGH_MULTIPLIERS = (0x9E3779B1, 0xFFFFFFFF, 0x80000001, 0xC2B2AE35)
+
+# Kernels whose source file is named otherwise.
+SOURCE_OF = {"read_ticks": "wave_timer", "stamp_through": "wave_timer"}
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -107,6 +126,39 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, launches: int = 100, reps: int = 5, spin_cycles: int = 100_000_000) -> tuple:
+    """Device time of one ``fn()`` and the host's time to issue it, in ms.
+
+    A launch whose wrapper takes longer on the host than its kernel on the
+    card leaves the card idle between launches, so timing back-to-back
+    calls measures the host. Here a device-side spin holds the stream while
+    the host enqueues a burst of ``launches`` calls, which then run back to
+    back: CUDA events around the burst give the device time a call. The
+    spin (about 50 ms) must outlast the enqueue, which is checked. Returns
+    ``(device ms a call, host ms a call)`` (medians over ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    dev_times, host_times = [], []
+    for _ in range(reps):
+        spin_start = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin_start.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        check(spin_start.elapsed_time(start) > host_ms,
+              f"the spin outlasts the enqueue of {launches} launches ({host_ms:.2f} ms)")
+        dev_times.append(start.elapsed_time(end) / launches)
+        host_times.append(host_ms / launches)
+    return float(np.median(dev_times)), float(np.median(host_times))
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
@@ -496,15 +548,18 @@ def tail_burst(work, batch, kidx_np, oracle, plan1, n, prefix):
     return (new_keys, values, valid), (vals, counts), info
 
 
-def reset_launches(mods) -> None:
-    """Set every kernel's launch count to 0 (just before a path runs)."""
-    for mod in mods.values():
-        mod.launches = 0
+def reset_launches(counters) -> None:
+    """Set every kernel's launch count to 0 (just before a path runs).
+
+    ``counters`` maps a kernel's name to ``(module, attribute)`` of its
+    wrapper's count."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
 
 
-def read_launches(mods) -> dict:
+def read_launches(counters) -> dict:
     """Every kernel's launch count (just after a path ran)."""
-    return {name: mod.launches for name, mod in mods.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
 
 def check_oracle(res, oracle, what: str) -> None:
@@ -514,7 +569,7 @@ def check_oracle(res, oracle, what: str) -> None:
     check(np.array_equal(res.counts, oracle[1]), f"{what}: counts == numpy oracle")
 
 
-def coded_path(work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, n):
+def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
     """The coded shuffle and the quantized wire at m = 8, K = 2^20 (see the
     module docstring). Every check raises. Returns ``(record, launches)``
     with the path's kernel counts (set to 0 just before it)."""
@@ -529,9 +584,9 @@ def coded_path(work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, 
     q = np.clip(np.round(vals / scale), -127, 127).astype(np.float32)
     oracle_int8 = oracle_of(cid, q * scale, n)
     del vals, q, cid, valid_np
-    xor_mod = kernel_mods["xor_words"]
-    fused_mod = kernel_mods["fused_shuffle_reduce"]
-    reset_launches(kernel_mods)
+    xor_mod = counters["xor_words"][0]
+    fused_mod = counters["fused_shuffle_reduce"][0]
+    reset_launches(counters)
     runs = {}
 
     def run(label, **cfg):
@@ -594,7 +649,7 @@ def coded_path(work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, 
     check(f8.quantize_exact is True, "fp8 wire: {0, 1, 2} are exact in e4m3")
     check(np.array_equal(f8.values, uncoded.values) and np.array_equal(f8.counts, uncoded.counts),
           "coded fp8 == uncoded exact, bit for bit")
-    launches = read_launches(kernel_mods)
+    launches = read_launches(counters)
     ratio = uncoded.shuffle_bytes / coded.shuffle_bytes
     theory = 2 * (CODED_M - 1) / (CODED_M - 2)
     print(f"coded path: wire bytes uncoded / coded = {ratio:.4f} (full groups: "
@@ -605,6 +660,247 @@ def coded_path(work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, 
     torch.cuda.empty_cache()
     return {"m": CODED_M, "k": CODED_K, "n": n, "runs": runs, "wire_ratio": ratio,
             "wire_ratio_theory": theory, "int8_rel_err": rel}, launches
+
+
+def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapReduceConfig,
+                  MapReduceJob, ReusePolicy, wt_ops, dev):
+    """The sharded backend and its measured executor at the main path's size
+    (see the module docstring). Every check raises. Returns ``(record,
+    launches)`` with the path's kernel counts (set to 0 just before it)."""
+    hist_mod, fused_mod = counters["histogram"][0], counters["fused_shuffle_reduce"][0]
+    torch.cuda.empty_cache()
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    # The first stamp of the process calibrates its tick unit (read_ticks
+    # bracketing host sleeps); a measured run would do it at its first batch.
+    t0 = time.perf_counter()
+    cal = wt_ops.tick_calibration(dev)
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    check(abs(cal.seconds_per_tick / 1e-9 - 1.0) <= 0.05,
+          f"tick_calibration within 5% of 1e-9 s/tick (got {cal.seconds_per_tick:.4e})")
+    print(f"measured path: tick_calibration {cal.seconds_per_tick:.6e} s/tick in {cal_ms:.1f} ms",
+          flush=True)
+
+    def one(job, batch, oracle, what):
+        h0, f0 = hist_mod.launches, fused_mod.launches
+        s0 = wt_ops.stamp_through_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = job.run(batch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        chunks = job.last_plan.waves.num_chunks
+        check(hist_mod.launches - h0 == M, f"{what}: phase A launched the histogram once a slot")
+        check(fused_mod.launches - f0 == M * chunks,
+              f"{what}: phase B launched the fused kernel once a slot and chunk")
+        stamps = wt_ops.stamp_through_launches - s0
+        check(stamps == (M * (chunks + 1) if job._measure_timings else 0),
+              f"{what}: stamp_through launched at every wave boundary of every slot, and only"
+              f" when measured (got {stamps})")
+        check_oracle(res, oracle, what)
+        return res, {"wall_ms": wall_ms, **job.last_phase_ms, "chunks": chunks,
+                     "stamp_launches": stamps}
+
+    untimed = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n),
+                           backend="sharded")
+    check(all(d == dev for d in untimed.devices)
+          and len({s.cuda_stream for s in untimed.streams}) == M,
+          "the sharded job puts its slots on the card, one stream each")
+    runs = []
+    for b, (batch, oracle) in enumerate(batches):
+        res, info = one(untimed, batch, oracle, f"measured path: untimed sharded batch {b}")
+        if b == 0:
+            check(np.array_equal(res.values, pipelined0[0])
+                  and np.array_equal(res.counts, pipelined0[1]),
+                  "sharded batch 0 == the stacked main path's, bit for bit")
+            plan = untimed.last_plan
+            check(np.array_equal(plan.schedule.assignment, main_plan0.schedule.assignment)
+                  and np.array_equal(plan.waves.rank_of_cluster, main_plan0.waves.rank_of_cluster)
+                  and np.array_equal(plan.waves.chunk_of_cluster,
+                                     main_plan0.waves.chunk_of_cluster)
+                  and tuple(plan.chunk_caps) == tuple(main_plan0.chunk_caps),
+                  "sharded batch 0 plans as the stacked main path")
+        stacked = main_runs[b]
+        runs.append({"seed": stacked["seed"], "stacked": {
+            k: stacked[k] for k in ("wall_ms", "phase_a", "plan", "phase_b")}, "sharded": info})
+        print(f"measured path batch {stacked['seed']}: oracle ok | phase A / plan / phase B ms: "
+              f"stacked {stacked['phase_a']:.1f} / {stacked['plan']:.1f} / "
+              f"{stacked['phase_b']:.1f}, sharded {info['phase_a']:.1f} / {info['plan']:.1f} / "
+              f"{info['phase_b']:.1f}", flush=True)
+    del untimed
+    torch.cuda.empty_cache()
+
+    job = MapReduceJob(lambda b: b, MapReduceConfig(
+        num_slots=M, num_clusters=n, estimate_speeds=True, measure_timings=True),
+        backend="sharded")
+    check(job._measure_timings, "measure_timings=True resolves to measured clocks")
+    steps = []
+    for step in range(6):
+        b = step % len(batches)
+        if step == len(batches):
+            job.set_slot_slowdown(0, 2.0)
+        batch, oracle = batches[b]
+        what = f"measured path: measured step {step} (batch {b})"
+        res, info = one(job, batch, oracle, what)
+        t = job.last_wave_timings
+        check(t.valid and t.seconds.shape == (M, info["chunks"]) and bool((t.seconds > 0).all()),
+              f"{what}: valid all-positive ({M}, {info['chunks']}) wave timings")
+        speeds = job.speed_estimator.speeds()
+        load = np.bincount(res.schedule.assignment, weights=res.key_distribution, minlength=M)
+        per_slot = t.slot_seconds()
+        info.update(
+            slowdown0=float(job._slot_slowdown[0]),
+            wave_s={"min": float(t.seconds.min()), "median": float(np.median(t.seconds)),
+                    "max": float(t.seconds.max())},
+            slot_s={"min": float(per_slot.min()), "median": float(np.median(per_slot)),
+                    "max": float(per_slot.max())},
+            speed0=float(speeds[0]), speed_min=float(speeds.min()), speed_max=float(speeds.max()),
+            load0_share=float(load[0] / load.sum()),
+            phase_b_ratio=info["phase_b"] / runs[b]["sharded"]["phase_b"])
+        steps.append(info)
+        print(f"{what}: oracle ok | phase A {info['phase_a']:.1f} ms | plan {info['plan']:.1f} "
+              f"ms | phase B {info['phase_b']:.1f} ms (measured / untimed "
+              f"{info['phase_b_ratio']:.3f}) | wave s min/median/max "
+              f"{info['wave_s']['min']:.6f} / {info['wave_s']['median']:.6f} / "
+              f"{info['wave_s']['max']:.6f} | speed[0] {info['speed0']:.4f} (range "
+              f"{info['speed_min']:.4f}-{info['speed_max']:.4f}) | slot 0 planned load share "
+              f"{info['load0_share']:.5f}", flush=True)
+    before, after = steps[len(batches) - 1], steps[-1]
+    check(after["speed0"] < 0.75, f"slot 0 slowed 2x reads below 0.75 (got {after['speed0']:.4f})")
+    check(after["load0_share"] < before["load0_share"], "slot 0's planned load fell")
+    del job
+    torch.cuda.empty_cache()
+
+    # The stamps' overhead: an untimed and a measured job that replay one
+    # plan (a reuse policy that never replans for drift or speed, with room
+    # against overflow), in turns (untimed, measured, measured, untimed) on
+    # every batch, twice.
+    policy = ReusePolicy(max_drift=1.0, max_speed_drift=float("inf"), capacity_slack=1.0)
+    pair = {"untimed": MapReduceJob(lambda b: b, MapReduceConfig(
+                num_slots=M, num_clusters=n, reuse=policy), backend="sharded"),
+            "measured": MapReduceJob(lambda b: b, MapReduceConfig(
+                num_slots=M, num_clusters=n, reuse=policy, estimate_speeds=True,
+                measure_timings=True), backend="sharded")}
+    for label, job in pair.items():
+        one(job, batches[0][0], batches[0][1], f"measured path: overhead pair, {label} warm-up")
+    overhead = []
+    for _ in range(2):
+        for b, (batch, oracle) in enumerate(batches):
+            phase_b = {"untimed": [], "measured": []}
+            for label in ("untimed", "measured", "measured", "untimed"):
+                res, info = one(pair[label], batch, oracle,
+                                f"measured path: overhead pair, {label} batch {b}")
+                check(res.reused, "the overhead pair replays its plan")
+                phase_b[label].append(info["phase_b"])
+            overhead.append({"batch": b, **phase_b,
+                             "ratio": float(np.mean(phase_b["measured"])
+                                            / np.mean(phase_b["untimed"]))})
+    plans = [job.last_plan for job in pair.values()]
+    check(np.array_equal(plans[0].schedule.assignment, plans[1].schedule.assignment)
+          and tuple(plans[0].chunk_caps) == tuple(plans[1].chunk_caps),
+          "the overhead pair ran one plan")
+    ratios = [o["ratio"] for o in overhead]
+    print(f"measured path: measured / untimed phase B on one replayed plan, in turns: ratios "
+          + ", ".join(f"{r:.3f}" for r in ratios) + f" (median {np.median(ratios):.3f}); "
+          f"phase B ms untimed {np.median([t for o in overhead for t in o['untimed']]):.1f}, "
+          f"measured {np.median([t for o in overhead for t in o['measured']]):.1f} (medians)",
+          flush=True)
+    del pair
+    launches = read_launches(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"measured path launches: {launches} | peak device memory {peak_gb:.1f} GB", flush=True)
+    prof_batch = batches[0][0]
+    torch.cuda.empty_cache()
+    prof_job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n),
+                            backend="sharded")
+    prof_job.run(prof_batch)
+    profile = profile_run("profile sharded batch 0", lambda: prof_job.run(prof_batch), prof_job)
+    del prof_job
+    torch.cuda.empty_cache()
+    return {"calibration_s_per_tick": cal.seconds_per_tick, "calibration_ms": cal_ms,
+            "connections": os.environ.get("CUDA_DEVICE_MAX_CONNECTIONS"),
+            "untimed": runs, "measured": steps, "overhead": overhead, "peak_gb": peak_gb,
+            "profile": profile}, launches
+
+
+def wave_timer_phase(wt_ops, wt_ref, ids_shape, dev) -> dict:
+    """Kernels 5-6 at the measured path's shapes. ``stamp_through`` copies one
+    slot's received cluster ids of chunk 0 (``ids_shape`` int32) bitwise and
+    is timed against its plain version and ``Tensor.copy_``; ``read_ticks``
+    is timed over back-to-back launches. Stamp intervals are held against
+    CUDA event times over >= 10 ms spins (within 5%), and back-to-back stamps
+    give the timer's smallest step. Returns ``{"read_ticks": ..., "stamp_through":
+    ..., "timer": ...}``."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(-2 ** 31, 2 ** 31, ids_shape, generator=gen, device=dev, dtype=torch.int32)
+    got, _ = wt_ops.stamp_through(x)
+    want, _ = wt_ref.stamp_through_ref(x)
+    torch.cuda.synchronize()
+    check(torch.equal(got, x) and torch.equal(got, want), "stamp_through copies bit for bit")
+    odd = x.view(-1).view(torch.uint8)[1:]            # unaligned bytes: the byte path
+    got_odd, _ = wt_ops.stamp_through(odd)
+    torch.cuda.synchronize()
+    check(torch.equal(got_odd, odd), "stamp_through copies unaligned bytes bit for bit")
+    copy_err = float((got.long() - want.long()).abs().max())
+    del got, want, got_odd
+    out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
+    b_ms, by = bound_ms(2 * nbytes + 8, 0)
+    ms, host_ms = device_ms(lambda: wt_ops.stamp_through(x))
+    plain_ms, plain_host_ms = device_ms(lambda: wt_ref.stamp_through_ref(x))
+    stamp = {"shape": list(ids_shape), "bytes": 2 * nbytes + 8, "max_abs_err": copy_err,
+             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+             "library_ms": device_ms(lambda: out.copy_(x))[0],
+             "event_ms": cuda_ms(lambda: wt_ops.stamp_through(x), reps=50, warmup=5),
+             "bound_ms": b_ms, "bound_by": by}
+    del out
+
+    # read_ticks: device time a launch (a queued burst), the host's time to
+    # issue one, and the plain version's (host) time.
+    anchor = torch.ones(1, device=dev)
+    ms, host_ms = device_ms(lambda: wt_ops.read_ticks(anchor), launches=200)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        wt_ref.read_ticks_plain()
+    b_ms, by = bound_ms(8 + 1, 0)
+    read = {"ms": ms, "host_ms": host_ms, "plain_ms": (time.perf_counter() - t0) * 1e3 / 1000,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+
+    # Stamp intervals against CUDA events over device-side spins.
+    cal = wt_ops.tick_calibration(dev)
+    errs = []
+    for cycles in (20_000_000, 40_000_000, 80_000_000):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        a = wt_ops.read_ticks(anchor)
+        torch.cuda._sleep(cycles)
+        b = wt_ops.read_ticks(anchor)
+        end.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end)
+        ticks = wt_ops.combine_ticks(np.stack([wt_ops.ticks_numpy(a), wt_ops.ticks_numpy(b)]))
+        stamp_ms = float(ticks[1] - ticks[0]) * cal.seconds_per_tick * 1e3
+        errs.append({"event_ms": event_ms, "stamp_ms": stamp_ms,
+                     "rel_err": abs(stamp_ms - event_ms) / event_ms})
+        check(event_ms >= 10.0, f"spin of {cycles} cycles lasts >= 10 ms (got {event_ms:.2f})")
+        check(errs[-1]["rel_err"] <= 0.05,
+              f"stamp interval within 5% of CUDA events ({stamp_ms:.4f} vs {event_ms:.4f} ms)")
+    read["max_abs_err"] = max(abs(e["stamp_ms"] - e["event_ms"]) for e in errs)
+
+    # The timer's update step: back-to-back stamps, queued behind a spin so
+    # that they run as fast as the card launches them.
+    torch.cuda._sleep(200_000_000)
+    stamps = [wt_ops.read_ticks(anchor) for _ in range(4000)]
+    torch.cuda.synchronize()
+    values = wt_ops.combine_ticks(np.stack([wt_ops.ticks_numpy(t) for t in stamps]))
+    steps = np.diff(values)
+    nonzero = steps[steps > 0]
+    check(bool((steps >= 0).all()) and nonzero.size > 0, "back-to-back stamps never go back")
+    timer = {"seconds_per_tick": cal.seconds_per_tick, "intervals": errs,
+             "min_step_ns": float(nonzero.min() * cal.seconds_per_tick * 1e9),
+             "step_gcd_ticks": int(np.gcd.reduce(nonzero)),
+             "zero_steps": int((steps == 0).sum()), "steps": int(steps.size),
+             "median_step_ns": float(np.median(steps) * cal.seconds_per_tick * 1e9)}
+    return {"read_ticks": read, "stamp_through": stamp, "timer": timer}
 
 
 def profile_run(label, fn, job) -> dict:
@@ -664,20 +960,27 @@ def main(argv=None) -> int:
     from repro_torch.kernels.segment_reduce.ref import segment_reduce_sorted_ref
     from repro_torch.kernels.sketch_hist import ops as sk_ops
     from repro_torch.kernels.sketch_hist.ref import sketch_cells, sketch_hist_ref
+    from repro_torch.kernels.wave_timer import ops as wt_ops
+    from repro_torch.kernels.wave_timer import ref as wt_ref
 
-    kernel_mods = {"histogram": hist_ops, "sketch_hist": sk_ops,
-                   "fused_shuffle_reduce": fused_ops, "segment_reduce": seg_ops,
-                   "xor_words": cs_ops}
+    counters = {"histogram": (hist_ops, "launches"), "sketch_hist": (sk_ops, "launches"),
+                "fused_shuffle_reduce": (fused_ops, "launches"),
+                "segment_reduce": (seg_ops, "launches"), "xor_words": (cs_ops, "launches"),
+                "read_ticks": (wt_ops, "read_ticks_launches"),
+                "stamp_through": (wt_ops, "stamp_through_launches")}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = nvidia_smi_line()
-    print(f"device: {smi} | torch {torch.__version__} | CUDA {torch.version.cuda}",
-          flush=True)
-    record = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    connections = os.environ.get("CUDA_DEVICE_MAX_CONNECTIONS")
+    print(f"device: {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
+          f"CUDA_DEVICE_MAX_CONNECTIONS={connections}", flush=True)
+    record = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "cuda_device_max_connections": connections}
 
     # ---- Build every kernel (parallel nvcc).
-    check(set(kernel_mods) == set(_build.SOURCES), "every kernel source is driven here")
+    check({SOURCE_OF.get(k, k) for k in counters} == set(_build.SOURCES),
+          "every kernel source is driven here")
     t0 = time.perf_counter()
     libs = _build.build()
     record["build_s"] = time.perf_counter() - t0
@@ -778,7 +1081,7 @@ def main(argv=None) -> int:
     # ---- The main path: exact statistics on three batches.
     job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n))
     check(job.device.type == "cuda", "the job runs on the card by default")
-    reset_launches(kernel_mods)
+    reset_launches(counters)
     torch.cuda.reset_peak_memory_stats()
     runs = []
     pipelined0 = None
@@ -808,8 +1111,9 @@ def main(argv=None) -> int:
               f"{run['balance_os4m']:.4f} vs hash {run['balance_hash']:.4f}", flush=True)
         if b == 0:
             pipelined0 = (res.values, res.counts)
+            main_plan0 = job.last_plan
         del res
-    launches = {"main": read_launches(kernel_mods)}
+    launches = {"main": read_launches(counters)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"main path launches: {launches['main']} | peak device memory {peak_gb:.1f} GB",
           flush=True)
@@ -829,7 +1133,7 @@ def main(argv=None) -> int:
     job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
                                                     reuse=policy))
     spy = PlanSpy(job)
-    reset_launches(kernel_mods)
+    reset_launches(counters)
     reuse_runs = []
     for b, (batch, oracle) in enumerate(batches):
         seed = args.seed + b
@@ -856,7 +1160,7 @@ def main(argv=None) -> int:
               f"{run['phase_a']:.1f} ms | plan {run['plan']:.1f} ms | phase B "
               f"{run['phase_b']:.1f} ms | run {wall_ms:.1f} ms", flush=True)
         del res
-    launches["reuse"] = read_launches(kernel_mods)
+    launches["reuse"] = read_launches(counters)
     cache_stats = job.schedule_cache.stats()
     print(f"reuse path launches: {launches['reuse']} | cache {cache_stats}", flush=True)
 
@@ -881,7 +1185,15 @@ def main(argv=None) -> int:
     record["reuse"] = {"runs": reuse_runs, "cache": cache_stats,
                        "snapshot_replay": {"wall_ms": warm_ms, "drift": res.drift,
                                            **phases}}
-    del res, job, warm, batches, batch, oracle
+    del res, job, warm
+    torch.cuda.empty_cache()
+
+    # ---- The measured path: the sharded backend on the same three batches,
+    # untimed and with measured wave clocks.
+    record["measured_path"], launches["measured"] = measured_path(
+        batches, runs, main_plan0, pipelined0, counters, n, MapReduceConfig, MapReduceJob,
+        ReusePolicy, wt_ops, dev)
+    del batches, batch, oracle
     torch.cuda.empty_cache()
 
     # ---- The sketch path: count-min statistics at n = 2^17 on batch 0,
@@ -901,14 +1213,14 @@ def main(argv=None) -> int:
             return execute(intermediate, planned, caps)
 
         job._execute = spy_execute
-        reset_launches(kernel_mods)
+        reset_launches(counters)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         t0 = time.perf_counter()
         res = job.run(batch)
         wall_ms = (time.perf_counter() - t0) * 1e3
-        got = read_launches(kernel_mods)
+        got = read_launches(counters)
         if path is not None:
             launches[path] = got
         chunks = job.last_plan.waves.num_chunks
@@ -982,7 +1294,7 @@ def main(argv=None) -> int:
     # the XOR kernel at its chunk-0 encode shape.
     coded_n = clustering.recommended_num_clusters(CODED_M)
     record["coded_path"], launches["coded"] = coded_path(
-        work, batch0, kidx0, kernel_mods, MapReduceConfig, MapReduceJob, coded_n)
+        work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, coded_n)
     n_rep = -(-CODED_K // (CODED_M - 1))
     cap2 = min(n_rep, record["coded_path"]["runs"]["coded"]["chunk_caps"][0])
     xor = xor_phase(cs_ops, xor_words_ref, CODED_M, cap2, V + 2, dev)
@@ -992,6 +1304,30 @@ def main(argv=None) -> int:
     record["xor_words"] = xor
     torch.cuda.empty_cache()
     record["launches"] = launches
+
+    # ---- Kernel phases 5 and 6: the wave timer at the measured path's
+    # shapes (one slot's received ids of chunk 0).
+    ids_shape = (1, M * int(main_plan0.chunk_caps[0]))
+    timer = wave_timer_phase(wt_ops, wt_ref, ids_shape, dev)
+    st, rt, tm = timer["stamp_through"], timer["read_ticks"], timer["timer"]
+    print(f"kernel stamp_through {ids_shape} int32 (chunk 0's received ids of one slot): "
+          f"bitwise ok | device: kernel {st['ms']:.4f} ms, plain (clone + host stamp) "
+          f"{st['plain_ms']:.4f} ms, Tensor.copy_ {st['library_ms']:.4f} ms, bound "
+          f"{st['bound_ms']:.4f} ms | host to issue: kernel {st['host_ms']:.4f} ms, plain "
+          f"{st['plain_host_ms']:.4f} ms | one call between events {st['event_ms']:.4f} ms",
+          flush=True)
+    print(f"kernel read_ticks: device {rt['ms'] * 1e3:.3f} us a launch, host to issue "
+          f"{rt['host_ms'] * 1e3:.3f} us | plain (host perf_counter_ns) "
+          f"{rt['plain_ms'] * 1e3:.3f} us | stamp vs CUDA event intervals: "
+          + ", ".join(f"{e['stamp_ms']:.4f} / {e['event_ms']:.4f} ms" for e in tm["intervals"]),
+          flush=True)
+    print(f"%globaltimer: {tm['seconds_per_tick']:.6e} s/tick (calibrated); back-to-back stamps: "
+          f"smallest non-zero step {tm['min_step_ns']:.1f} ns, gcd of steps "
+          f"{tm['step_gcd_ticks']} ticks, median step {tm['median_step_ns']:.1f} ns, "
+          f"{tm['zero_steps']} of {tm['steps']} steps zero", flush=True)
+    record["wave_timer"] = timer
+    print(f"CUDA_DEVICE_MAX_CONNECTIONS={os.environ.get('CUDA_DEVICE_MAX_CONNECTIONS')}",
+          flush=True)
 
     # ---- Where the time goes: batch 0 on the main path once more, and the
     # coded path's coded run, under the profiler.
@@ -1058,12 +1394,36 @@ def main(argv=None) -> int:
          "launches": total_launches("xor_words"), "max_abs_err": xor["max_abs_err"],
          "ms": xor["ms"], "plain_ms": xor["plain_ms"], "bound_ms": xor["bound_ms"],
          "bound_by": xor["bound_by"], "library_ms": xor["library_ms"]},
+        # The measured path launches it to calibrate the tick unit; its time
+        # is one launch of a burst of back-to-back launches. Its error is the
+        # largest |stamp interval - CUDA event interval| in ms over the spins.
+        # No library call reads a device clock.
+        {"name": "read_ticks", "route": "cuda",
+         "source": "src/repro_torch/csrc/wave_timer.cu",
+         "replaces": "src/repro/kernels/wave_timer/wave_timer.py:123",
+         "launches": total_launches("read_ticks"), "max_abs_err": rt["max_abs_err"],
+         "ms": rt["ms"], "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
+         "bound_by": rt["bound_by"], "library_ms": None},
+        # Launched at every wave boundary of every slot of a measured batch
+        # (M * (chunks + 1)); its times are at chunk 0's received ids of one
+        # slot. The library call is Tensor.copy_ (the copy without the stamp).
+        {"name": "stamp_through", "route": "cuda",
+         "source": "src/repro_torch/csrc/wave_timer.cu",
+         "replaces": "src/repro/kernels/wave_timer/wave_timer.py:167",
+         "launches": total_launches("stamp_through"), "max_abs_err": st["max_abs_err"],
+         "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": st["bound_by"], "library_ms": st["library_ms"]},
     ]
     check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
-          and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0,
+          and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0
+          and launches["measured"]["read_ticks"] > 0
+          and launches["measured"]["stamp_through"] > 0,
           "every kernel of an engine path was launched on it")
     check(all(launches[p]["xor_words"] == 0 for p in launches if p != "coded"),
           "no uncoded path launched xor_words")
+    check(all(launches[p][k] == 0 for p in launches if p != "measured"
+              for k in ("read_ticks", "stamp_through")),
+          "only the measured path launched the wave timer")
     record["kernels"] = kernels
     record["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

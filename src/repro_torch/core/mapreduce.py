@@ -1,22 +1,45 @@
-"""A keyed Map/Shuffle/Reduce engine on one GPU with OS4M scheduling.
+"""A keyed Map/Shuffle/Reduce engine on GPUs with OS4M scheduling.
 
 The paper's whole workflow —
 
     map  →  collect per-key statistics  →  (host) Q||C_max schedule
          →  chunked shuffle ("copy")    →  pipelined segment reduce ("run")
+         →  measure per-slot wave timings → update slot-speed estimate
 
 as two device phases around a host planning step. Phase boundaries match
 the paper: Reduce work begins only after *all* Map operations have
 finished and the schedule is known (§4.1 step 6).
 
-The ``m`` Reduce slots are a leading ``(m,)`` axis of every tensor on one
-device — the stacked-slots form of the reference's ``backend="vmap"``.
-The all-to-all "copy" of a chunk is then a transpose of its ``(src, dst,
-cap)`` bucket tensor, and the reference's ``psum`` over slots is a sum
-over that axis.
+Two backends run the ``m`` Reduce slots:
+
+* ``backend="stacked"`` — the slots are a leading ``(m,)`` axis of every
+  tensor on one device, the counterpart of the reference's
+  ``backend="vmap"``: one launch serves every slot, the all-to-all "copy"
+  of a chunk is a transpose of its ``(src, dst, cap)`` bucket tensor, and
+  the reference's ``psum`` over slots is a sum over that axis.
+* ``backend="sharded"`` — the counterpart of ``backend="shard_map"``: one
+  controller (this process) plans once and runs one program per slot,
+  each on its own device (``devices=``) and CUDA stream, on a ``(1, K)``
+  slice. The collectives are device-to-device copies and reductions
+  ordered by CUDA events: the chunk "copy" gathers ``send[src][dst]`` of
+  every sender after its spill event, ``psum`` is a sum of per-slot
+  scalars and ``pmax`` a maximum.
+
+Both drive ONE phase-B body (:func:`_phase_b_body`), a generator that
+yields at each collective; the backend's runner performs it. Each slot's
+program is the body over its rows, so the backends agree bit for bit.
+
+Q||C_max speeds: ``speeds`` pins a per-slot speed vector;
+``estimate_speeds`` learns one online (:class:`~repro_torch.core.
+slot_speeds.SlotSpeedEstimator`). On the stacked backend the estimator
+reads a synthetic model (work × injected slowdown: one device has no
+per-slot clocks); on the sharded backend it reads measured wave clocks —
+the same body with a ``stamp_through`` hook (``kernels/wave_timer``,
+``%globaltimer`` stamps on each slot's stream), so a measured batch is
+bit-identical to an unmeasured one by construction.
 
 Phase A maps the input and builds every slot's ``K^(i)`` histogram in one
-launch of the histogram kernel. The host pulls the ``(m, n)`` float32
+launch of the histogram kernel (one a slot on the sharded backend). The host pulls the ``(m, n)`` float32
 statistics and plans: the schedule, the §4.4 waves (chunks of clusters in
 increasing-load order) and the statistics-sized send capacities. Phase B
 writes every chunk's bucket file in one counting-sort spill, then walks
@@ -71,6 +94,7 @@ function.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional, Tuple
@@ -79,18 +103,26 @@ import numpy as np
 import torch
 
 from repro_torch.core import clustering
+from repro_torch.core import mesh_timing as mt
 from repro_torch.core import pipeline as pipe
 from repro_torch.core import schedule_cache as sc
 from repro_torch.core import scheduler as sched_lib
 from repro_torch.core import simulator as sim
+from repro_torch.core import slot_speeds as ss
 from repro_torch.core import stats_provider as sp
+from repro_torch.kernels import _build
 from repro_torch.kernels.coded_shuffle import ops as cs_ops
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
+from repro_torch.kernels.wave_timer import ops as wt_ops
 
 __all__ = ["MapReduceConfig", "JobResult", "MapReduceJob"]
 
 _INT32_MIN = -(2 ** 31)
 REDUCE_OPS = ("sum", "max", "count")
+BACKENDS = ("stacked", "sharded")
+# The ROADMAP Queue 1 item that brings the coded shuffle to the sharded
+# backend (the reference's _phase_b_shard_coded under shard_map).
+_SHARDED_CODED_ITEM = 14
 _FP8 = torch.float8_e4m3fn
 # Half-way between 448, e4m3fn's largest finite value, and 480: the
 # reference's cast rounds every larger magnitude (and +-inf) to NaN, while
@@ -129,10 +161,21 @@ class MapReduceConfig:
     delivered value, local pairs included, goes through encode → decode,
     and ``JobResult.quantize_exact`` says whether that changed any record.
 
-    ``estimate_speeds``, ``measure_timings`` and ``checkpoint_waves`` name
-    features of the reference that the port does not have yet; any value
-    but the default raises ``NotImplementedError`` naming the ROADMAP
-    Queue 1 item that brings it.
+    Heterogeneous slots also learn their speeds online:
+    ``estimate_speeds`` folds phase-B wave timings into a
+    :class:`~repro_torch.core.slot_speeds.SlotSpeedEstimator` (EWMA weight
+    ``speed_ewma``). ``measure_timings`` picks the timing source: ``None``
+    resolves to *measured* per-slot wave clocks on the sharded backend
+    and to the synthetic work/slowdown model on the stacked one (one
+    device has no per-slot clocks); ``True`` forces the measured path
+    (needs ``backend="sharded"`` and ``estimate_speeds``); ``False``
+    disables it. Measured runs use the same overlapped pipeline with
+    per-wave stamps on each slot's stream; without a tick source the
+    executor falls back to wave-fenced host timing.
+
+    ``checkpoint_waves`` names a feature of the reference that the port
+    does not have yet; ``True`` raises ``NotImplementedError`` naming the
+    ROADMAP Queue 1 item that brings it.
     """
 
     num_slots: int                      # m — Reduce slots
@@ -145,8 +188,9 @@ class MapReduceConfig:
     capacity_send: Optional[int] = None  # per-(shard,dest) send buffer; None = safe bound
     speeds: Optional[Tuple[float, ...]] = None  # static per-slot speeds (1.0 = nominal)
     reuse: Optional[sc.ReusePolicy] = None  # schedule-reuse policy; None = replan per run
-    estimate_speeds: bool = False       # online speed estimation (item 6)
-    measure_timings: Optional[bool] = None  # measured wave clocks (item 6)
+    estimate_speeds: bool = False       # learn speeds online from phase-B timings
+    speed_ewma: float = 0.4             # estimator smoothing (newest-sample weight)
+    measure_timings: Optional[bool] = None  # real per-slot wave clocks (sharded)
     checkpoint_waves: bool = False      # elastic mesh (item 7)
     shuffle_replication: int = 1        # 1 uncoded | 2 coded pair placement
     quantize_shuffle: Optional[str] = None  # None | int8 | fp8 wire payload
@@ -186,18 +230,45 @@ class JobResult:
     quantize_exact: Optional[bool] = None  # quantized round trip lossless? (None = off)
 
 
-def _unported(cfg: MapReduceConfig):
+def _unported(cfg: MapReduceConfig, backend: str):
     """The (setting, ROADMAP Queue 1 item) pairs of ``cfg`` the port lacks."""
     checks = [
-        (cfg.estimate_speeds, "estimate_speeds", 6),
-        (bool(cfg.measure_timings), "measure_timings=True", 6),
         (cfg.checkpoint_waves, "checkpoint_waves", 7),
+        (backend == "sharded" and cfg.shuffle_replication > 1,
+         "shuffle_replication=2 on backend='sharded'", _SHARDED_CODED_ITEM),
     ]
     return [(name, item) for hit, name, item in checks if hit]
 
 
-def _validate_wire(cfg: MapReduceConfig) -> None:
-    """The reference's ``ValueError``s for the coded and quantized wire.
+def _not_ported(missing) -> NotImplementedError:
+    return NotImplementedError("not ported yet: " + ", ".join(
+        f"{name} (ROADMAP Queue 1 item {item})" for name, item in missing))
+
+
+def _resolve_measure(cfg: MapReduceConfig, backend: str) -> bool:
+    """The timing source: measured per-slot clocks or the synthetic model.
+
+    ``None`` means measured on the sharded backend when speeds are
+    estimated; ``True`` is refused where the reference refuses it.
+    """
+    measure = cfg.measure_timings
+    if measure is None:
+        return backend == "sharded" and cfg.estimate_speeds
+    if measure:
+        if backend != "sharded":
+            raise ValueError(
+                "measure_timings=True needs backend='sharded' — per-slot"
+                " clocks do not exist on a single stacked device")
+        if not cfg.estimate_speeds:
+            raise ValueError(
+                "measure_timings=True without estimate_speeds=True would "
+                "measure timings nothing consumes")
+    return bool(measure)
+
+
+def _validate_wire(cfg: MapReduceConfig, measured: bool) -> None:
+    """The reference's ``ValueError``s for the coded and quantized wire and
+    for measured timings beside them (``measured`` is the resolved source).
 
     Checked before the unported settings, so a combination the reference
     refuses is refused alike, not reported as not ported.
@@ -219,18 +290,27 @@ def _validate_wire(cfg: MapReduceConfig) -> None:
             raise ValueError(
                 "shuffle_replication>1 is incompatible with checkpoint_waves —"
                 " the checkpointed walk has its own per-wave copy programs")
-        if cfg.measure_timings:
+        if measured:
             raise ValueError(
                 "shuffle_replication>1 is incompatible with measured timings —"
-                " the coded decode is not stamp-instrumented")
+                " the coded decode is not stamp-instrumented; set"
+                " measure_timings=False to combine coding with speed"
+                " estimation (synthetic model)")
     if cfg.quantize_shuffle and cfg.checkpoint_waves:
         raise ValueError(
             "quantize_shuffle is incompatible with checkpoint_waves — the"
             " checkpointed copy programs ship the exact wire")
+    if cfg.checkpoint_waves and measured:
+        raise ValueError(
+            "checkpoint_waves=True is incompatible with measured timings —"
+            " both own the fenced phase-B program structure; set"
+            " measure_timings=False (synthetic model) to combine fault"
+            " tolerance with speed estimation")
 
 
 # ---------------------------------------------------------------------------
-# Phase bodies over stacked slots (leading (m,) axis).
+# Phase bodies over a group of slots: a leading rows axis, all m slots on
+# the stacked backend, one slot on the sharded backend.
 # ---------------------------------------------------------------------------
 
 
@@ -332,10 +412,15 @@ def _counting_sort_to_buckets(dest, values, payload, num_slots: int, capacity: i
             bm.reshape(m, num_slots, capacity), overflow)
 
 
-def _wire_rows(bucket_valid: torch.Tensor) -> torch.Tensor:
-    """Rows crossing the network: all bucketed rows but the ``(i, i)`` ones."""
-    diag = bucket_valid.diagonal(dim1=0, dim2=1)
-    return bucket_valid.sum() - diag.sum()
+def _wire_rows(bucket_valid: torch.Tensor, me: torch.Tensor) -> torch.Tensor:
+    """Rows crossing the network: all bucketed rows but each sender's own.
+
+    ``bucket_valid`` is ``(rows, m, cap)``: the buckets of slots ``me``
+    (one a row) to every destination; a slot's bucket to itself is
+    delivered locally.
+    """
+    own = bucket_valid[torch.arange(bucket_valid.shape[0], device=me.device), me]
+    return bucket_valid.sum() - own.sum()
 
 
 def _copy_chunk(buckets):
@@ -431,16 +516,24 @@ def _wire_payload_dtype(quantize: Optional[str], value_dtype: torch.dtype) -> to
     return value_dtype
 
 
-def _quantize_scale(values, valid, quantize: Optional[str]):
+def _quantize_magnitude(values, valid) -> torch.Tensor:
+    """The largest valid magnitude of these rows, a float32 device scalar:
+    what each slot contributes to the reference's ``pmax``."""
+    return (values.float().abs() * valid.float()[..., None]).amax()
+
+
+def _quantize_scale(values, valid, quantize: Optional[str], magnitude=None):
     """One global int8 scale a batch: the largest valid magnitude over every
     slot (the reference's ``pmax``) over 127, a float32 device scalar.
 
-    A single scale, not one a chunk, so that the sequential and pipelined
-    engines encode alike and stay bit-identical to each other.
+    ``magnitude`` is that maximum when the rows hold only some slots (the
+    sharded backend's pmax); stacked rows hold every slot. A single scale,
+    not one a chunk, so that the sequential and pipelined engines encode
+    alike and stay bit-identical to each other.
     """
     if quantize != "int8":
         return None
-    mag = (values.float().abs() * valid.float()[..., None]).amax()
+    mag = _quantize_magnitude(values, valid) if magnitude is None else magnitude
     return mag.clamp_min(1e-12) / 127.0
 
 
@@ -465,65 +558,43 @@ def _quantize_decode(q, scale, value_dtype: torch.dtype, quantize: str) -> torch
     return q.view(_FP8).float().to(value_dtype)
 
 
-def _quantize_wire(values, valid, quantize: Optional[str]):
+def _quantize_wire(values, valid, quantize: Optional[str], magnitude=None):
     """``(scale, wire payload, delivered values, inexact)`` of a batch.
 
     ``inexact`` counts the valid records whose round trip changed them (a
     device scalar). Without quantization the wire carries the values.
+    ``magnitude`` as in :func:`_quantize_scale`.
     """
     if not quantize:
         return None, values, values, torch.zeros((), dtype=torch.int64, device=values.device)
-    scale = _quantize_scale(values, valid, quantize)
+    scale = _quantize_scale(values, valid, quantize, magnitude)
     wire = _quantize_encode(values, scale, quantize)
     delivered = _quantize_decode(wire, scale, values.dtype, quantize)
     inexact = (valid & (delivered != values).any(dim=-1)).sum()
     return scale, wire, delivered, inexact
 
 
-def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static):
-    """Chunked shuffle ("copy") + pipelined reduce ("run") — §4.1 step 6 + §4.4.
+def _spill(intermediate, assignment, chunk_of_cluster, static, me, send_vals):
+    """Phase B's spill: every chunk's bucket file of these rows in one sort.
 
-    ``pipelined=False`` (or a single chunk) is the Hadoop-style barrier:
-    one bulk all-to-all of every pair, then one reduce. The pipelined path
-    writes every chunk's bucket file in one spill and walks the chunks in
-    increasing-load order, issuing the copy of chunk ``c+1`` before the
-    reduce of chunk ``c`` — the reference's double-buffered order, which
-    overlaps the two once the copy is a collective between devices. A
-    quantized wire spills and copies the encoded payload and decodes each
-    received chunk.
-
-    Returns ``(out (m, n, V), counts (m, n), overflow, wire)``, the last
-    two on the device: the overflow count and the int64 ``[wire_rows,
-    replica_rows, inexact, nonlocal_pairs]`` vector.
+    Groups are ``(chunk, dest)`` pairs with statistics-derived capacities,
+    laid out chunk-major, so each chunk's send buckets are a contiguous
+    slab (one chunk of capacity ``capacity`` when phase B is sequential).
+    ``send_vals`` is the wire payload of the values. Returns ``(send,
+    overflow, wire_rows)``: ``send[c]`` is chunk ``c``'s ``(bv (rows, m,
+    cap, V), bc (rows, m, cap), bm (rows, m, cap))`` buckets, the other two
+    device scalars over these rows.
     """
-    (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks, quantize) = static
-    key_hashes, values, valid = intermediate
-    v_dim = values.shape[-1]
+    (m, n, capacity, chunk_caps, _, pipelined, num_chunks, _) = static
+    key_hashes, _, valid = intermediate
+    rows, v_dim = key_hashes.shape[0], send_vals.shape[-1]
     cluster_ids = _cluster_ids(key_hashes, n)
     cid = cluster_ids.long()
-    scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize)
-
-    def _deliver(recv):
-        rv, rc, rm = recv
-        if quantize:
-            rv = _quantize_decode(rv, scale, values.dtype, quantize)
-        return rv, rc, rm
-
-    def _wire(wire_rows):
-        return torch.stack([wire_rows, torch.zeros_like(wire_rows), inexact, wire_rows])
-
     if not pipelined or num_chunks <= 1:
         dest = torch.where(valid, assignment[cid], m).to(torch.int32)
         bv, bc, bm, overflow = _counting_sort_to_buckets(
             dest, send_vals, cluster_ids, m, capacity)
-        wire_rows = _wire_rows(bm)
-        rv, rc, rm = _deliver(_copy_chunk((bv, bc, bm)))
-        out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
-        return out, counts, overflow, _wire(wire_rows)
-
-    # ---- Every chunk's bucket file in ONE counting-sort spill: groups are
-    # (chunk, dest) pairs with statistics-derived capacities, laid out
-    # chunk-major so each chunk's send buckets are a contiguous slab.
+        return [(bv, bc, bm)], overflow, _wire_rows(bm, me)
     group = torch.where(valid, chunk_of_cluster[cid] * m + assignment[cid],
                         num_chunks * m).to(torch.int32)
     group_caps = np.repeat(np.asarray(chunk_caps, np.int64), m)
@@ -531,29 +602,143 @@ def _phase_b(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static
     fv, fc, fm, overflow = _ragged_counting_sort_to_buckets(
         group, send_vals, cluster_ids, group_caps, total)
     send = []
-    wire_rows = torch.zeros((), dtype=torch.int64, device=values.device)
+    wire_rows = torch.zeros((), dtype=torch.int64, device=send_vals.device)
     off = 0
     for cap in chunk_caps:
         size = m * cap
-        slab_m = fm[:, off:off + size].reshape(m, m, cap)
-        send.append((fv[:, off:off + size].reshape(m, m, cap, v_dim),
-                     fc[:, off:off + size].reshape(m, m, cap), slab_m))
-        wire_rows = wire_rows + _wire_rows(slab_m)
+        slab_m = fm[:, off:off + size].reshape(rows, m, cap)
+        send.append((fv[:, off:off + size].reshape(rows, m, cap, v_dim),
+                     fc[:, off:off + size].reshape(rows, m, cap), slab_m))
+        wire_rows = wire_rows + _wire_rows(slab_m, me)
         off += size
+    return send, overflow, wire_rows
+
+
+def _tick_pairs(boundaries) -> torch.Tensor:
+    """Boundary stamps ``b_0 .. b_W`` ((2,) uint32 each) → the ``(W, 2, 2)``
+    ``(start, end) × (lo, hi)`` words of the W waves, as int32 (the same
+    bits): wave ``c`` is ``(b_c, b_{c+1})``."""
+    b = torch.stack([w.view(torch.int32) for w in boundaries])
+    return torch.stack([b[:-1], b[1:]], dim=1)
+
+
+def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static,
+                  me, stamp_through=None):
+    """Chunked shuffle ("copy") + pipelined reduce ("run") — §4.1 step 6 + §4.4.
+
+    The program of the slots ``me`` (one a row of ``intermediate``): all
+    of them on the stacked backend, one on the sharded backend. A
+    generator: it yields at each collective and its runner sends back the
+    result —
+
+    * ``("pmax", x)`` → the maximum of ``x`` over every slot (the int8
+      wire's scale);
+    * ``("spill", send)`` → ``None``: the bucket slabs of every chunk, as
+      :func:`_spill` returns them, are ready;
+    * ``("copy", c)`` → ``(rv, rc, rm)``: this slot's received chunk ``c``,
+      bucket ``[src, me]`` of every sender in sender order.
+
+    ``pipelined=False`` (or a single chunk) is the Hadoop-style barrier:
+    one bulk all-to-all of every pair, then one reduce. The pipelined path
+    spills every chunk's bucket file at once and walks the chunks in
+    increasing-load order, issuing the copy of chunk ``c+1`` before the
+    reduce of chunk ``c`` — the reference's double-buffered order. A
+    quantized wire spills and copies the encoded payload and decodes each
+    received chunk.
+
+    ``stamp_through`` is the measured executor's tick hook
+    (``kernels/wave_timer.ops.stamp_through``): when set, per-wave
+    boundary stamps are threaded through THIS body — the stamp before
+    each reduce produces the ids the reduce reads, the final one re-emits
+    the last wave's outputs — and ``(W, 2, 2)`` tick words are appended to
+    the result. ``None`` runs the identical untimed program, so measured
+    and unmeasured runs agree bit for bit by construction. On one stream
+    a slot's copy of a later chunk falls inside the wave in whose interval
+    it is enqueued; every wave is the slot's own stream time.
+
+    Returns ``(out (rows, n, V), counts (rows, n), overflow, wire[,
+    ticks])``, device tensors over these rows: the overflow count and the
+    int64 ``[wire_rows, replica_rows, inexact, nonlocal_pairs]`` vector.
+    """
+    (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks, quantize) = static
+    _, values, valid = intermediate
+    rows, v_dim = values.shape[0], values.shape[-1]
+    timed = stamp_through is not None
+    magnitude = None
+    if quantize == "int8":
+        magnitude = yield ("pmax", _quantize_magnitude(values, valid))
+    scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize, magnitude)
+
+    def _deliver(rv):
+        return _quantize_decode(rv, scale, values.dtype, quantize) if quantize else rv
+
+    def _wire(wire_rows):
+        return torch.stack([wire_rows, torch.zeros_like(wire_rows), inexact, wire_rows])
+
+    send, overflow, wire_rows = _spill(intermediate, assignment, chunk_of_cluster,
+                                       static, me, send_vals)
+    yield ("spill", send)
+    del send
+
+    if not pipelined or num_chunks <= 1:
+        rv, rc, rm = yield ("copy", 0)
+        rv = _deliver(rv)
+        if timed:
+            rc, start = stamp_through(rc)          # start: produces the reduce's ids
+        out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+        if timed:
+            out, end = stamp_through(out, counts)  # end: re-emits the outputs
+            return out, counts, overflow, _wire(wire_rows), _tick_pairs([start, end])
+        return out, counts, overflow, _wire(wire_rows)
 
     # ---- Copy→run walk in increasing-load chunk order. Sums accumulate in
     # float32 (the fused kernel's output), max/count in the value dtype.
+    # Timed: boundary stamps b_0..b_C, b_c between reduce(c-1) and
+    # reduce(c); the final one after the last reduce.
     acc_dtype = torch.float32 if reduce_op == "sum" else values.dtype
-    acc = torch.zeros((m, n, v_dim), dtype=acc_dtype, device=values.device)
-    cnt = torch.zeros((m, n), dtype=torch.float32, device=values.device)
-    recv = _copy_chunk(send[0])
+    acc = torch.zeros((rows, n, v_dim), dtype=acc_dtype, device=values.device)
+    cnt = torch.zeros((rows, n), dtype=torch.float32, device=values.device)
+    boundaries = []
+    prev_out = ()
+    recv = yield ("copy", 0)
     for c in range(num_chunks):
-        rv, rc, rm = _deliver(recv)
+        rv, rc, rm = recv
         if c + 1 < num_chunks:
-            recv = _copy_chunk(send[c + 1])
+            recv = yield ("copy", c + 1)
+        rv = _deliver(rv)
+        if timed:
+            rc, b = stamp_through(rc, *prev_out)
+            boundaries.append(b)
         out_c, cnt_c = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+        if timed and c + 1 == num_chunks:
+            out_c, b = stamp_through(out_c, cnt_c)
+            boundaries.append(b)
+        prev_out = (out_c, cnt_c)
         acc, cnt = _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op)
+    if timed:
+        return acc, cnt, overflow, _wire(wire_rows), _tick_pairs(boundaries)
     return acc, cnt, overflow, _wire(wire_rows)
+
+
+def _drive_stacked(body):
+    """Run a phase-B body over all m stacked slots.
+
+    Every collective is local: the rows already hold every slot, so
+    ``pmax`` is the value itself and the copy of a chunk is the transpose
+    of its ``(src, dst, cap)`` buckets.
+    """
+    send = reply = None
+    while True:
+        try:
+            kind, arg = body.send(reply)
+        except StopIteration as stop:
+            return stop.value
+        if kind == "pmax":
+            reply = arg
+        elif kind == "spill":
+            send, reply = arg, None
+        else:
+            reply = _copy_chunk(send[arg])
 
 
 def _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op: str):
@@ -603,7 +788,7 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     as one stream with the slot inside the chunk-major group id —
     ``(chunk, slot, partner | src, dst)`` — so each chunk's slab of every
     slot is one contiguous block, as the kernel takes it. Returns what
-    :func:`_phase_b` returns; ``wire`` holds the packet rows (each
+    :func:`_phase_b_body` returns; ``wire`` holds the packet rows (each
     multicast once), the replica rows, the inexact records and the
     non-local pairs.
     """
@@ -798,33 +983,48 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
 
 
 class MapReduceJob:
-    """Two-phase OS4M job on one device. See the module docstring.
+    """Two-phase OS4M job on one or more devices. See the module docstring.
 
-    ``map_fn(inputs) -> (key_hashes (m, K), values (m, K, V), valid (m,
-    K))`` returns stacked tensors on ``device``. ``device=None`` means
-    ``"cuda"`` and raises when no CUDA device is present; pass
-    ``device="cpu"`` to run the kernels' plain versions on the CPU.
+    ``map_fn(inputs) -> (key_hashes (r, K), values (r, K, V), valid (r,
+    K))`` returns stacked tensors for the ``r`` slots of its input.
+
+    ``backend="stacked"``: ``map_fn`` sees all ``m`` slots at once and
+    returns tensors on ``device``. ``device=None`` means ``"cuda"`` and
+    raises when no CUDA device is present; pass ``device="cpu"`` to run
+    the kernels' plain versions on the CPU.
+
+    ``backend="sharded"``: ``devices`` holds one device per slot (the
+    counterpart of the reference's mesh; the same device may repeat).
+    ``None`` means ``m`` copies of the current CUDA device and raises when
+    there is none; ``["cpu"] * m`` runs the plain versions. Every CUDA
+    slot gets its own stream. ``map_fn`` runs per slot on the ``(1, ...)``
+    slice of every tensor of ``inputs`` (a tensor, or tuples, lists and
+    dicts of them, with a leading ``(m,)`` axis), on that slot's device
+    and stream.
     """
 
-    def __init__(self, map_fn: Callable, config: MapReduceConfig, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "MapReduceJob runs on CUDA unless told otherwise, and no CUDA"
-                    " device is available; pass device='cpu' for the CPU path")
-            device = "cuda"
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+    def __init__(self, map_fn: Callable, config: MapReduceConfig, device=None,
+                 backend: str = "stacked", devices=None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
+        self.backend = backend
+        if backend == "sharded":
+            if device is not None:
+                raise ValueError(
+                    "backend='sharded' places its slots with devices=, not device=")
+            self._init_slots(devices, config.num_slots)
+        else:
+            if devices is not None:
+                raise ValueError("devices= places the slots of backend='sharded'")
+            self.device = self._default_device(device)
+            self.devices = self.streams = None
         self.map_fn = map_fn
         self.cfg = config
-        _validate_wire(config)
-        missing = _unported(config)
+        self._measure_timings = _resolve_measure(config, backend)
+        _validate_wire(config, self._measure_timings)
+        missing = _unported(config, backend)
         if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(
-                    f"{name} (ROADMAP Queue 1 item {item})" for name, item in missing))
+            raise _not_ported(missing)
         if config.reduce_op not in REDUCE_OPS:
             raise ValueError(
                 f"unknown reduce_op {config.reduce_op!r}; use one of {REDUCE_OPS}")
@@ -842,17 +1042,36 @@ class MapReduceJob:
             if not 0.0 < config.stream_prefix <= 1.0:
                 raise ValueError(
                     f"stream_prefix must be in (0, 1], got {config.stream_prefix}")
-        if config.speeds is not None:
-            sched_lib.normalize_speeds(config.speeds, config.num_slots)
         # Overflow escape hatches taken for estimate-committed capacities
         # (prefix-planned wave-1 caps; see _escalate_caps). Distinct from
         # ScheduleCache.capacity_fallbacks, which counts reused-plan
         # overflows.
         self.capacity_fallbacks = 0
         # Schedule-reuse state: the live CachedSchedule snapshot and the
-        # decision counters when cfg.reuse is set.
+        # decision counters when cfg.reuse is set. On the sharded backend
+        # the drift check runs next to each slot's statistics.
         self.schedule_cache: Optional[sc.ScheduleCache] = (
-            sc.ScheduleCache(config.reuse) if config.reuse is not None else None)
+            sc.ScheduleCache(config.reuse, drift_fn=self._make_sharded_drift())
+            if config.reuse is not None else None)
+        # Q||C_max state: static speeds are validated once; the online
+        # estimator closes the measure → update → next-plan feedback loop.
+        if config.speeds is not None:
+            sched_lib.normalize_speeds(config.speeds, config.num_slots)
+        self.speed_estimator: Optional[ss.SlotSpeedEstimator] = (
+            ss.SlotSpeedEstimator(config.num_slots, ewma=config.speed_ewma)
+            if config.estimate_speeds else None)
+        # Last batch's measured (slots, waves) timings (None on the
+        # synthetic path) — telemetry for benches and tests.
+        self.last_wave_timings: Optional[mt.WaveTimings] = None
+        # Fault injection: per-slot wall-clock multipliers (2.0 = twice as
+        # slow). The stacked backend synthesises wave timings as work ×
+        # slowdown; the sharded backend's measured path scales the measured
+        # seconds instead. Callers with their own clocks feed
+        # observe_slot_times directly.
+        self._slot_slowdown = np.ones(config.num_slots)
+        # True once observe_slot_times delivered a real measurement; the
+        # synthetic model then stays out of the estimator.
+        self._external_timings = False
         # Last measured (wire bytes, non-local pairs): turns the cost
         # model's modeled bytes/pair into a measured rate on the next plan.
         self._last_wire: Optional[Tuple[int, int]] = None
@@ -867,21 +1086,154 @@ class MapReduceJob:
         # The plan the last run() executed (telemetry for benches and tests).
         self.last_plan: Optional[sc.CachedSchedule] = None
 
+    @staticmethod
+    def _default_device(device) -> torch.device:
+        """``device`` as a ``torch.device``; ``None`` is the current CUDA device."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "MapReduceJob runs on CUDA unless told otherwise, and no CUDA"
+                    " device is available; pass device='cpu' for the CPU path")
+            device = "cuda"
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+
+    def _init_slots(self, devices, num_slots: int) -> None:
+        """One device and (on CUDA) one stream per slot of the sharded backend."""
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "backend='sharded' places every slot on the current CUDA device"
+                    " unless told otherwise, and no CUDA device is available; pass"
+                    " devices=['cpu'] * num_slots for the CPU path")
+            devices = [None] * num_slots
+        devices = [self._default_device(d) for d in devices]
+        if len(devices) != num_slots:
+            raise ValueError(
+                f"devices has {len(devices)} entries but config.num_slots={num_slots}")
+        if len({d.type for d in devices}) != 1:
+            raise ValueError("the slots' devices must all be CUDA or all be the CPU")
+        self.devices = devices
+        self.device = devices[0]
+        self.streams = [_slot_stream(d, j) if d.type == "cuda" else None
+                        for j, d in enumerate(devices)]
+
+    # -- Q||C_max speed plumbing --------------------------------------------
+
+    def set_slot_slowdown(self, slot: int, factor: float) -> None:
+        """Inject a fault: slot ``slot``'s wave wall-clock is multiplied by ``factor``.
+
+        A slowdown factor is a **wall-clock multiplier** — ``2.0`` makes
+        the slot read twice as *slow* (half the nominal speed); ``0.5``
+        makes it read twice as fast. Affects only the wave timings the
+        estimator sees (and hence future plans) — never the computed
+        outputs. ``factor == 0`` is the elastic mesh's dead slot (ROADMAP
+        Queue 1 item 7), not ported yet.
+        """
+        if not 0 <= slot < self.cfg.num_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.cfg.num_slots})")
+        if factor < 0:
+            raise ValueError("slowdown factor must be >= 0 (0 = dead slot)")
+        if factor == 0:
+            raise _not_ported([("set_slot_slowdown(slot, 0): a dead slot", 7)])
+        self._slot_slowdown[slot] = factor
+
     def current_speeds(self) -> Optional[np.ndarray]:
-        """Speed vector the next plan will use (None ≡ all nominal)."""
-        if self.cfg.speeds is None:
-            return None
-        return np.asarray(self.cfg.speeds, np.float64)
+        """Speed vector the next plan will use (None ≡ all nominal).
+
+        Static ``cfg.speeds`` wins; otherwise the online estimate (None
+        until the estimator has seen at least one batch).
+        """
+        if self.cfg.speeds is not None:
+            return np.asarray(self.cfg.speeds, np.float64)
+        if self.speed_estimator is not None:
+            return self.speed_estimator.speeds()
+        return None
+
+    def proc_times_row(self, total_load: float = 1.0) -> np.ndarray:
+        """This job's row of the multi-job R-matrix: per-slot time for
+        ``total_load`` units of its work.
+
+        ``R[job, slot] = total_load / speed[job, slot]`` from the job's
+        own speed estimate; a slot of speed 0 reads ``+inf``.
+        """
+        speeds = self.current_speeds()
+        if speeds is None:
+            speeds = np.ones(self.cfg.num_slots, np.float64)
+        row = np.full(self.cfg.num_slots, np.inf, np.float64)
+        alive = speeds > 0.0
+        row[alive] = float(total_load) / speeds[alive]
+        return row
+
+    def observe_slot_times(self, slot_work, slot_seconds) -> None:
+        """Feed measured per-slot phase-B (work, wall seconds) to the estimator.
+
+        The hook for deployments whose slots have their own clocks. The
+        first call permanently switches the job to external-measurement
+        mode: ``run()`` stops folding in its synthetic timing model, so
+        real samples are never diluted by all-nominal synthetic ones.
+        """
+        if self.speed_estimator is not None:
+            self._external_timings = True
+            self.speed_estimator.update(slot_work, slot_seconds)
+
+    def _observe_wave_timings(self, planned: sc.CachedSchedule,
+                              key_dist: np.ndarray) -> None:
+        """Synthetic per-slot timing model: seconds = work × slowdown.
+
+        One observation per executed batch, with the injected
+        ``_slot_slowdown`` standing in for straggler hardware. The
+        estimator normalises rates, so the nominal unit cancels; with no
+        injected fault every slot measures 1.0 and plans stay identical to
+        the speed-oblivious ones. Disabled as soon as
+        ``observe_slot_times`` has delivered a real measurement.
+        """
+        if self.speed_estimator is None or self._external_timings:
+            return
+        m = self.cfg.num_slots
+        slot_work = np.bincount(
+            planned.schedule.assignment, weights=np.asarray(key_dist),
+            minlength=m)[:m]
+        slot_seconds = slot_work * self._slot_slowdown
+        self.speed_estimator.update(slot_work, slot_seconds)
+
+    def _observe_measured(self, timings: mt.WaveTimings,
+                          planned: sc.CachedSchedule) -> None:
+        """Feed one batch's *measured* per-slot wave clocks to the estimator.
+
+        Waves are capacity-shaped — every slot reduces the same padded
+        buffer — so the work unit is the shape work (rows processed,
+        identical per slot) and ``work/seconds`` isolates per-slot speed
+        from per-slot load. Injected slowdowns multiply the measured
+        seconds. Invalid batches, and batches with no positive finite
+        seconds, carry no speed signal and are skipped. Routed through
+        :meth:`observe_slot_times`, which retires the synthetic model on
+        first contact.
+        """
+        if self.speed_estimator is None or not timings.valid:
+            return
+        m = self.cfg.num_slots
+        rows = float(m * planned.capacity if planned.waves.num_chunks <= 1
+                     else m * sum(planned.chunk_caps))
+        timings.slot_work = np.full(m, rows)
+        work, secs = timings.observation(self._slot_slowdown)
+        if not bool(np.any((secs > 0) & np.isfinite(secs))):
+            return
+        self.observe_slot_times(work, secs)
 
     def attach_schedule_cache(self, cache: sc.ScheduleCache) -> None:
         """Adopt an externally owned cache (multi-tenant coordination).
 
         The job replays and records into ``cache`` from the next batch on
-        and takes its policy. The default drift reduction runs on the
-        job's device; the sharded drift of the multi-process backend is
-        ROADMAP Queue 1 item 10.
+        and takes its policy. The job keeps its backend's drift
+        reduction: a cache without a ``drift_fn`` inherits the sharded
+        backend's.
         """
         self.cfg = dataclasses.replace(self.cfg, reuse=cache.policy)
+        if cache.drift_fn is None:
+            cache.drift_fn = self._make_sharded_drift()
         self.schedule_cache = cache
 
     def load_snapshot(self, snapshot) -> sc.CachedSchedule:
@@ -905,8 +1257,196 @@ class MapReduceJob:
             raise ValueError(
                 f"snapshot covers {snapshot.schedule.assignment.shape[0]} "
                 f"clusters, config {n}")
+        # Warm-start the estimator with the plan-time speeds, so that a
+        # snapshot built for measured speeds meets its first drift check
+        # with an estimate to compare (no measurement at all reads as
+        # conservative ``inf`` and would replan at once).
+        if self.speed_estimator is not None and self.speed_estimator.observations == 0:
+            self.speed_estimator.seed(snapshot.schedule.slot_speeds)
         self.schedule_cache.store(snapshot)
         return snapshot
+
+    # -- the sharded backend's plumbing ---------------------------------------
+    #
+    # Phase tensors are lists of per-group tensors: one group of m rows on
+    # the stacked backend, m groups of one row (slot j on devices[j]) on the
+    # sharded backend. The sharded collectives run on the slots' streams,
+    # ordered by CUDA events; a tensor that another stream reads is recorded
+    # on that stream, so the allocator does not hand its memory out early.
+
+    def _as_groups(self, x) -> list:
+        """A phase value in its backend's form (the stacked backend's one
+        value, the sharded backend's per-slot list) → a per-group list."""
+        return [x] if self.backend == "stacked" else list(x)
+
+    def _from_groups(self, groups: list):
+        """Inverse of :meth:`_as_groups`."""
+        return groups[0] if self.backend == "stacked" else groups
+
+    def _groups(self):
+        """``(rows' slot indices, device)`` of each group."""
+        m = self.cfg.num_slots
+        if self.backend == "stacked":
+            return [(list(range(m)), self.device)]
+        return [([j], d) for j, d in enumerate(self.devices)]
+
+    def _on_slot(self, j: int):
+        """Context of group ``j``'s program: its device and stream."""
+        stack = contextlib.ExitStack()
+        stream = self.streams[j] if self.streams is not None else None
+        if stream is not None:
+            stack.enter_context(torch.cuda.device(stream.device))
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    def _mark(self, j: int):
+        """An event after everything slot ``j`` enqueued so far (None on the CPU)."""
+        stream = self.streams[j] if self.streams is not None else None
+        if stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(stream)
+        return event
+
+    def _main_stream(self):
+        """The caller's stream on the first slot's device (None on the CPU)."""
+        return torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+    def _fork(self) -> None:
+        """Every slot stream waits for the caller's work (its inputs)."""
+        main = self._main_stream()
+        if main is not None and self.streams is not None:
+            for stream in self.streams:
+                stream.wait_stream(main)
+
+    def _gather(self, parts):
+        """Concatenate per-group tensors along dim 0 on the first device.
+
+        The stacked backend's single group is returned as it is. On the
+        sharded backend the caller's stream waits on every slot first.
+        """
+        if self.backend == "stacked":
+            return parts[0]
+        main = self._main_stream()
+        pieces = []
+        for j, t in enumerate(parts):
+            if main is not None:
+                main.wait_event(self._mark(j))
+                t.record_stream(main)
+            pieces.append(t.to(self.device))
+        return torch.cat(pieces)
+
+    def _scatter(self, t: torch.Tensor):
+        """``t`` (on the caller's stream) copied to every slot's device and stream."""
+        main = self._main_stream()
+        out = []
+        for j, (_, dev) in enumerate(self._groups()):
+            with self._on_slot(j):
+                if main is not None:
+                    self.streams[j].wait_stream(main)
+                    t.record_stream(self.streams[j])
+                out.append(t.to(dev))
+        return out
+
+    def _copy_to(self, dst: int, sends, events, chunk: int):
+        """The chunk "copy" of slot ``dst``: bucket ``[src, dst]`` of every
+        sender, in sender order, after each sender's spill event."""
+        stream = self.streams[dst] if self.streams is not None else None
+        dev = self.devices[dst]
+        parts = ([], [], [])
+        for src, send in enumerate(sends):
+            if stream is not None and src != dst:
+                stream.wait_event(events[src])
+            for k, t in enumerate(send[chunk]):
+                piece = t[0, dst]
+                if stream is not None and src != dst:
+                    piece.record_stream(stream)
+                parts[k].append(piece.to(dev))
+        return tuple(torch.cat(p)[None] for p in parts)
+
+    def _drive_sharded(self, bodies):
+        """Run one phase-B body per slot in lockstep: each slot's program
+        runs on its own stream up to its next collective, which the runner
+        performs once every slot has reached it."""
+        m = len(bodies)
+        replies = [None] * m
+        results = [None] * m
+        sends, events = [None] * m, [None] * m
+        while True:
+            msgs = []
+            for j, body in enumerate(bodies):
+                with self._on_slot(j):
+                    try:
+                        msgs.append(body.send(replies[j]))
+                    except StopIteration as stop:
+                        results[j] = stop.value
+                        msgs.append(None)
+            if all(msg is None for msg in msgs):
+                return results
+            kinds = {msg[0] if msg is not None else None for msg in msgs}
+            if len(kinds) != 1:
+                raise RuntimeError(f"the slots' programs diverged: {sorted(map(str, kinds))}")
+            kind = msgs[0][0]
+            if kind == "spill":
+                for j, msg in enumerate(msgs):
+                    sends[j], events[j] = msg[1], self._mark(j)
+                replies = [None] * m
+            elif kind == "copy":
+                replies = []
+                for j, msg in enumerate(msgs):
+                    with self._on_slot(j):
+                        replies.append(self._copy_to(j, sends, events, msg[1]))
+            else:   # pmax
+                replies = self._scatter(
+                    self._gather([msg[1].reshape(1) for msg in msgs]).amax())
+
+    def _make_sharded_drift(self):
+        """A ``drift_fn`` for :class:`~repro_torch.core.schedule_cache.ScheduleCache`.
+
+        Sharded backend only (``None`` on the stacked one): the plan-time
+        statistics are uploaded ONCE, row ``j`` to slot ``j``'s device, the
+        drift of each slot's row runs next to its fresh statistics, and
+        only the maximum over slots (the reference's ``pmax``) reaches the
+        host.
+        """
+        if self.backend != "sharded" or self.cfg.reuse is None:
+            return None
+        metric = self.cfg.reuse.metric
+
+        def put(hist: np.ndarray):
+            rows = []
+            for j, (_, dev) in enumerate(self._groups()):
+                with self._on_slot(j):
+                    rows.append(torch.as_tensor(hist[j:j + 1], device=dev))
+            return rows
+
+        def drift(snapshot: sc.CachedSchedule, fresh_rows):
+            """Scalar drift of the per-slot ``fresh_rows`` vs the resident baseline."""
+            ref = snapshot.hist_device(put=put)
+            per_slot = []
+            for j, row in enumerate(fresh_rows):
+                with self._on_slot(j):
+                    per_slot.append(sc.drift_metric(ref[j], row, metric).reshape(1))
+            return self._gather(per_slot).amax()
+
+        return drift
+
+    def _map_phase(self, inputs, prefix_fraction):
+        """Phase A: ``(intermediate, state)`` in the backend's form — per
+        group, the ``(key_hashes, values, valid)`` tuple and the ``(rows,
+        S)`` statistics."""
+        n = self.cfg.num_clusters
+        if self.backend == "stacked":
+            return _phase_a(inputs, self.map_fn, n, self._stats.collect, prefix_fraction)
+        self._fork()
+        intermediate, state = [], []
+        for j, (_, dev) in enumerate(self._groups()):
+            with self._on_slot(j):
+                inter, st = _phase_a(_slot_slice(inputs, j, dev), self.map_fn, n,
+                                     self._stats.collect, prefix_fraction)
+            intermediate.append(inter)
+            state.append(st)
+        return intermediate, state
 
     # -- measured shuffle-volume accounting ----------------------------------
 
@@ -1197,55 +1737,186 @@ class MapReduceJob:
         give the same outputs and overflow bit for bit. The escalated
         plan's safe bound, ``k_per_shard`` for every chunk, would size the
         spill at ``m² · k_per_shard · chunks`` rows; the cut caps size it
-        by what the batch holds. One ``(chunks,)`` pull; returns
-        ``(capacity, chunk_caps)``.
+        by what the batch holds. One ``(chunks + 1,)`` pull a group;
+        returns ``(capacity, chunk_caps)``.
         """
         m, n = self.cfg.num_slots, self.cfg.num_clusters
-        key_hashes, _, valid = intermediate
-        dev = self.device
         chunks = planned.waves.num_chunks
-        cid = _cluster_ids(key_hashes, n).long()
-        assign = torch.as_tensor(planned.schedule.assignment, dtype=torch.long, device=dev)
-        chunk_of = torch.as_tensor(planned.waves.chunk_of_cluster, dtype=torch.long,
-                                   device=dev)
         groups = chunks * m
-        group = torch.where(valid, chunk_of[cid] * m + assign[cid], groups)
-        flat = group + torch.arange(m, device=dev)[:, None] * (groups + 1)
-        per_group = torch.bincount(flat.reshape(-1), minlength=m * (groups + 1))
-        per_group = per_group.view(m, groups + 1)[:, :groups].reshape(m, chunks, m)
-        need = torch.cat([per_group.amax(dim=(0, 2)),
-                          per_group.sum(dim=1).amax().reshape(1)]).cpu().numpy()
+        need = np.zeros(chunks + 1, np.int64)
+        for j, ((key_hashes, _, valid), (_, dev)) in enumerate(zip(
+                self._as_groups(intermediate), self._groups())):
+            with self._on_slot(j):
+                rows = key_hashes.shape[0]
+                cid = _cluster_ids(key_hashes, n).long()
+                assign = torch.as_tensor(planned.schedule.assignment, dtype=torch.long,
+                                         device=dev)
+                chunk_of = torch.as_tensor(planned.waves.chunk_of_cluster,
+                                           dtype=torch.long, device=dev)
+                group = torch.where(valid, chunk_of[cid] * m + assign[cid], groups)
+                flat = group + torch.arange(rows, device=dev)[:, None] * (groups + 1)
+                per_group = torch.bincount(flat.reshape(-1), minlength=rows * (groups + 1))
+                per_group = per_group.view(rows, groups + 1)[:, :groups].reshape(
+                    rows, chunks, m)
+                need = np.maximum(need, torch.cat([
+                    per_group.amax(dim=(0, 2)),
+                    per_group.sum(dim=1).amax().reshape(1)]).cpu().numpy())
         chunk_caps = tuple(max(1, min(int(c), int(k)))
                            for c, k in zip(planned.chunk_caps, need[:-1]))
         return max(1, min(int(planned.capacity), int(need[-1]))), chunk_caps
 
     # -- execution (phase B under one plan) ----------------------------------
 
-    def _execute(self, intermediate, planned: sc.CachedSchedule, caps=None):
+    def _static(self, planned: sc.CachedSchedule, caps=None) -> tuple:
+        """Phase B's static configuration under ``planned`` (and ``caps``)."""
+        cfg = self.cfg
+        capacity, chunk_caps = caps or (planned.capacity, planned.chunk_caps)
+        return (cfg.num_slots, cfg.num_clusters, capacity, tuple(chunk_caps),
+                cfg.reduce_op, cfg.pipelined, planned.waves.num_chunks,
+                cfg.quantize_shuffle)
+
+    def _plan_tensors(self, planned: sc.CachedSchedule, dev):
+        """The plan's assignment, pipeline ranks and chunk map on ``dev``."""
+        return tuple(torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (
+            planned.schedule.assignment, planned.waves.rank_of_cluster,
+            planned.waves.chunk_of_cluster))
+
+    def _execute(self, intermediate, planned: sc.CachedSchedule, caps=None,
+                 stamp_through=None):
         """Run phase B under one plan (fresh or replayed); device results.
 
         ``caps`` (``(capacity, chunk_caps)``) overrides the plan's buffer
         sizes (see :meth:`_needed_caps`). The wire format rides the plan,
         not the config: a replayed or loaded snapshot runs coded exactly
-        when it was planned coded. Returns ``(out (m, n, V), counts (m,
-        n), overflow, wire)`` (see :func:`_phase_b`).
+        when it was planned coded. ``stamp_through`` is the measured
+        executor's tick hook (see :func:`_phase_b_body`). Takes and returns
+        the backend's form: ``(out (rows, n, V), counts (rows, n),
+        overflow, wire[, ticks])`` of the stacked rows, or a list of them,
+        one a slot.
+        """
+        static = self._static(planned, caps)
+        if planned.waves.replication > 1:
+            if self.backend == "sharded":
+                raise _not_ported([("shuffle_replication=2 on backend='sharded'",
+                                    _SHARDED_CODED_ITEM)])
+            return _phase_b_coded(intermediate, *self._plan_tensors(planned, self.device),
+                                  static)
+        bodies = []
+        for j, (inter, (slots, dev)) in enumerate(zip(self._as_groups(intermediate),
+                                                      self._groups())):
+            with self._on_slot(j):
+                me = torch.as_tensor(slots, device=dev)
+                bodies.append(_phase_b_body(inter, *self._plan_tensors(planned, dev), static,
+                                            me, stamp_through))
+        if self.backend == "stacked":
+            return _drive_stacked(bodies[0])
+        return self._drive_sharded(bodies)
+
+    def _execute_measured(self, intermediate, planned: sc.CachedSchedule, caps=None):
+        """Overlapped phase B with per-slot wave stamps (no fencing).
+
+        Runs the SAME double-buffered walk as :meth:`_execute` — one
+        phase-B body, with the ``wave_timer`` stamp hook — so outputs are
+        bit-identical to it. Each slot's ``(waves, 2, 2)`` stamp words are
+        read after the batch into :class:`~repro_torch.core.mesh_timing.
+        WaveTimings`. Without a tick source (``wave_timer.ops.available()``
+        False; on a card only under ``force_backend("none")``) it falls
+        back to :meth:`_execute_measured_fenced`.
+
+        Returns ``(results, timings)``, the results as :meth:`_execute`
+        returns them without the tick words.
+        """
+        if not wt_ops.available(self.device):
+            return self._execute_measured_fenced(intermediate, planned, caps)
+        results = self._as_groups(self._execute(intermediate, planned, caps,
+                                                stamp_through=wt_ops.stamp_through))
+        words = []
+        for j, res in enumerate(results):
+            with self._on_slot(j):
+                words.append(wt_ops.ticks_numpy(res[4]))
+        timings = mt.WaveTimings.from_ticks(
+            wt_ops.combine_ticks(np.stack(words)),
+            wt_ops.tick_calibration(self.device).seconds_per_tick)
+        return self._from_groups([res[:4] for res in results]), timings
+
+    def _execute_measured_fenced(self, intermediate, planned: sc.CachedSchedule, caps=None):
+        """Fenced fallback: per-wave steps + host-attributed clocks.
+
+        For runs without a tick source. Same math as :meth:`_execute`,
+        other structure: a per-slot spill, then for each wave one "copy"
+        step (the gather between slots — not attributed, since it waits on
+        every sender) and one "run" step per slot (its reduce alone),
+        whose completion is polled per slot by
+        :func:`~repro_torch.core.mesh_timing.shard_ready_seconds`. The
+        waves are walked in the same order with the same per-chunk reduce
+        and merge, so outputs are bit-identical to the overlapped path;
+        the price is the lost copy/run overlap. A wave whose run step
+        built or loaded a kernel library is not a measurement
+        (``valid=False``).
+
+        Measured timings exist on the sharded backend only. Returns
+        ``(results, timings)`` like :meth:`_execute_measured`.
         """
         cfg = self.cfg
-        capacity, chunk_caps = caps or (planned.capacity, planned.chunk_caps)
-        static = (
-            cfg.num_slots, cfg.num_clusters, capacity,
-            tuple(chunk_caps), cfg.reduce_op, cfg.pipelined,
-            planned.waves.num_chunks, cfg.quantize_shuffle,
-        )
-        dev = self.device
-        phase_b = _phase_b_coded if planned.waves.replication > 1 else _phase_b
-        return phase_b(
-            intermediate,
-            torch.as_tensor(planned.schedule.assignment, dtype=torch.int32, device=dev),
-            torch.as_tensor(planned.waves.rank_of_cluster, dtype=torch.int32, device=dev),
-            torch.as_tensor(planned.waves.chunk_of_cluster, dtype=torch.int32, device=dev),
-            static,
-        )
+        if planned.waves.replication > 1 or cfg.quantize_shuffle:
+            raise ValueError(
+                "the fenced measured fallback has its own copy programs and"
+                " does not implement the coded/quantized wire — disable"
+                " measure_timings (or provide a tick source) to run"
+                " shuffle_replication>1 / quantize_shuffle jobs")
+        static = self._static(planned, caps)
+        (m, n, _, _, reduce_op, pipelined, num_chunks, _) = static
+        pipelined = pipelined and num_chunks > 1
+        waves = num_chunks if pipelined else 1
+        groups = self._groups()
+        plans, sends, overflow, wire, events = [], [], [], [], []
+        for j, (inter, (slots, dev)) in enumerate(zip(intermediate, groups)):
+            with self._on_slot(j):
+                plans.append(self._plan_tensors(planned, dev))
+                me = torch.as_tensor(slots, device=dev)
+                send, ovf, rows = _spill(inter, plans[j][0], plans[j][2], static, me,
+                                         inter[1])
+                sends.append(send)
+                overflow.append(ovf)
+                wire.append(torch.stack([rows, torch.zeros_like(rows),
+                                         torch.zeros_like(rows), rows]))
+            events.append(self._mark(j))
+        timings = mt.WaveTimings.empty(m, waves)
+        acc = cnt = None
+        for c in range(waves):
+            recv = []
+            for j in range(m):
+                with self._on_slot(j):
+                    recv.append(self._copy_to(j, sends, events, c))
+            if self.device.type == "cuda":               # the fence
+                for dev in {d for _, d in groups}:
+                    torch.cuda.synchronize(dev)
+            loads0 = _build.loads
+            markers = []
+            outs = []
+            t0 = time.perf_counter()
+            for j, (rv, rc, rm) in enumerate(recv):
+                with self._on_slot(j):
+                    outs.append(_reduce_chunk(rv, rc, rm, plans[j][1], n, reduce_op))
+                markers.append(self._mark(j) if self.device.type == "cuda"
+                               else time.perf_counter())
+            timings.record(c, mt.shard_ready_seconds(markers, t0))
+            if _build.loads != loads0:
+                timings.valid = False
+            if not pipelined:
+                acc, cnt = [o[0] for o in outs], [o[1] for o in outs]
+                continue
+            if acc is None:
+                values = [inter[1] for inter in intermediate]
+                acc = [torch.zeros((v.shape[0], n, v.shape[-1]),
+                                   dtype=torch.float32 if reduce_op == "sum" else v.dtype,
+                                   device=v.device) for v in values]
+                cnt = [torch.zeros(o[1].shape, dtype=torch.float32, device=o[1].device)
+                       for o in outs]
+            for j, (out_c, cnt_c) in enumerate(outs):
+                with self._on_slot(j):
+                    acc[j], cnt[j] = _merge_chunk(acc[j], cnt[j], out_c, cnt_c, reduce_op)
+        return list(zip(acc, cnt, overflow, wire)), timings
 
     # -- public API ----------------------------------------------------------
 
@@ -1256,34 +1927,37 @@ class MapReduceJob:
         schedule every run). With ``cfg.reuse`` set, the per-shard
         statistics feed a drift check on the device first; a reused batch
         pulls only the ``(S,)`` slot-sum of the statistics, skips the
-        scheduler and replays the cached plan.
+        scheduler and replays the cached plan. With ``estimate_speeds``
+        the batch's wave timings (measured on the sharded backend,
+        synthetic on the stacked one) update the speeds the next plan
+        uses.
         """
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
         t0 = time.perf_counter()
 
         # ---- Phase A: map + statistics (all Maps finish before any Reduce).
-        intermediate, state = _phase_a(inputs, self.map_fn, n, self._stats.collect,
-                                       cfg.stream_prefix)
-        for t in intermediate:
-            if t.device != self.device:
+        intermediate, state = self._map_phase(inputs, cfg.stream_prefix)
+        for inter, (slots, dev) in zip(self._as_groups(intermediate), self._groups()):
+            for t in inter:
+                if t.device != dev:
+                    raise ValueError(
+                        f"map_fn returned a tensor on {t.device}; this job runs"
+                        f" {'its slots' if len(slots) > 1 else f'slot {slots[0]}'} on {dev}")
+            if inter[0].shape[0] != len(slots):
                 raise ValueError(
-                    f"map_fn returned a tensor on {t.device}; this job runs on"
-                    f" {self.device}")
-        if intermediate[0].shape[0] != m:
-            raise ValueError(
-                f"map_fn returned {intermediate[0].shape[0]} slots, config has {m}")
-        # Provider state, still on the device: (m, S), S = n exact or
-        # depth * width sketch; streaming-prefix mode doubles it (columns
-        # [0:S) full batch, [S:2S) the prefix — see _phase_a).
+                    f"map_fn returned {inter[0].shape[0]} slots, expected {len(slots)}")
+        # Provider state, still on the device(s): per group (rows, S), S = n
+        # exact or depth * width sketch; streaming-prefix mode doubles it
+        # (columns [0:S) full batch, [S:2S) the prefix — see _phase_a).
         provider = self._stats
-        local_k = state.reshape(m, -1)
+        local_k = [st.reshape(st.shape[0], -1) for st in self._as_groups(state)]
         prefix_k = None
         if cfg.stream_prefix is not None:
             s = provider.state_size
-            prefix_k = local_k[:, s:]
-            local_k = local_k[:, :s]
-        k_per_shard = int(intermediate[0].shape[-1])
+            prefix_k = [st[:, s:] for st in local_k]
+            local_k = [st[:, :s] for st in local_k]
+        k_per_shard = int(self._as_groups(intermediate)[0][0].shape[-1])
         cache = self.schedule_cache
 
         # ---- Reuse decision (drift on the device; only a scalar reaches the
@@ -1291,13 +1965,15 @@ class MapReduceJob:
         # statistics to plan, or only their (S,) slot-sum to replay. The
         # planner reads the statistics as pulled — no dtype cast, so ties
         # break as in the reference.
-        decision = cache.decide(local_k, fresh_speeds=self.current_speeds()) \
-            if cache is not None else None
+        decision = None
+        if cache is not None:
+            fresh = local_k if self.backend == "sharded" else local_k[0]
+            decision = cache.decide(fresh, fresh_speeds=self.current_speeds())
         local_hist = slot_sum = None
         if decision is None or decision.action == "replan":
-            local_hist = local_k.cpu().numpy()
+            local_hist = self._gather(local_k).cpu().numpy()
         else:
-            slot_sum = local_k.sum(dim=0).cpu().numpy()
+            slot_sum = self._gather(local_k).sum(dim=0).cpu().numpy()
         t1 = time.perf_counter()
 
         benefit = None
@@ -1332,7 +2008,8 @@ class MapReduceJob:
             key_dist = provider.key_dist(local_hist)
             prev = cache.snapshot if cache is not None else None
             if prefix_k is not None:
-                planned = self._plan_prefixed(local_hist, prefix_k.cpu().numpy(),
+                planned = self._plan_prefixed(local_hist,
+                                              self._gather(prefix_k).cpu().numpy(),
                                               k_per_shard, prev=prev)
             else:
                 planned = self._plan(local_hist, key_dist, k_per_shard, prev=prev)
@@ -1340,9 +2017,20 @@ class MapReduceJob:
                 cache.store(planned)
         t2 = time.perf_counter()
 
-        # ---- Phase B.
-        out, counts, overflow, wire = self._execute(intermediate, planned)
-        overflow_total = int(overflow)
+        # ---- Phase B: measured (sharded + estimation: per-slot wave stamps,
+        # host-fenced clocks only without a tick source) or untimed.
+        measured = self._measure_timings and self.speed_estimator is not None
+        timings: Optional[mt.WaveTimings] = None
+
+        def execute(plan, caps=None):
+            if measured:
+                results, timings = self._execute_measured(intermediate, plan, caps)
+            else:
+                results, timings = self._execute(intermediate, plan, caps), None
+            return self._as_groups(results), timings
+
+        results, timings = execute(planned)
+        overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
 
         # ---- Capacity fallback: a replayed plan's statistics-sized
         # buffers were too small for this batch. Overflow counting is
@@ -1350,15 +2038,16 @@ class MapReduceJob:
         # outputs are always the no-drop ones.
         if decision is not None and decision.action == "reuse" and overflow_total > 0:
             cache.capacity_fallbacks += 1
-            local_hist = local_k.cpu().numpy()
+            local_hist = self._gather(local_k).cpu().numpy()
             key_dist = provider.key_dist(local_hist)
             planned = self._plan(local_hist, key_dist, k_per_shard,
                                  prev=cache.snapshot)
             cache.store(planned)
             decision = sc.ReuseDecision("replan", "overflow", decision.drift,
                                         speed_drift=decision.speed_drift)
-            out, counts, overflow, wire = self._execute(intermediate, planned)
-            overflow_total = int(overflow)
+            del results
+            results, timings = execute(planned)
+            overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
 
         # ---- Estimate-commitment fallback (streaming prefix): wave 1's
         # committed cap under-provisioned this batch. Not a replan — every
@@ -1369,20 +2058,30 @@ class MapReduceJob:
             planned = self._escalate_caps(planned)
             if cache is not None:
                 cache.store(planned)
-            del out, counts
-            out, counts, overflow, wire = self._execute(
-                intermediate, planned, caps=self._needed_caps(intermediate, planned))
-            overflow_total = int(overflow)
+            del results
+            results, timings = execute(planned, self._needed_caps(intermediate, planned))
+            overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
 
         if cache is not None:
             cache.record(decision)
         self.last_plan = planned
 
+        # ---- Close the Q||C_max feedback loop: this batch's wave timings
+        # (measured per-slot clocks on the sharded backend, synthetic on the
+        # stacked one) update the speed estimate the next plan uses.
+        self.last_wave_timings = timings
+        if timings is not None:
+            self._observe_measured(timings, planned)
+        else:
+            self._observe_wave_timings(planned, key_dist)
+
         # Each cluster is reduced on exactly one slot, so the merge is a
         # sum over slots (done on the pulled float32 arrays).
-        values = out.cpu().numpy().reshape(m, n, -1).sum(axis=0)
-        counts_np = counts.cpu().numpy().reshape(m, n).sum(axis=0)
-        acct = self._wire_accounting(wire, intermediate[1], planned.waves.replication)
+        values = self._gather([r[0] for r in results]).cpu().numpy().reshape(m, n, -1).sum(axis=0)
+        counts_np = self._gather([r[1] for r in results]).cpu().numpy().reshape(m, n).sum(axis=0)
+        wire = self._gather([r[3][None] for r in results]).sum(dim=0)
+        acct = self._wire_accounting(wire, self._as_groups(intermediate)[0][1],
+                                     planned.waves.replication)
         self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
         inexact = acct.pop("inexact")
         t3 = time.perf_counter()
@@ -1414,3 +2113,29 @@ class MapReduceJob:
             quantize_exact=(inexact == 0) if cfg.quantize_shuffle else None,
             **acct,
         )
+
+
+# Slot streams, kept for the process per (device, slot): a new sharded job
+# reuses the streams of the jobs before it, and with them the caching
+# allocator's per-stream memory pools, instead of growing cold pools.
+_SLOT_STREAMS: dict = {}
+
+
+def _slot_stream(device: torch.device, slot: int) -> torch.cuda.Stream:
+    """Slot ``slot``'s CUDA stream on ``device`` (made at first use)."""
+    key = (device, slot)
+    if key not in _SLOT_STREAMS:
+        _SLOT_STREAMS[key] = torch.cuda.Stream(device=device)
+    return _SLOT_STREAMS[key]
+
+
+def _slot_slice(inputs, slot: int, device):
+    """Slot ``slot``'s ``(1, ...)`` slice of every tensor in ``inputs`` (a
+    tensor, or tuples, lists and dicts of them), on ``device``."""
+    if isinstance(inputs, torch.Tensor):
+        return inputs[slot:slot + 1].to(device)
+    if isinstance(inputs, (tuple, list)):
+        return type(inputs)(_slot_slice(x, slot, device) for x in inputs)
+    if isinstance(inputs, dict):
+        return {k: _slot_slice(v, slot, device) for k, v in inputs.items()}
+    return inputs

@@ -211,12 +211,19 @@ class CachedSchedule:
         """The per-slot relative speeds this plan was built for (Q||C_max)."""
         return self.schedule.slot_speeds
 
-    def hist_device(self, device) -> torch.Tensor:
+    def hist_device(self, device=None, put=None):
         """The plan-time statistics as a float32 tensor on ``device``.
 
         Uploaded at the first call and kept: every later drift check on
         the same device reads the resident baseline and uploads nothing.
+        ``put`` (instead of ``device``) places the one upload itself and
+        returns what it placed: the sharded backend puts row ``j`` on slot
+        ``j``'s device.
         """
+        if put is not None:
+            if self._hist_dev is None:
+                self._hist_dev = put(np.asarray(self.local_hist, np.float32))
+            return self._hist_dev
         device = torch.device(device)
         if self._hist_dev is None or self._hist_dev.device != device:
             h = np.asarray(self.local_hist, np.float32)
@@ -306,10 +313,17 @@ class ScheduleCache:
     Drift is computed on the fresh statistics' device: the baseline is
     uploaded there once (:meth:`CachedSchedule.hist_device`) and
     :func:`drift_metric` runs beside it, so only the scalar is pulled.
+
+    ``drift_fn`` (optional) replaces that computation: called as
+    ``drift_fn(snapshot, fresh_hist)``, it returns the scalar metric. The
+    sharded backend installs one that keeps each slot's baseline row on
+    the slot's device and reduces next to its statistics
+    (:meth:`repro_torch.core.mapreduce.MapReduceJob._make_sharded_drift`).
     """
 
-    def __init__(self, policy: ReusePolicy):
+    def __init__(self, policy: ReusePolicy, drift_fn=None):
         self.policy = policy
+        self.drift_fn = drift_fn
         self.snapshot: Optional[CachedSchedule] = None
         self.replans = 0
         self.reuses = 0
@@ -362,9 +376,12 @@ class ScheduleCache:
         if sd > p.max_speed_drift:
             self.speed_replans += 1
             return ReuseDecision("replan", "speed_drift", speed_drift=sd)
-        dev = (fresh_local_hist.device if isinstance(fresh_local_hist, torch.Tensor)
-               else "cpu")
-        d = float(drift_metric(s.hist_device(dev), fresh_local_hist, p.metric))
+        if self.drift_fn is not None:
+            d = float(self.drift_fn(s, fresh_local_hist))
+        else:
+            dev = (fresh_local_hist.device if isinstance(fresh_local_hist, torch.Tensor)
+                   else "cpu")
+            d = float(drift_metric(s.hist_device(dev), fresh_local_hist, p.metric))
         self.drift_checks += 1
         self.last_drift = d
         if d > p.max_drift:

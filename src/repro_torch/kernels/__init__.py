@@ -13,4 +13,8 @@ Each subpackage has:
                          entry point; no engine path launches it)
   coded_shuffle        — XOR of word slabs: the coded shuffle's packet
                          encode and decode (shuffle_replication=2)
+  wave_timer           — %globaltimer stamps (read_ticks) and copy + stamp
+                         (stamp_through): the measured executor's wave
+                         clocks on the sharded backend; ref.py also holds
+                         the tick word format, calibration.py the tick unit
 """

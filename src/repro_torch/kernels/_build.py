@@ -35,10 +35,14 @@ NVCC_FLAGS = (
 
 # Every kernel library of the port: ``csrc/<name>.cu``.
 SOURCES = ("histogram", "sketch_hist", "fused_shuffle_reduce", "segment_reduce",
-           "xor_words")
+           "xor_words", "wave_timer")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# Libraries loaded by this process (+1 at each first load of a library,
+# which may include its build): a timed step that loads one is not a
+# measurement of the step.
+loads = 0
 
 
 def _nvcc() -> str:
@@ -101,9 +105,11 @@ def build(*names: str) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    global loads
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)[name]))
             _loaded[name] = lib
+            loads += 1
         return lib

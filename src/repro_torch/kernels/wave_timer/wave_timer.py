@@ -1,0 +1,59 @@
+"""ctypes binding of ``csrc/wave_timer.cu`` (built at first use)."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_ANCHORS = 8
+
+
+@functools.cache
+def _entries():
+    lib = _build.load("wave_timer")
+    read = lib.wave_timer_read_ticks
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    stamp = lib.wave_timer_stamp_through
+    stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stamp.restype = ctypes.c_int
+    return read, stamp
+
+
+def _anchor_array(anchors: Sequence[torch.Tensor]):
+    ptrs = (ctypes.c_void_p * max(1, len(anchors)))(*[a.data_ptr() for a in anchors])
+    return ptrs, len(anchors)
+
+
+def read_ticks_cuda(anchors: Sequence[torch.Tensor], ticks: torch.Tensor) -> None:
+    """Launch the stamp kernel into ``ticks`` ((2,) uint32) on the current stream.
+
+    Devices, types and anchor sizes are the caller's to check
+    (``ops.read_ticks``). Raises if the launch is refused.
+    """
+    ptrs, count = _anchor_array(anchors)
+    rc = _entries()[0](ptrs, count, ticks.data_ptr(),
+                       torch.cuda.current_stream(ticks.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"read_ticks kernel launch failed: cudaError {rc}")
+
+
+def stamp_through_cuda(primary: torch.Tensor, out: torch.Tensor,
+                       anchors: Sequence[torch.Tensor], ticks: torch.Tensor) -> None:
+    """Launch the copy + stamp kernel: ``out`` = ``primary`` byte for byte.
+
+    Both are contiguous tensors of one size on one device (checked by
+    ``ops.stamp_through``). Raises if the launch is refused.
+    """
+    ptrs, count = _anchor_array(anchors)
+    nbytes = primary.numel() * primary.element_size()
+    rc = _entries()[1](primary.data_ptr(), out.data_ptr(), nbytes, ptrs, count,
+                       ticks.data_ptr(), torch.cuda.current_stream(ticks.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"stamp_through kernel launch failed: cudaError {rc}")

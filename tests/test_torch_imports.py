@@ -20,6 +20,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "import sys, repro_torch, repro_torch.core.mapreduce, "
         "repro_torch.core.schedule_cache, repro_torch.core.simulator, "
         "repro_torch.core.slot_speeds, repro_torch.core.stats_provider, "
+        "repro_torch.core.mesh_timing, "
+        "repro_torch.kernels.wave_timer.ops, repro_torch.kernels.wave_timer.ref, "
+        "repro_torch.kernels.wave_timer.calibration, "
+        "repro_torch.kernels.wave_timer.wave_timer, "
         "repro_torch.kernels.histogram.ops, "
         "repro_torch.kernels.sketch_hist.ops, "
         "repro_torch.kernels.segment_reduce.ops, "
@@ -61,15 +65,17 @@ def test_default_device_raises_without_cuda():
         MapReduceJob(lambda x: x, MapReduceConfig(num_slots=2, num_clusters=4))
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("estimate_speeds", True, 6),
-    ("measure_timings", True, 6),
-    ("checkpoint_waves", True, 7),
+@pytest.mark.parametrize("field,value,item,backend", [
+    ("checkpoint_waves", True, 7, "stacked"),
+    ("checkpoint_waves", True, 7, "sharded"),
+    ("shuffle_replication", 2, 14, "sharded"),
 ])
-def test_unported_settings_name_their_roadmap_item(field, value, item):
+def test_unported_settings_name_their_roadmap_item(field, value, item, backend):
     cfg = MapReduceConfig(num_slots=2, num_clusters=4, **{field: value})
+    where = ({"device": "cpu"} if backend == "stacked"
+             else {"backend": "sharded", "devices": ["cpu"] * 2})
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        MapReduceJob(lambda x: x, cfg, device="cpu")
+        MapReduceJob(lambda x: x, cfg, **where)
 
 
 def _reuse_with_negative_drift(sc_module):
