@@ -39,6 +39,31 @@ against a numpy oracle:
   m^3 * sum(cap2) rows of W + 2 words: about 300 GB at m = 32, and at m = 8
   and K = 2^21 two 15.9 GB spills and a peak near 75 GB.
 
+Then it frees the card and adds the serving side:
+
+* kernel phase 9: the flash-attention kernel at the serve path's longest
+  prefill (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D =
+  128, bf16; tolerance 3e-2) and at four more shapes (f32 with T < S, bf16
+  at D = 64, f32 at D = 20, f32 with T > S, whose rows that see no key give
+  0; f32 tolerance 2e-5), timed beside its plain version and
+  ``scaled_dot_product_attention``;
+* kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64
+  Zipf-skewed destinations with 2% padding, ranks and counts equal to the
+  plain version exactly (its own entry point: no engine path runs it);
+* the serve path: ``Engine`` on Llama-3-8B at full width and depth (16.1
+  GB of bf16 weights from ``torch.Generator`` seed ``--seed``,
+  ``attn_impl="pallas"``), 8 lanes, ``max_len`` 1024, 16 requests with
+  prompts of 128-512 tokens and decode budgets clip(zipf(1.5) * 4, 4, 64):
+  every request served within its budget, the lane plan equal to the host
+  scheduler's, the flash kernel launched once a layer in every prefill;
+  then 20 decode steps under the profiler, and a 2-layer full-width
+  float32 twin run with "pallas" and with "naive" attention, whose token
+  streams must agree (a stream that differs is reported with its top-2
+  logit margin, and fails the run if that margin is above 1e-3);
+* the launcher: ``python -m repro_torch.launch.serve --arch smollm-360m``
+  at its defaults (``--attn-impl pallas``), as a subprocess; its prefills
+  must launch the flash kernel.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
 non-zero.
@@ -48,7 +73,7 @@ by default), so the measured path's 32 slot streams would share queues.
 The script sets it to 32 unless the environment sets it, before the first
 CUDA call, and prints the value it ran with.
 
-The configuration is the PUMA InvertedIndex deployment the reference's
+The MapReduce paths' configuration is the PUMA InvertedIndex deployment the reference's
 simulator calibrates (``src/repro/core/simulator.py``): keys Zipf(0.97)
 over 120,000 distinct keys, 48-byte pairs (a 4-byte key and V = 11
 float32 values), the paper's cluster of 8 nodes x 4 Reduce slots (m = 32),
@@ -70,6 +95,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,9 +125,14 @@ CODED_M, CODED_K = 8, 2 ** 20   # the coded path: 8 nodes, the first 2^20 pairs 
 HIGH_MULTIPLIERS = (0x9E3779B1, 0xFFFFFFFF, 0x80000001, 0xC2B2AE35)
 
 # Kernels whose source file is named otherwise.
-SOURCE_OF = {"read_ticks": "wave_timer", "stamp_through": "wave_timer"}
+SOURCE_OF = {"read_ticks": "wave_timer", "stamp_through": "wave_timer",
+             "dispatch_ranks": "moe_dispatch"}
+
+DISPATCH_T, DISPATCH_E = 2 ** 20, 64   # kernel 8: tokens, destinations
+SERVE_LANES, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 1024, 16   # the serve path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core rate, dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 INT32_OPS_PER_S = 33.5e12   # int32 lanes: 64 an SM against float32's 128
 
@@ -903,7 +934,7 @@ def wave_timer_phase(wt_ops, wt_ref, ids_shape, dev) -> dict:
     return {"read_ticks": read, "stamp_through": stamp, "timer": timer}
 
 
-def profile_run(label, fn, job) -> dict:
+def profile_run(label, fn, job=None) -> dict:
     """One ``fn()`` under the profiler: its wall time, the device's busy time
     (the union of kernel and copy intervals) and the top device operations."""
     from torch.profiler import ProfilerActivity, profile
@@ -929,20 +960,267 @@ def profile_run(label, fn, job) -> dict:
     else:
         print(f"{label}: the profiler saw no device time; busy share not measured",
               flush=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "phases": job.last_phase_ms,
-            "top": top[:12]}
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "phases": None if job is None else job.last_phase_ms, "top": top[:12]}
+
+
+def flash_phase(fa_ops, flash_ref, prompt_len, dev) -> dict:
+    """Kernel 9 against its plain version, at the serve path's prefill shape
+    (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D = 128,
+    bf16) and at four more: f32 with T < S, bf16 at D = 64, f32 at the
+    smollm twin's D = 20, f32 with T > S (rows that see no key give 0).
+
+    Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
+    the two sum in other orders). Times the kernel, the plain version and
+    ``scaled_dot_product_attention`` (GQA, causal) at the serve shape.
+    Bound: causal flops 4 B Hq D (T S - T (T - 1) / 2) at the bf16 tensor
+    rate, against q, k, v and o once at the memory rate.
+    """
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products of the plain version run in full float32")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = {"serve": (8, 32, 8, prompt_len, prompt_len, 128, torch.bfloat16),
+             "f32_t_lt_s": (2, 8, 2, 100, 300, 128, torch.float32),
+             "bf16_d64": (2, 8, 2, 256, 256, 64, torch.bfloat16),
+             "f32_d20": (2, 3, 1, 50, 50, 20, torch.float32),
+             "f32_t_gt_s": (2, 4, 2, 70, 30, 64, torch.float32)}
+    res = {"cases": {}}
+    for name, (b, hq, hkv, t, s, d, dtype) in cases.items():
+        q = torch.randn(b, hq, t, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
+        got = fa_ops.flash_attention(q, k, v, causal=True)
+        want = flash_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        check(err <= tol and got.dtype == dtype,
+              f"flash kernel == plain within {tol} at {name} {(b, hq, hkv, t, s, d)}")
+        if t > s:
+            check(bool(torch.all(got[:, :, :t - s] == 0)), "rows that see no key give 0")
+        res["cases"][name] = {"shape": [b, hq, hkv, t, s, d], "dtype": str(dtype),
+                              "max_abs_err": err, "tol": tol}
+        if name != "serve":
+            continue
+        flops = 4 * b * hq * d * (t * s - t * (t - 1) / 2)
+        nbytes = (2 * b * hq * t * d + 2 * b * hkv * s * d) * 2
+        bound, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        check(float((lib.float() - want.float()).abs().max()) <= 3e-2,
+              "scaled_dot_product_attention yardstick == plain within 3e-2")
+        res.update(
+            shape=[b, hq, hkv, t, s, d], dtype="bfloat16", max_abs_err=err,
+            flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by,
+            ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+            plain_ms=cuda_ms(lambda: flash_ref(q, k, v, causal=True), reps=5, warmup=1),
+            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)))
+        del lib
+    return res
+
+
+def dispatch_phase(md_ops, dispatch_ref, dev, t=DISPATCH_T, e=DISPATCH_E) -> dict:
+    """Kernel 8 against its plain version, exactly, at T tokens and E
+    destinations: Zipf(1.3)-skewed destinations with 2% padding (-1).
+
+    Timed as device time from a burst queued behind a spin (its wrapper
+    takes longer on the host than its kernel on the card); the plain
+    version with CUDA events. No single PyTorch call computes stable ranks,
+    so there is no library time. Bound: dest read and rank written once,
+    counts written once, at the memory rate.
+    """
+    rng = np.random.default_rng(8)
+    dest_np = ((rng.zipf(1.3, t) - 1) % e).astype(np.int32)
+    dest_np[rng.random(t) < 0.02] = -1
+    dest = torch.as_tensor(dest_np, device=dev)
+    rank, counts = md_ops.dispatch_ranks(dest, e)
+    want_rank, want_counts = dispatch_ref(dest, e)
+    torch.cuda.synchronize()
+    check(torch.equal(rank, want_rank) and torch.equal(counts, want_counts),
+          f"dispatch kernel == plain, exactly, at T={t}, E={e}")
+    check(int(counts.sum()) == int((dest_np >= 0).sum()), "counts sum to the valid tokens")
+    err = float((rank.long() - want_rank.long()).abs().max())
+    ms, host_ms = device_ms(lambda: md_ops.dispatch_ranks(dest, e), launches=100)
+    b, by = bound_ms(8 * t + 4 * e, 0)
+    return {"tokens": t, "dests": e, "max_abs_err": err, "hot_share":
+            float(counts.max()) / t, "ms": ms, "host_ms": host_ms,
+            "plain_ms": cuda_ms(lambda: dispatch_ref(dest, e), reps=5, warmup=1),
+            "library_ms": None, "bound_ms": b, "bound_by": by}
+
+
+def serve_requests(vocab: int, seed: int, count: int = SERVE_REQUESTS):
+    """The serve path's requests, drawn with numpy from ``seed``: prompts of
+    128-512 tokens, decode budgets clip(zipf(1.5) * 4, 4, 64)."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        plen = int(rng.integers(128, 513))
+        budget = int(np.clip(rng.zipf(1.5) * 4, 4, 64))
+        out.append(Request(rid=i, prompt=rng.integers(3, vocab, plen).astype(np.int32),
+                           max_new=budget))
+    return out
+
+
+def top2_margin(model, cfg, tokens, dev) -> float:
+    """Top-2 logit margin of the next token after ``tokens`` (one sequence,
+    no cache)."""
+    from repro_torch.models.model import forward
+
+    with torch.inference_mode():
+        ids = torch.as_tensor(np.asarray(tokens, np.int64)[None, :], device=dev)
+        logits = forward(model, cfg, tokens=ids).logits[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def serve_path(counters, args, dev) -> tuple:
+    """The serving engine on Llama-3-8B at full width and depth, bf16 weights
+    from ``torch.Generator`` seed ``args.seed``, attn_impl="pallas": 16
+    requests on 8 lanes; then 20 decode steps under the profiler; then a
+    2-layer float32 twin with "pallas" and with "naive" attention, whose
+    token streams must agree. Returns ``(record, launches)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import scheduler as sched_lib
+    from repro_torch.models.model import init_cache, init_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    rec = {"config": "llama3-8b", "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "weights_gb": weight_gb, "init_s": time.perf_counter() - t0}
+    print(f"serve path: llama3-8b, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{weight_gb:.2f} GB of bf16 weights in {rec['init_s']:.1f} s", flush=True)
+    ecfg = EngineConfig(lanes=SERVE_LANES, max_len=SERVE_MAX_LEN, scheduler="os4m")
+    eng = Engine(cfg, model, ecfg, device=dev)
+    reqs = serve_requests(cfg.vocab, args.seed)
+    budgets = {r.rid: r.max_new for r in reqs}
+    want_lanes = sched_lib.schedule_bss(
+        np.asarray([r.load for r in reqs], np.float64), SERVE_LANES).assignment
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters)
+    tokens = sum(len(r.output) for r in done)
+    check(sorted(r.rid for r in done) == list(range(len(reqs))), "serve: every request served")
+    check(all(1 <= len(r.output) <= budgets[r.rid] for r in done),
+          "serve: every output within its decode budget")
+    check([r.lane for r in reqs] == [int(a) for a in want_lanes],
+          "serve: the lane plan == the host scheduler's plan for the same loads")
+    check(launches["flash_attention"] == cfg.n_layers * len(reqs),
+          f"serve: the flash kernel ran in every prefill layer ({cfg.n_layers} x {len(reqs)})")
+    steps = np.asarray(eng.step_seconds[1:]) * 1e3
+    prefill = np.asarray(eng.prefill_seconds) * 1e3
+    rec.update(
+        requests=len(reqs), lanes=SERVE_LANES, max_len=SERVE_MAX_LEN,
+        prompt_lens=[int(r.prompt.shape[0]) for r in reqs], budgets=list(budgets.values()),
+        out_lens=[len(r.output) for r in sorted(done, key=lambda r: r.rid)],
+        lanes_of=[r.lane for r in reqs], wall_s=wall, tokens=tokens,
+        tokens_per_s=tokens / wall, prefill_ms=prefill.tolist(),
+        prefill_ms_median=float(np.median(prefill)),
+        decode_steps=len(eng.step_seconds), first_step_ms=eng.step_seconds[0] * 1e3,
+        decode_ms_median=float(np.median(steps)), decode_ms_p90=float(np.percentile(steps, 90)),
+        balance_ratio=eng.last_balance_ratio, finish_ratio=eng.last_finish_ratio,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"serve path: {len(done)} requests, {tokens} tokens in {wall:.2f} s "
+          f"({rec['tokens_per_s']:.1f} tok/s) | prefill median {rec['prefill_ms_median']:.1f} ms "
+          f"an admission ({len(prefill)}) | decode {rec['decode_steps']} steps, median "
+          f"{rec['decode_ms_median']:.2f} ms, p90 {rec['decode_ms_p90']:.2f} ms (first "
+          f"{rec['first_step_ms']:.1f} ms) | lane balance {rec['balance_ratio']:.4f}, finish "
+          f"{rec['finish_ratio']:.4f} | peak {rec['peak_gb']:.1f} GB | launches {launches}",
+          flush=True)
+
+    # Where a decode step's time goes: 20 lock-step steps at the lanes'
+    # depths of a prompt of median length, under the profiler.
+    cache = init_cache(cfg, SERVE_LANES, SERVE_MAX_LEN, dtype=torch.float32, device=dev)
+    pos = np.full(SERVE_LANES, int(np.median(rec["prompt_lens"])), np.int64)
+    cur = np.full((SERVE_LANES, 1), 7, np.int32)
+
+    def steps20():
+        nonlocal cache
+        with torch.inference_mode():
+            for i in range(20):
+                cache, nxt = eng._decode(model, cache, torch.as_tensor(cur, device=dev),
+                                         torch.as_tensor(pos + i, device=dev))
+                nxt.cpu()
+
+    with torch.inference_mode():
+        eng._decode(model, cache, torch.as_tensor(cur, device=dev), torch.as_tensor(pos, device=dev))
+        rec["profile_20_decode_steps"] = profile_run("profile 20 decode steps", steps20)
+    del cache, eng, model, done
+    torch.cuda.empty_cache()
+
+    # The 2-layer float32 twin: flash kernel against materialised scores.
+    twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    model = init_model(twin, seed=args.seed, device=dev)
+    streams = {}
+    for impl in ("pallas", "naive"):
+        eng = Engine(dataclasses.replace(twin, attn_impl=impl), model, ecfg, device=dev)
+        streams[impl] = {r.rid: r.output for r in eng.run(serve_requests(twin.vocab, args.seed))}
+    diverged = []
+    for rid, a in streams["pallas"].items():
+        b = streams["naive"][rid]
+        if a != b:
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            prompt = serve_requests(twin.vocab, args.seed)[rid].prompt
+            margin = top2_margin(model, twin, list(prompt) + a[:j], dev)
+            diverged.append({"rid": rid, "step": j, "top2_margin": margin})
+    for d in diverged:
+        check(d["top2_margin"] <= 1e-3, f"f32 twin: request {d['rid']} diverges at step "
+              f"{d['step']} with a top-2 margin of {d['top2_margin']:.3g} (a real disagreement)")
+    rec["f32_twin"] = {"n_layers": 2, "streams_equal": not diverged, "diverged": diverged,
+                       "tokens": sum(len(o) for o in streams["pallas"].values())}
+    print(f"f32 twin (2 layers, full width): pallas vs naive token streams "
+          f"{'equal' if not diverged else 'differ: ' + str(diverged)}", flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def launcher_run(timeout: int = 600) -> dict:
+    """``python -m repro_torch.launch.serve --arch smollm-360m`` at its
+    defaults, as a subprocess on the card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "smollm-360m"], capture_output=True, text=True, timeout=timeout,
+                         env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"the launcher exits 0 (rc {out.returncode}: {out.stderr[-2000:]})")
+    line = out.stdout.strip().splitlines()[-1]
+    check(line.startswith("scheduler=os4m: 24 requests"), f"the launcher served 24 requests: {line}")
+    found = re.search(r"attn_impl=pallas, flash kernel launches (\d+)$", line)
+    flash = int(found.group(1)) if found else 0
+    check(flash > 0, f"the launcher's prefills launched the flash kernel: {line}")
+    print(f"launcher (python -m repro_torch.launch.serve --arch smollm-360m, {wall:.1f} s): "
+          f"{line}", flush=True)
+    return {"wall_s": wall, "line": line, "flash_launches": flash}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the first batch; batches use seed, seed+1, seed+2")
+                        help="seed of the first batch (batches use seed, seed+1, "
+                             "seed+2), of the serve path's weights and of its requests")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import clustering, scheduler as sched_lib
     from repro_torch.core.mapreduce import MapReduceConfig, MapReduceJob
     from repro_torch.core.schedule_cache import ReusePolicy
@@ -950,12 +1228,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_shuffle import ops as cs_ops
     from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
     from repro_torch.kernels.fused_shuffle_reduce.ref import (
         fused_gather_segment_reduce_ref,
     )
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_dispatch.ref import dispatch_ranks_ref
     from repro_torch.kernels.segment_reduce import ops as seg_ops
     from repro_torch.kernels.segment_reduce.ref import segment_reduce_sorted_ref
     from repro_torch.kernels.sketch_hist import ops as sk_ops
@@ -967,7 +1249,8 @@ def main(argv=None) -> int:
                 "fused_shuffle_reduce": (fused_ops, "launches"),
                 "segment_reduce": (seg_ops, "launches"), "xor_words": (cs_ops, "launches"),
                 "read_ticks": (wt_ops, "read_ticks_launches"),
-                "stamp_through": (wt_ops, "stamp_through_launches")}
+                "stamp_through": (wt_ops, "stamp_through_launches"),
+                "flash_attention": (fa_ops, "launches"), "dispatch_ranks": (md_ops, "launches")}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1341,6 +1624,37 @@ def main(argv=None) -> int:
         "profile coded run", lambda: coded_job.run(coded_batch), coded_job)
     del coded_batch, coded_job
 
+    # ---- Free the card for the serve path (the paths above peaked near 58 GB).
+    del batch0, keys0, valid0, w, prof_job, work
+    torch.cuda.empty_cache()
+    print(f"card freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
+
+    # ---- Kernel phase 9: flash attention at the serve path's prefill shape
+    # (its longest prompt) and four more; kernel phase 8: dispatch ranks.
+    vocab = get_config("llama3-8b").vocab
+    prompt_len = max(r.prompt.shape[0] for r in serve_requests(vocab, args.seed))
+    flash = flash_phase(fa_ops, flash_attention_ref, prompt_len, dev)
+    print(f"kernel flash_attention {tuple(flash['shape'])} bf16 causal (the serve path's "
+          f"longest prefill): err {flash['max_abs_err']:.3g} (others: "
+          + ", ".join(f"{k} {c['max_abs_err']:.3g}" for k, c in flash["cases"].items()
+                      if k != "serve")
+          + f") | kernel {flash['ms']:.4f} ms | plain {flash['plain_ms']:.4f} ms | "
+          f"scaled_dot_product_attention {flash['library_ms']:.4f} ms | bound "
+          f"{flash['bound_ms']:.4f} ms ({flash['bound_by']})", flush=True)
+    record["flash_attention"] = flash
+    disp = dispatch_phase(md_ops, dispatch_ranks_ref, dev)
+    print(f"kernel dispatch_ranks T={disp['tokens']} E={disp['dests']} (Zipf 1.3, 2% "
+          f"padding; hottest destination {disp['hot_share']:.3f} of the tokens): exact | "
+          f"device {disp['ms']:.4f} ms a call (host to issue {disp['host_ms']:.4f} ms) | "
+          f"plain {disp['plain_ms']:.4f} ms | bound {disp['bound_ms']:.4f} ms", flush=True)
+    record["dispatch_ranks"] = disp
+    torch.cuda.empty_cache()
+
+    # ---- The serve path: Llama-3-8B at full width and depth on 8 lanes.
+    record["serve_path"], launches["serve"] = serve_path(counters, args, dev)
+    record["launcher"] = launcher_run()
+
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).
     def total_launches(name):
@@ -1413,12 +1727,36 @@ def main(argv=None) -> int:
          "launches": total_launches("stamp_through"), "max_abs_err": st["max_abs_err"],
          "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"]},
+        # Launched once a layer in every prefill of the serve path (n_layers x
+        # admissions); its times are at the longest prefill's shape. The
+        # library call is scaled_dot_product_attention (GQA, causal).
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:111",
+         "launches": total_launches("flash_attention"), "max_abs_err": flash["max_abs_err"],
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+        # No engine or model path launches it, in the reference either: its
+        # numbers are from its own entry point at 2^20 tokens and 64
+        # destinations. No single PyTorch call computes stable ranks.
+        {"name": "dispatch_ranks", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_dispatch.cu",
+         "replaces": "src/repro/kernels/moe_dispatch/moe_dispatch.py:75",
+         "launches": total_launches("dispatch_ranks"), "on_engine_path": False,
+         "max_abs_err": disp["max_abs_err"], "ms": disp["ms"], "plain_ms": disp["plain_ms"],
+         "bound_ms": disp["bound_ms"], "bound_by": disp["bound_by"], "library_ms": None},
     ]
     check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
           and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0
           and launches["measured"]["read_ticks"] > 0
-          and launches["measured"]["stamp_through"] > 0,
+          and launches["measured"]["stamp_through"] > 0
+          and launches["serve"]["flash_attention"] > 0,
           "every kernel of an engine path was launched on it")
+    check(all(launches[p]["flash_attention"] == 0 for p in launches if p != "serve"),
+          "only the serve path launched the flash kernel")
+    check(launches["serve"]["flash_attention"] == total_launches("flash_attention")
+          and all(launches["serve"][k] == 0 for k in counters if k != "flash_attention"),
+          "the serve path launched only the flash kernel")
     check(all(launches[p]["xor_words"] == 0 for p in launches if p != "coded"),
           "no uncoded path launched xor_words")
     check(all(launches[p][k] == 0 for p in launches if p != "measured"

@@ -110,6 +110,7 @@ from repro_torch.core import scheduler as sched_lib
 from repro_torch.core import simulator as sim
 from repro_torch.core import slot_speeds as ss
 from repro_torch.core import stats_provider as sp
+from repro_torch.device import default_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.coded_shuffle import ops as cs_ops
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
@@ -1016,7 +1017,7 @@ class MapReduceJob:
         else:
             if devices is not None:
                 raise ValueError("devices= places the slots of backend='sharded'")
-            self.device = self._default_device(device)
+            self.device = default_device(device, "MapReduceJob")
             self.devices = self.streams = None
         self.map_fn = map_fn
         self.cfg = config
@@ -1086,20 +1087,6 @@ class MapReduceJob:
         # The plan the last run() executed (telemetry for benches and tests).
         self.last_plan: Optional[sc.CachedSchedule] = None
 
-    @staticmethod
-    def _default_device(device) -> torch.device:
-        """``device`` as a ``torch.device``; ``None`` is the current CUDA device."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "MapReduceJob runs on CUDA unless told otherwise, and no CUDA"
-                    " device is available; pass device='cpu' for the CPU path")
-            device = "cuda"
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        return device
-
     def _init_slots(self, devices, num_slots: int) -> None:
         """One device and (on CUDA) one stream per slot of the sharded backend."""
         if devices is None:
@@ -1109,7 +1096,7 @@ class MapReduceJob:
                     " unless told otherwise, and no CUDA device is available; pass"
                     " devices=['cpu'] * num_slots for the CPU path")
             devices = [None] * num_slots
-        devices = [self._default_device(d) for d in devices]
+        devices = [default_device(d, "MapReduceJob") for d in devices]
         if len(devices) != num_slots:
             raise ValueError(
                 f"devices has {len(devices)} entries but config.num_slots={num_slots}")

@@ -1,11 +1,11 @@
 """Schedule cost model of a Hadoop-class cluster: the ``auto`` strategy picker.
 
 The reference's module also reproduces the paper's job-duration figures
-(``simulate_job`` and its PUMA calibration) and orders jobs for multi-job
-admission (``wspt_order``). The port carries only what its engine calls:
-``scheduler="auto"`` (:func:`pick_strategy`) and the reuse cost gate
-(:func:`estimate_replan_benefit`), both built on :func:`estimate_reduce_time`
-and :func:`scheduling_overhead`.
+(``simulate_job`` and its PUMA calibration). The port carries only what
+its engines call: ``scheduler="auto"`` (:func:`pick_strategy`) and the
+reuse cost gate (:func:`estimate_replan_benefit`), both built on
+:func:`estimate_reduce_time` and :func:`scheduling_overhead`, and the
+serving engine's multi-job admission order (:func:`wspt_order`).
 
 The model is the paper's cluster (§5): 8 worker VMs with measured
 bandwidths (network 37 MB/s, disk read 203 MB/s, disk write 121 MB/s) and
@@ -31,6 +31,7 @@ __all__ = [
     "scheduling_overhead",
     "pick_strategy",
     "estimate_replan_benefit",
+    "wspt_order",
 ]
 
 
@@ -264,3 +265,34 @@ def estimate_replan_benefit(
         "fresh_strategy": name,
         "benefit": float(stale - fresh),
     }
+
+
+# ---------------------------------------------------------------------------
+# Multi-job admission: weighted completion time on one shared mesh.
+# ---------------------------------------------------------------------------
+
+
+def wspt_order(times, weights=None):
+    """Admission order minimising ``Σ wᵢ Cᵢ`` for sequential jobs (WSPT).
+
+    When N jobs share one mesh and each runs with the full mesh (the OS4M
+    schedule already balances *within* a job), the coordinator's freedom
+    is the *order*. Weighted Shortest Processing Time — descending
+    ``w_j / t_j`` — is exactly optimal for ``1 || Σ w C`` (Smith's rule)
+    and is the admission rule the multi-job coordinator plans by.
+    ``times`` are per-job estimated makespans (seconds or any consistent
+    unit, e.g. from each job's row of the R-matrix); ties break by
+    submission index (stable), so equal jobs keep FIFO fairness.
+    """
+    t = np.asarray(times, dtype=np.float64)
+    w = (np.ones_like(t) if weights is None
+         else np.asarray(weights, dtype=np.float64))
+    if t.shape != w.shape:
+        raise ValueError(f"times {t.shape} vs weights {w.shape}")
+    if np.any(t < 0) or np.any(w < 0):
+        raise ValueError("times and weights must be >= 0")
+    # Sort by t/w ascending == w/t descending, without dividing by zero:
+    # a zero-time or infinite-weight job goes first via the ratio's sign.
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.where(w > 0, t / np.where(w > 0, w, 1.0), np.inf)
+    return np.argsort(ratio, kind="stable")

@@ -17,4 +17,10 @@ Each subpackage has:
                          (stamp_through): the measured executor's wave
                          clocks on the sharded backend; ref.py also holds
                          the tick word format, calibration.py the tick unit
+  flash_attention      — causal GQA online-softmax attention: every prefill
+                         of the serving engine with attn_impl="pallas";
+                         ops.py also holds the decode path (plain ops)
+  moe_dispatch         — stable counting-sort ranks and counts under a
+                         bucket scatter (its own entry point; no engine or
+                         model path launches it)
 """

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 
 # Every kernel library of the port: ``csrc/<name>.cu``.
 SOURCES = ("histogram", "sketch_hist", "fused_shuffle_reduce", "segment_reduce",
-           "xor_words", "wave_timer")
+           "xor_words", "wave_timer", "flash_attention", "moe_dispatch")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

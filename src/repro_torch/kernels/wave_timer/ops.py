@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import default_device
 from repro_torch.kernels.wave_timer import calibration as _cal
 from repro_torch.kernels.wave_timer import ref as wt_ref
 from repro_torch.kernels.wave_timer.wave_timer import (
@@ -64,17 +65,18 @@ combine_ticks = wt_ref.combine_ticks
 
 
 def _device_of(where) -> torch.device:
+    """The device of ``where`` (a tensor or a device); ``None`` is the
+    current CUDA device, and raises where there is none: the host stamps
+    are for CPU tensors, which a caller names (``"cpu"``)."""
     if isinstance(where, torch.Tensor):
         return where.device
-    if where is not None:
-        return torch.device(where)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return default_device(where, "the wave timer")
 
 
 def backend(where=None) -> str:
     """The tick backend for tensors on ``where`` (a tensor or a device):
     ``"device"`` for CUDA, ``"host"`` for the CPU, unless forced. ``None``
-    means the default CUDA device when there is one, else the CPU."""
+    means the current CUDA device, and raises where there is none."""
     if _FORCED is not None:
         return _FORCED
     return "device" if _device_of(where).type == "cuda" else "host"
@@ -110,8 +112,9 @@ def read_ticks(*anchors: torch.Tensor, device=None, streams: Sequence = ()) -> t
     """One clock stamp ``(2,)`` uint32, taken after ``anchors``.
 
     The stamp lives where the tensors do: on the CUDA ``device`` (default:
-    the first anchor's) it is launched on the current stream; on the CPU
-    it is the host clock now.
+    the first anchor's, else the current CUDA device) it is launched on the
+    current stream; on the CPU (``device="cpu"`` or CPU anchors) it is the
+    host clock now. With no device, no anchor and no CUDA it raises.
     """
     dev = _device_of(device if device is not None else (anchors[0] if anchors else None))
     b = backend(dev)
@@ -198,8 +201,6 @@ def tick_calibration(where=None) -> _cal.TickCalibration:
     if b == "none":
         raise RuntimeError("no wave-timer tick backend to calibrate")
     dev = _device_of(where)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     cached = _CALIBRATION_CACHE.get(dev)
     if cached is None:
         def _read() -> int:

@@ -1,0 +1,75 @@
+"""Load the reference's parameter values into the port's model.
+
+The input is the reference's value tree (``repro.nn.layers.split(
+repro.models.model.init_model(key, cfg))[0]``) with every leaf as a numpy
+array, in nested dicts, the layer stack's leaves carrying a leading layer
+axis under ``values["layers"]``. Linear weights are ``(d_in, d_out)`` on
+both sides, so every leaf copies as it is. numpy has no bfloat16: pass
+float32 arrays (a bf16 reference leaf cast to float32 is exact); they are
+cast to ``cfg.param_dtype`` here. Only numpy goes in, never a JAX object.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DecoderModel
+
+__all__ = ["params_from_reference"]
+
+
+def _copy(dst: torch.Tensor, src, name: str) -> None:
+    if not isinstance(src, np.ndarray):
+        raise TypeError(f"{name}: expected a numpy array, got {type(src).__name__}")
+    arr = src
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {arr.shape} does not match {tuple(dst.shape)}")
+    if arr.dtype.kind != "f":
+        raise TypeError(f"{name}: expected floating-point values, got {arr.dtype}")
+    dst.copy_(torch.from_numpy(np.array(arr, copy=True)).to(dst.dtype))
+
+
+def _load_linear(lin, tree: Mapping, name: str, index=None) -> None:
+    pick = (lambda a: a) if index is None else (lambda a: a[index])
+    _copy(lin.w, pick(tree["w"]), f"{name}.w")
+    if lin.b is not None:
+        _copy(lin.b, pick(tree["b"]), f"{name}.b")
+    elif "b" in tree:
+        raise ValueError(f"{name}: the reference has a bias, the config has none")
+
+
+def _load_norm(norm, tree: Mapping, name: str, index=None) -> None:
+    pick = (lambda a: a) if index is None else (lambda a: a[index])
+    _copy(norm.scale, pick(tree["scale"]), f"{name}.scale")
+    if hasattr(norm, "bias"):
+        _copy(norm.bias, pick(tree["bias"]), f"{name}.bias")
+
+
+def params_from_reference(values: Mapping, cfg: ModelConfig, device=None) -> DecoderModel:
+    """The port's model of ``cfg`` on ``device`` (default: the current CUDA
+    device; without one this raises) holding the reference's values."""
+    model = DecoderModel(cfg, device=device)
+    with torch.no_grad():
+        _copy(model.embed.w, values["embed"]["w"], "embed.w")
+        _load_norm(model.final_norm, values["final_norm"], "final_norm")
+        _load_linear(model.lm_head, values["lm_head"], "lm_head")
+        stack = values["layers"]
+        for i, layer in enumerate(model.layers):
+            pre = f"layers[{i}]"
+            _load_norm(layer.ln1, stack["ln1"], f"{pre}.ln1", i)
+            _load_norm(layer.ln2, stack["ln2"], f"{pre}.ln2", i)
+            for part in ("q", "k", "v", "o"):
+                _load_linear(getattr(layer.attn, part), stack["attn"][part],
+                             f"{pre}.attn.{part}", i)
+            for part in ("up", "down", "gate"):
+                lin = getattr(layer.mlp, part)
+                if lin is None:
+                    if part in stack["mlp"]:
+                        raise ValueError(f"{pre}.mlp: the reference is gated, the config not")
+                    continue
+                _load_linear(lin, stack["mlp"][part], f"{pre}.mlp.{part}", i)
+    return model

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core.mapreduce import MapReduceConfig, MapReduceJob
+from repro_torch.kernels.wave_timer import ops as wt_ops
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -28,7 +29,13 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.kernels.sketch_hist.ops, "
         "repro_torch.kernels.segment_reduce.ops, "
         "repro_torch.kernels.coded_shuffle.ops, "
-        "repro_torch.kernels.fused_shuffle_reduce.ops\n"
+        "repro_torch.kernels.fused_shuffle_reduce.ops, "
+        "repro_torch.kernels.flash_attention.ops, repro_torch.kernels.moe_dispatch.ops, "
+        "repro_torch.nn.layers, repro_torch.nn.attention, repro_torch.models.model, "
+        "repro_torch.models.convert, repro_torch.configs, repro_torch.serve.engine, "
+        "repro_torch.launch.serve\n"
+        "import repro_torch.configs as c\n"
+        "[c.get_config(a) for a in c.ARCH_IDS]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(','.join(bad))\n"
@@ -63,6 +70,19 @@ def test_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present; the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         MapReduceJob(lambda x: x, MapReduceConfig(num_slots=2, num_clusters=4))
+
+
+def test_read_ticks_without_a_device_raises_without_cuda():
+    """No device, no anchor and no CUDA: the wave timer raises instead of
+    falling back to host stamps, which a caller asks for by name."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wt_ops.read_ticks()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wt_ops.backend()
+    assert wt_ops.read_ticks(device="cpu").dtype == torch.uint32
+    assert wt_ops.backend("cpu") == "host"
 
 
 @pytest.mark.parametrize("field,value,item,backend", [
