@@ -6,7 +6,9 @@ Run from the repository root:
     python3 chip_smoke.py [--seed S]
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all at once), holds each kernel against its plain
+``nvcc`` per source, all at once; ``ptxas -v`` of the flash-attention and
+wave-timer libraries is printed, and the flash library's SASS must hold
+HGMMA), holds each kernel against its plain
 PyTorch version at the shapes its path gives it and times both, then
 drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
@@ -43,10 +45,13 @@ Then it frees the card and adds the serving side:
 
 * kernel phase 9: the flash-attention kernel at the serve path's longest
   prefill (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D =
-  128, bf16; tolerance 3e-2) and at four more shapes (f32 with T < S, bf16
-  at D = 64, f32 at D = 20, f32 with T > S, whose rows that see no key give
-  0; f32 tolerance 2e-5), timed beside its plain version and
-  ``scaled_dot_product_attention``;
+  128, bf16; tolerance 3e-2) and at thirteen more shapes of its two
+  instances (wgmma: ragged T < S, T > S whose rows that see no key give
+  exact 0, GQA groups 1, 4 and 8, D = 64, non-causal; simt: f32 with T <
+  S, at D = 20 and with T > S, tolerance 2e-5, and bf16 at D = 256), timed
+  beside its plain version, its simt instance and
+  ``scaled_dot_product_attention`` (device time from a burst behind a spin,
+  and CUDA events around one call);
 * kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64
   Zipf-skewed destinations with 2% padding, ranks and counts equal to the
   plain version exactly (its own entry point: no engine path runs it);
@@ -55,10 +60,12 @@ Then it frees the card and adds the serving side:
   ``attn_impl="pallas"``), 8 lanes, ``max_len`` 1024, 16 requests with
   prompts of 128-512 tokens and decode budgets clip(zipf(1.5) * 4, 4, 64):
   every request served within its budget, the lane plan equal to the host
-  scheduler's, the flash kernel launched once a layer in every prefill;
+  scheduler's, the flash kernel's wgmma instance launched once a layer in
+  every prefill;
   then 20 decode steps under the profiler, and a 2-layer full-width
-  float32 twin run with "pallas" and with "naive" attention, whose token
-  streams must agree (a stream that differs is reported with its top-2
+  float32 twin run with "pallas" (the simt instance) and with "naive"
+  attention, whose token streams must agree (a stream that differs is
+  reported with its top-2
   logit margin, and fails the run if that margin is above 1e-3);
 * the launcher: ``python -m repro_torch.launch.serve --arch smollm-360m``
   at its defaults (``--attn-impl pallas``), as a subprocess; its prefills
@@ -265,6 +272,58 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(report: str) -> dict:
+    """Per kernel (mangled name) what ``ptxas -v`` reported: registers,
+    stack frame, spill stores and loads, in bytes."""
+    kernels, name = {}, None
+    for line in report.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?",
+                          line)
+        if found:
+            name = found.group(1)
+            kernels.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            kernels[name].update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                                 spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            kernels[name]["registers"] = int(used.group(1))
+    return kernels
+
+
+def ptxas_phase(build) -> dict:
+    """What ``ptxas -v`` said of the two libraries whose kernels were redesigned
+    for Hopper (flash attention's instances, the wave timer's), one line a
+    kernel. The wgmma instance must not spill, must enter with the 168
+    registers a thread that its setmaxnreg split needs (384 x 168 = 128 x 40
+    + 256 x 232), and its SASS must hold HGMMA (cuobjdump)."""
+    out = {}
+    for name in ("flash_attention", "wave_timer"):
+        kernels = ptxas_kernels(build.ptxas_report(name))
+        check(bool(kernels), f"ptxas reported on {name}.cu")
+        for kernel, info in kernels.items():
+            print(f"ptxas {name}.cu: {kernel[:72]}: {info}", flush=True)
+        out[name] = kernels
+    wgmma = {k: v for k, v in out["flash_attention"].items() if "flash_fwd_wgmma" in k}
+    check(len(wgmma) == 2, "ptxas reported both wgmma instances (D = 64, 128)")
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in wgmma.values()),
+          "the wgmma instance does not spill")
+    check(all(v["registers"] * 384 >= 128 * 40 + 256 * 232 for v in wgmma.values()),
+          "the wgmma instance enters with the registers its setmaxnreg split needs")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build("flash_attention")[
+        "flash_attention"])], capture_output=True, text=True, timeout=300, check=True).stdout
+    out["hgmma_in_sass"] = sass.count("HGMMA")
+    check(out["hgmma_in_sass"] > 0, "the flash library's SASS holds HGMMA")
+    print(f"SASS of flash_attention.cu: {out['hgmma_in_sass']} HGMMA instructions", flush=True)
+    return out
 
 
 def histogram_phase(hist_ops, histogram_ref, ids, w, num_bins, dev):
@@ -586,6 +645,10 @@ def reset_launches(counters) -> None:
     wrapper's count."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+        by_design = getattr(mod, "launches_by_design", None)
+        if by_design is not None:
+            for design in by_design:
+                by_design[design] = 0
 
 
 def read_launches(counters) -> dict:
@@ -853,10 +916,13 @@ def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapRe
             "profile": profile}, launches
 
 
-def wave_timer_phase(wt_ops, wt_ref, ids_shape, dev) -> dict:
+def wave_timer_phase(wt_ops, wt_ref, copy_split, ids_shape, dev) -> dict:
     """Kernels 5-6 at the measured path's shapes. ``stamp_through`` copies one
-    slot's received cluster ids of chunk 0 (``ids_shape`` int32) bitwise and
-    is timed against its plain version and ``Tensor.copy_``; ``read_ticks``
+    slot's received cluster ids of chunk 0 (``ids_shape`` int32) bitwise,
+    through the bulk-copy ring, and an unaligned byte view through the byte
+    path; it is timed against its plain version and ``Tensor.copy_``, as
+    device time from a burst queued behind a spin and with CUDA events
+    around one call; ``read_ticks``
     is timed over back-to-back launches. Stamp intervals are held against
     CUDA event times over >= 10 ms spins (within 5%), and back-to-back stamps
     give the timer's smallest step. Returns ``{"read_ticks": ..., "stamp_through":
@@ -867,6 +933,8 @@ def wave_timer_phase(wt_ops, wt_ref, ids_shape, dev) -> dict:
     want, _ = wt_ref.stamp_through_ref(x)
     torch.cuda.synchronize()
     check(torch.equal(got, x) and torch.equal(got, want), "stamp_through copies bit for bit")
+    split = copy_split(x.data_ptr(), got.data_ptr(), x.numel() * x.element_size())
+    check(split[1] > 0, "the measured path's copy goes through the bulk-copy ring")
     odd = x.view(-1).view(torch.uint8)[1:]            # unaligned bytes: the byte path
     got_odd, _ = wt_ops.stamp_through(odd)
     torch.cuda.synchronize()
@@ -882,6 +950,8 @@ def wave_timer_phase(wt_ops, wt_ref, ids_shape, dev) -> dict:
              "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
              "library_ms": device_ms(lambda: out.copy_(x))[0],
              "event_ms": cuda_ms(lambda: wt_ops.stamp_through(x), reps=50, warmup=5),
+             "library_event_ms": cuda_ms(lambda: out.copy_(x), reps=50, warmup=5),
+             "head_body": list(split),
              "bound_ms": b_ms, "bound_by": by}
     del out
 
@@ -964,59 +1034,95 @@ def profile_run(label, fn, job=None) -> dict:
             "phases": None if job is None else job.last_phase_ms, "top": top[:12]}
 
 
-def flash_phase(fa_ops, flash_ref, prompt_len, dev) -> dict:
+def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, dev) -> dict:
     """Kernel 9 against its plain version, at the serve path's prefill shape
     (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D = 128,
-    bf16) and at four more: f32 with T < S, bf16 at D = 64, f32 at the
-    smollm twin's D = 20, f32 with T > S (rows that see no key give 0).
+    bf16) and at more shapes of both instances. The wgmma instance (bf16,
+    D = 64 or 128): ragged T < S, T > S (rows that see no key give exact
+    0), GQA groups 1, 4 and 8, D = 64, non-causal. The simt instance: f32
+    with T < S, f32 at the smollm twin's D = 20, f32 with T > S, bf16 at D =
+    256. Each case checks that it went through the instance
+    ``fa_ops.design`` names.
 
     Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
-    the two sum in other orders). Times the kernel, the plain version and
-    ``scaled_dot_product_attention`` (GQA, causal) at the serve shape.
-    Bound: causal flops 4 B Hq D (T S - T (T - 1) / 2) at the bf16 tensor
-    rate, against q, k, v and o once at the memory rate.
+    the two sum in other orders). At the serve shape the kernel and
+    ``scaled_dot_product_attention`` (GQA, causal) are timed both as device
+    time from a burst queued behind a spin (``device_ms``: the wrapper's
+    host cost cannot pass for the kernel's) and with CUDA events around one
+    call (``cuda_ms``); the plain version with CUDA events; and the simt
+    instance on the same bf16 inputs (called directly, not counted), for
+    the time the wgmma instance replaces. Bound: causal flops 4 B Hq D (T S
+    - T (T - 1) / 2) at the bf16 tensor rate, against q, k, v and o once at
+    the memory rate.
     """
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 products of the plain version run in full float32")
     gen = torch.Generator(device=dev).manual_seed(5)
-    cases = {"serve": (8, 32, 8, prompt_len, prompt_len, 128, torch.bfloat16),
-             "f32_t_lt_s": (2, 8, 2, 100, 300, 128, torch.float32),
-             "bf16_d64": (2, 8, 2, 256, 256, 64, torch.bfloat16),
-             "f32_d20": (2, 3, 1, 50, 50, 20, torch.float32),
-             "f32_t_gt_s": (2, 4, 2, 70, 30, 64, torch.float32)}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"serve": (8, 32, 8, prompt_len, prompt_len, 128, bf16, True),
+             "bf16_t1_s300": (2, 8, 2, 1, 300, 128, bf16, True),
+             "bf16_t65_s300": (2, 8, 2, 65, 300, 128, bf16, True),
+             "bf16_t130_s300": (2, 8, 2, 130, 300, 128, bf16, True),
+             "bf16_t_gt_s": (2, 4, 2, 130, 60, 128, bf16, True),
+             "bf16_gqa1": (1, 4, 4, 257, 257, 128, bf16, True),
+             "bf16_gqa8": (1, 8, 1, 200, 200, 128, bf16, True),
+             "bf16_d64": (2, 8, 2, 256, 256, 64, bf16, True),
+             "bf16_d64_t_gt_s": (2, 8, 2, 70, 30, 64, bf16, True),
+             "bf16_noncausal": (2, 4, 2, 130, 700, 128, bf16, False),
+             "f32_t_lt_s": (2, 8, 2, 100, 300, 128, f32, True),
+             "f32_d20": (2, 3, 1, 50, 50, 20, f32, True),
+             "f32_t_gt_s": (2, 4, 2, 70, 30, 64, f32, True),
+             "bf16_d256": (1, 2, 2, 130, 130, 256, bf16, True)}
     res = {"cases": {}}
-    for name, (b, hq, hkv, t, s, d, dtype) in cases.items():
+    for name, (b, hq, hkv, t, s, d, dtype, causal) in cases.items():
         q = torch.randn(b, hq, t, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
-        got = fa_ops.flash_attention(q, k, v, causal=True)
-        want = flash_ref(q, k, v, causal=True)
+        design = fa_ops.design(dtype, d)
+        before = dict(fa_ops.launches_by_design)
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = flash_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        check(fa_ops.launches_by_design[design] == before[design] + 1
+              and sum(fa_ops.launches_by_design.values()) == sum(before.values()) + 1,
+              f"flash case {name} went through the {design} instance")
         err = float((got.float() - want.float()).abs().max())
-        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        tol = 3e-2 if dtype == bf16 else 2e-5
         check(err <= tol and got.dtype == dtype,
-              f"flash kernel == plain within {tol} at {name} {(b, hq, hkv, t, s, d)}")
-        if t > s:
-            check(bool(torch.all(got[:, :, :t - s] == 0)), "rows that see no key give 0")
+              f"flash kernel ({design}) == plain within {tol} at {name} "
+              f"{(b, hq, hkv, t, s, d, causal)}: {err:.3g}")
+        if t > s and causal:
+            check(bool(torch.all(got[:, :, :t - s] == 0)), "rows that see no key give exact 0")
         res["cases"][name] = {"shape": [b, hq, hkv, t, s, d], "dtype": str(dtype),
-                              "max_abs_err": err, "tol": tol}
+                              "causal": causal, "design": design, "max_abs_err": err,
+                              "tol": tol}
         if name != "serve":
             continue
         flops = 4 * b * hq * d * (t * s - t * (t - 1) / 2)
         nbytes = (2 * b * hq * t * d + 2 * b * hkv * s * d) * 2
         bound, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
-        lib = torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
-        check(float((lib.float() - want.float()).abs().max()) <= 3e-2,
+
+        def kernel():
+            return fa_ops.flash_attention(q, k, v, causal=True)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+
+        def simt():
+            fa_cuda(q, k, v, torch.empty_like(q), True, d ** -0.5, "simt")
+
+        check(float((library().float() - want.float()).abs().max()) <= 3e-2,
               "scaled_dot_product_attention yardstick == plain within 3e-2")
+        ms, host_ms = device_ms(kernel, launches=50)
+        library_ms, library_host_ms = device_ms(library, launches=50)
         res.update(
-            shape=[b, hq, hkv, t, s, d], dtype="bfloat16", max_abs_err=err,
-            flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by,
-            ms=cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+            shape=[b, hq, hkv, t, s, d], dtype="bfloat16", design=design, max_abs_err=err,
+            flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by, ms=ms, host_ms=host_ms,
+            event_ms=cuda_ms(kernel), library_ms=library_ms, library_host_ms=library_host_ms,
+            library_event_ms=cuda_ms(library),
             plain_ms=cuda_ms(lambda: flash_ref(q, k, v, causal=True), reps=5, warmup=1),
-            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)))
-        del lib
+            simt_ms=cuda_ms(simt, reps=5, warmup=1), tflops=flops / ms / 1e9)
     return res
 
 
@@ -1076,12 +1182,14 @@ def top2_margin(model, cfg, tokens, dev) -> float:
     return float(top[0] - top[1])
 
 
-def serve_path(counters, args, dev) -> tuple:
+def serve_path(counters, fa_ops, args, dev) -> tuple:
     """The serving engine on Llama-3-8B at full width and depth, bf16 weights
     from ``torch.Generator`` seed ``args.seed``, attn_impl="pallas": 16
     requests on 8 lanes; then 20 decode steps under the profiler; then a
     2-layer float32 twin with "pallas" and with "naive" attention, whose
-    token streams must agree. Returns ``(record, launches)``."""
+    token streams must agree. The bf16 prefills must all go through the
+    flash kernel's wgmma instance, the twin's through its simt instance.
+    Returns ``(record, launches)``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1120,6 +1228,9 @@ def serve_path(counters, args, dev) -> tuple:
           "serve: the lane plan == the host scheduler's plan for the same loads")
     check(launches["flash_attention"] == cfg.n_layers * len(reqs),
           f"serve: the flash kernel ran in every prefill layer ({cfg.n_layers} x {len(reqs)})")
+    by_design = dict(fa_ops.launches_by_design)
+    check(by_design == {"wgmma": cfg.n_layers * len(reqs), "simt": 0},
+          f"serve: every bf16 prefill went through the wgmma instance ({by_design})")
     steps = np.asarray(eng.step_seconds[1:]) * 1e3
     prefill = np.asarray(eng.prefill_seconds) * 1e3
     rec.update(
@@ -1168,7 +1279,12 @@ def serve_path(counters, args, dev) -> tuple:
     streams = {}
     for impl in ("pallas", "naive"):
         eng = Engine(dataclasses.replace(twin, attn_impl=impl), model, ecfg, device=dev)
+        reset_launches(counters)
         streams[impl] = {r.rid: r.output for r in eng.run(serve_requests(twin.vocab, args.seed))}
+        if impl == "pallas":
+            twin_design = dict(fa_ops.launches_by_design)
+            check(twin_design == {"wgmma": 0, "simt": twin.n_layers * len(reqs)},
+                  f"f32 twin: every prefill went through the simt instance ({twin_design})")
     diverged = []
     for rid, a in streams["pallas"].items():
         b = streams["naive"][rid]
@@ -1181,7 +1297,9 @@ def serve_path(counters, args, dev) -> tuple:
         check(d["top2_margin"] <= 1e-3, f"f32 twin: request {d['rid']} diverges at step "
               f"{d['step']} with a top-2 margin of {d['top2_margin']:.3g} (a real disagreement)")
     rec["f32_twin"] = {"n_layers": 2, "streams_equal": not diverged, "diverged": diverged,
-                       "tokens": sum(len(o) for o in streams["pallas"].values())}
+                       "tokens": sum(len(o) for o in streams["pallas"].values()),
+                       "launches_by_design": twin_design}
+    rec["launches_by_design"] = by_design
     print(f"f32 twin (2 layers, full width): pallas vs naive token streams "
           f"{'equal' if not diverged else 'differ: ' + str(diverged)}", flush=True)
     del model, eng
@@ -1229,6 +1347,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.coded_shuffle import ops as cs_ops
     from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
     from repro_torch.kernels.fused_shuffle_reduce.ref import (
@@ -1244,6 +1363,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sketch_hist.ref import sketch_cells, sketch_hist_ref
     from repro_torch.kernels.wave_timer import ops as wt_ops
     from repro_torch.kernels.wave_timer import ref as wt_ref
+    from repro_torch.kernels.wave_timer.wave_timer import copy_split
 
     counters = {"histogram": (hist_ops, "launches"), "sketch_hist": (sk_ops, "launches"),
                 "fused_shuffle_reduce": (fused_ops, "launches"),
@@ -1269,6 +1389,7 @@ def main(argv=None) -> int:
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.1f} s -> {sorted(str(p) for p in libs.values())}",
           flush=True)
+    record["ptxas"] = ptxas_phase(_build)
 
     n = clustering.recommended_num_clusters(M)
     work = Workload(n, dev)
@@ -1591,13 +1712,16 @@ def main(argv=None) -> int:
     # ---- Kernel phases 5 and 6: the wave timer at the measured path's
     # shapes (one slot's received ids of chunk 0).
     ids_shape = (1, M * int(main_plan0.chunk_caps[0]))
-    timer = wave_timer_phase(wt_ops, wt_ref, ids_shape, dev)
+    timer = wave_timer_phase(wt_ops, wt_ref, copy_split, ids_shape, dev)
     st, rt, tm = timer["stamp_through"], timer["read_ticks"], timer["timer"]
     print(f"kernel stamp_through {ids_shape} int32 (chunk 0's received ids of one slot): "
-          f"bitwise ok | device: kernel {st['ms']:.4f} ms, plain (clone + host stamp) "
-          f"{st['plain_ms']:.4f} ms, Tensor.copy_ {st['library_ms']:.4f} ms, bound "
-          f"{st['bound_ms']:.4f} ms | host to issue: kernel {st['host_ms']:.4f} ms, plain "
-          f"{st['plain_host_ms']:.4f} ms | one call between events {st['event_ms']:.4f} ms",
+          f"bitwise ok (ring: head, body {st['head_body']}; byte path ok) | device: kernel "
+          f"{st['ms']:.4f} ms, plain (clone + host stamp) {st['plain_ms']:.4f} ms, "
+          f"Tensor.copy_ {st['library_ms']:.4f} ms (kernel / copy_ "
+          f"{st['ms'] / st['library_ms']:.3f}), bound {st['bound_ms']:.4f} ms "
+          f"({st['bound_ms'] / st['ms']:.3f} of it) | host to issue: kernel "
+          f"{st['host_ms']:.4f} ms, plain {st['plain_host_ms']:.4f} ms | one call between "
+          f"events: kernel {st['event_ms']:.4f} ms, copy_ {st['library_event_ms']:.4f} ms",
           flush=True)
     print(f"kernel read_ticks: device {rt['ms'] * 1e3:.3f} us a launch, host to issue "
           f"{rt['host_ms'] * 1e3:.3f} us | plain (host perf_counter_ns) "
@@ -1634,14 +1758,17 @@ def main(argv=None) -> int:
     # (its longest prompt) and four more; kernel phase 8: dispatch ranks.
     vocab = get_config("llama3-8b").vocab
     prompt_len = max(r.prompt.shape[0] for r in serve_requests(vocab, args.seed))
-    flash = flash_phase(fa_ops, flash_attention_ref, prompt_len, dev)
+    flash = flash_phase(fa_ops, flash_attention_ref, flash_attention_cuda, prompt_len, dev)
     print(f"kernel flash_attention {tuple(flash['shape'])} bf16 causal (the serve path's "
-          f"longest prefill): err {flash['max_abs_err']:.3g} (others: "
-          + ", ".join(f"{k} {c['max_abs_err']:.3g}" for k, c in flash["cases"].items()
-                      if k != "serve")
-          + f") | kernel {flash['ms']:.4f} ms | plain {flash['plain_ms']:.4f} ms | "
-          f"scaled_dot_product_attention {flash['library_ms']:.4f} ms | bound "
-          f"{flash['bound_ms']:.4f} ms ({flash['bound_by']})", flush=True)
+          f"longest prefill, {flash['design']} instance): err {flash['max_abs_err']:.3g} "
+          "(others: " + ", ".join(f"{k} [{c['design']}] {c['max_abs_err']:.3g}"
+                                  for k, c in flash["cases"].items() if k != "serve")
+          + f") | device (burst): kernel {flash['ms']:.4f} ms ({flash['tflops']:.1f} TFLOP/s), "
+          f"scaled_dot_product_attention {flash['library_ms']:.4f} ms | one call between "
+          f"events: kernel {flash['event_ms']:.4f} ms, sdpa {flash['library_event_ms']:.4f} ms "
+          f"| plain {flash['plain_ms']:.4f} ms | simt instance on the same bf16 inputs "
+          f"{flash['simt_ms']:.4f} ms | bound {flash['bound_ms']:.4f} ms ({flash['bound_by']})",
+          flush=True)
     record["flash_attention"] = flash
     disp = dispatch_phase(md_ops, dispatch_ranks_ref, dev)
     print(f"kernel dispatch_ranks T={disp['tokens']} E={disp['dests']} (Zipf 1.3, 2% "
@@ -1652,7 +1779,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- The serve path: Llama-3-8B at full width and depth on 8 lanes.
-    record["serve_path"], launches["serve"] = serve_path(counters, args, dev)
+    record["serve_path"], launches["serve"] = serve_path(counters, fa_ops, args, dev)
     record["launcher"] = launcher_run()
 
     # ---- Result lines. A kernel's launches are its counts over the paths
@@ -1725,17 +1852,22 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/wave_timer.cu",
          "replaces": "src/repro/kernels/wave_timer/wave_timer.py:167",
          "launches": total_launches("stamp_through"), "max_abs_err": st["max_abs_err"],
-         "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-         "bound_by": st["bound_by"], "library_ms": st["library_ms"]},
+         "ms": st["ms"], "event_ms": st["event_ms"], "plain_ms": st["plain_ms"],
+         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+         "library_ms": st["library_ms"], "library_event_ms": st["library_event_ms"]},
         # Launched once a layer in every prefill of the serve path (n_layers x
-        # admissions); its times are at the longest prefill's shape. The
-        # library call is scaled_dot_product_attention (GQA, causal).
+        # admissions), all through the wgmma instance; its times are at the
+        # longest prefill's shape, device time a call from a burst behind a
+        # spin. The library call is scaled_dot_product_attention (GQA, causal).
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:111",
-         "launches": total_launches("flash_attention"), "max_abs_err": flash["max_abs_err"],
-         "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+         "launches": total_launches("flash_attention"),
+         "launches_by_design": record["serve_path"]["launches_by_design"],
+         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+         "event_ms": flash["event_ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"], "library_event_ms": flash["library_event_ms"]},
         # No engine or model path launches it, in the reference either: its
         # numbers are from its own entry point at 2^20 tokens and 64
         # destinations. No single PyTorch call computes stable ranks.

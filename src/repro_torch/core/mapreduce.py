@@ -1704,8 +1704,7 @@ class MapReduceJob:
         overflow. The re-execution sizes its buffers by
         :meth:`_needed_caps`, not by that bound.
         """
-        k = int(planned.k_per_shard)
-        safe = max(1, int(min(self.cfg.capacity_send or k, k)))
+        safe = self._safe_cap(planned)
         return dataclasses.replace(
             planned,
             capacity=safe,
@@ -1713,6 +1712,17 @@ class MapReduceJob:
             stats_overestimate=True,
             caps_estimated=False,
         )
+
+    def _safe_cap(self, planned: sc.CachedSchedule) -> int:
+        """The capacity no slot can overflow: ``min(capacity_send, k_per_shard)``."""
+        k = int(planned.k_per_shard)
+        return max(1, int(min(self.cfg.capacity_send or k, k)))
+
+    def _escalated(self, planned: sc.CachedSchedule) -> bool:
+        """True for a plan of :meth:`_escalate_caps`: every cap at the safe bound."""
+        safe = self._safe_cap(planned)
+        return (planned.stats_overestimate and planned.capacity == safe
+                and all(c == safe for c in planned.chunk_caps))
 
     def _needed_caps(self, intermediate, planned: sc.CachedSchedule):
         """Buffer sizes that run ``planned`` with the same drops, and no more.
@@ -2016,7 +2026,12 @@ class MapReduceJob:
                 results, timings = self._execute(intermediate, plan, caps), None
             return self._as_groups(results), timings
 
-        results, timings = execute(planned)
+        # A reused escalated plan replays at the batch's cut caps, as the
+        # escape hatch's re-execution below does.
+        replay_escalated = (decision is not None and decision.action == "reuse"
+                            and self._escalated(planned))
+        results, timings = execute(
+            planned, self._needed_caps(intermediate, planned) if replay_escalated else None)
         overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
 
         # ---- Capacity fallback: a replayed plan's statistics-sized

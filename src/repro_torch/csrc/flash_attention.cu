@@ -16,12 +16,62 @@
 // axis sequential and the online-softmax state carried in VMEM, MXU
 // products, causal kv blocks skipped with pl.when).
 //
-// Bound: operations at prefill shapes. Causal work is
-// 4 B Hq D (T S - T (T - 1) / 2) flops (two products) against
-// 2 B (Hq T + 2 Hkv S) D elements moved (each input read once, out written
-// once): at T = S = 512, D = 128 about 64 flops a byte.
+// Two instances; the caller picks one by dtype and head dim
+// (kernels/flash_attention/ops.py · design):
+// * wgmma: bfloat16 at D = 64 and D = 128, the head dims of the full-width
+//   configs with standard attention. Tensor cores, TMA, a producer
+//   warpgroup. C entry flash_attention_fwd_wgmma.
+// * simt: float32 (on the tensor cores it would be TF32) and any other D up
+//   to 256. float32 FMAs on the CUDA cores. C entry flash_attention_fwd.
 //
-// Design (simple first; no tensor cores yet):
+// Bound at the serve path's prefill (B 8, Hq 32, Hkv 8, T = S = 504, D 128,
+// bf16, causal): bytes, narrowly. q, k, v read once and out written once
+// are 82.6 MB, 0.0246 ms at 3.35 TB/s; the causal work, 4 B Hq D (T S -
+// T (T - 1) / 2) = 1.67e10 flops, is 0.0169 ms at the 989 TFLOP/s bf16
+// tensor rate. So the products must run on the tensor cores, and the loads
+// must stream under them rather than between them.
+//
+// wgmma design:
+// * Persistent CTAs, one an SM: a CTA works through items of 128 query rows
+//   of one (batch, q head), the causal-heaviest first, handed out in a
+//   snake so that the CTAs' sums stay close. Each CTA has two consumer
+//   warpgroups of 64 rows and a producer warpgroup, of which one thread
+//   issues the loads; setmaxnreg moves registers from the producer (40) to
+//   the consumers (232): 384 threads enter with 168 each, and 128 x 40 +
+//   256 x 232 is the same pool (with 288 threads, one producer warp, the
+//   entry count stays 168 and the consumers' request could never be met).
+//   One CTA's next item loads while it finishes the last, so no SM waits
+//   on a CTA's start or tail.
+// * Bytes: the producer loads each item's q tile into the free one of two
+//   q buffers and streams 128-key tiles of K and V through a 2-stage ring
+//   in shared memory by TMA (192 KB in all at D = 128), with full and empty
+//   mbarriers for K and for V, so loads run ahead of the products, across
+//   items too. The tensor maps
+//   are 3-D, (D, T or S, B * H), 128-byte swizzled in panels of 64
+//   columns: K and V are read from kv head h / g with no copy per q head
+//   (the g q heads of a group share them in L2), and keys past S read as
+//   zero rather than as the next head's keys.
+// * Flops: S = Q K^T on wgmma m64n128k16 with both operands in shared
+//   memory (K-major); O += P V on wgmma m64nDk16 with P from registers (the
+//   score accumulator's layout is the A operand's) and V as an MN-major
+//   operand. Accumulators are float32. A warpgroup's step issues S of tile
+//   kt and P V of tile kt - 1, so the tensor cores run while the softmax of
+//   tile kt does; S, P and O (64 + 32 + 64 registers at D = 128) stay in
+//   registers without spills. A causal tile past all of a warpgroup's rows
+//   is only waited for and released, not multiplied. (Named barriers that
+//   alternate the two warpgroups' steps, or that stage O for a TMA store,
+//   made ptxas spill and cost time on the card; they are not used.)
+// * Online softmax runs in the accumulator's registers: a row lives in one
+//   quad, so its max and sum are two shuffles. The numerics are the simt
+//   instance's: scores in f32, scaled; m from -1e30; masks on absolute
+//   indices, applied only on the diagonal tile and the key padding; causal
+//   key tiles past the CTA's last row skipped; p rounded to bf16 for the
+//   product while l sums the unrounded p; out = l > 0 ? acc / l : 0, stored
+//   in bf16 with the T edge masked. The exponentials are the hardware's
+//   (__expf: ex2.approx of x log2 e, a relative error near 1e-6 where p
+//   matters, far under p's bf16 rounding), faster than expf on the card.
+//
+// simt design (written to be right first):
 // * One CTA per (q tile of kBQ = 64 rows, q head, batch), 256 threads as a
 //   16 x 16 grid: thread (ty, tx) owns score rows ty + 16 i (i < 4) and key
 //   columns tx + 16 j (j < 2) of a tile, and output columns tx + 16 j of
@@ -37,15 +87,20 @@
 //   Causal key tiles past the q tile's last row are never visited; the
 //   diagonal tile and the key padding are masked on absolute indices.
 // * Products are float32 FMAs on the CUDA cores (bf16 products are exact in
-//   float32). wgmma / mma.sync, TMA and warp specialisation are the next
-//   step for speed.
-// * D = 64 and D = 128 are compiled with the head dim fixed; any other D up
-//   to 256 runs a generic instance. Larger D is refused.
+//   float32). D = 64 and D = 128 are compiled with the head dim fixed; any
+//   other D up to 256 runs a generic instance. Larger D is refused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+#include "hopper.cuh"
+
+namespace simt {
+
 
 constexpr int kBQ = 64;           // query rows of a CTA
 constexpr int kBK = 32;           // keys of a tile
@@ -249,23 +304,557 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int b, in
   return launch<T, 0>(q, k, v, out, b, hq, hkv, t, s, d, causal, scale, stream);
 }
 
-}  // namespace
+}  // namespace simt
 
-// Launches the forward pass on `stream`. dtype: 0 = float32, 1 = bfloat16.
+
+namespace wgmma {
+
+constexpr int kBQ = 128;                    // query rows of a CTA: two warpgroups of 64
+constexpr int kBK = 128;                    // keys of a tile
+constexpr int kConsumers = 2;               // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);   // + the producer warpgroup
+// setmaxnreg: the CTA's 384 x 168 registers are split 128 x 40 (producer)
+// + 256 x 232 (consumers).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kPanelCols = 64;              // bf16 columns of one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kStages = 2;                  // K/V ring depth
+constexpr float kNegInf = -1e30f;
+
+static_assert(kBK == 128, "S = Q K^T is one m64n128k16 product a step");
+
+// Byte offsets in shared memory (from a 1024-byte aligned base: the
+// 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of r rows is
+// kD / 64 panels of r rows x 128 bytes, each holding 64 columns.
+template <int kD>
+struct Smem {
+  static constexpr int kPanels = kD / kPanelCols;
+  static constexpr int kQPanelBytes = kBQ * kRowBytes;
+  static constexpr int kKVPanelBytes = kBK * kRowBytes;
+  static constexpr int kQBytes = kPanels * kQPanelBytes;
+  static constexpr int kTileBytes = kPanels * kKVPanelBytes;   // a K or V tile
+  static constexpr int kQ = 0;                          // two q buffers
+  static constexpr int kK = kQ + 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  // q full, q empty a q buffer; k full, v full, k empty, v empty a stage.
+  static constexpr int kNumBars = 4 + 4 * kStages;
+  static constexpr int kAlloc = kBars + 8 * kNumBars + 1024;   // + slack to align the base
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 128, f32) = a . b (+ d when `accumulate`): a (64 x 16) and b
+// (16 x 128) in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += a . b: a (64 x 16) in registers, b (16 x 128) in
+// shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, f32) += a . b: a (64 x 16) in registers, b (16 x 64) in
+// shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int kD>
+__device__ __forceinline__ void pv_product(float (&o)[kD / 2], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  if constexpr (kD == 128) {
+    wgmma_rs_n128(o, a, desc_b);
+  } else {
+    wgmma_rs_n64(o, a, desc_b);
+  }
+}
+
+// S = Q K^T of one tile (64 x 128 per warpgroup) over D in steps of 16
+// (32 bytes inside a 128-byte panel row); one commit group.
+template <int kD>
+__device__ __forceinline__ void issue_s(float (&sc)[kBK / 2], uint32_t q_base,
+                                        uint32_t k_base) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t at = (kk % 4) * 32;
+    const uint64_t a = smem_desc(q_base + (kk / 4) * Smem<kD>::kQPanelBytes + at, 16,
+                                 8 * kRowBytes);
+    const uint64_t b = smem_desc(k_base + (kk / 4) * Smem<kD>::kKVPanelBytes + at, 16,
+                                 8 * kRowBytes);
+    wgmma_ss_n128(sc, a, b, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one tile over its keys in steps of 16 (16 rows of 128 bytes);
+// one commit group.
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&o)[kD / 2], const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    pv_product<kD>(o, pa[kk], smem_desc(v_base + kk * 16 * kRowBytes,
+                                        Smem<kD>::kKVPanelBytes, 8 * kRowBytes));
+  }
+  wgmma_commit();
+}
+
+// Online softmax of one tile's scores in place (sc becomes p), updating the
+// row state m and l and returning the factor alpha that rescales O. Keys
+// past `lim[half]` are masked: past S, or (causal) past the row's absolute
+// position; only tiles that reach past some row's limit (`edge`: the
+// diagonal and the key padding) test.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool edge, const int (&lim)[2],
+                                             int c0, float scale) {
+  float rmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int hf = (i >> 1) & 1;
+    float x = sc[i] * scale;
+    if (edge && 8 * (i >> 2) + c0 + (i & 1) > lim[hf]) x = -INFINITY;
+    sc[i] = x;
+    rmax[hf] = fmaxf(rmax[hf], x);
+  }
+  float m_new[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rmax[hf] = fmaxf(rmax[hf], __shfl_xor_sync(0xffffffffu, rmax[hf], 1));
+    rmax[hf] = fmaxf(rmax[hf], __shfl_xor_sync(0xffffffffu, rmax[hf], 2));
+    m_new[hf] = fmaxf(m[hf], rmax[hf]);
+    alpha[hf] = __expf(m[hf] - m_new[hf]);
+  }
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int hf = (i >> 1) & 1;
+    const float p = __expf(sc[i] - m_new[hf]);   // 0 where masked (-inf)
+    rsum[hf] += p;
+    sc[i] = p;
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rsum[hf] += __shfl_xor_sync(0xffffffffu, rsum[hf], 1);
+    rsum[hf] += __shfl_xor_sync(0xffffffffu, rsum[hf], 2);
+    l[hf] = l[hf] * alpha[hf] + rsum[hf];
+    m[hf] = m_new[hf];
+  }
+}
+
+// O (through the previous tile) to the new max, and p to bf16 in the A
+// operand's layout.
+template <int kD>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[kD / 2], const float (&alpha)[2],
+                                                 const float (&sc)[kBK / 2],
+                                                 uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+  }
+}
+
+// Work item w (of q_tiles * bh_count) is q tile q_tiles - 1 - w / bh_count
+// of head bh = w % bh_count (= batch * Hq + q head): the causal-heaviest
+// tiles come first. A persistent CTA c takes item r G + c in even rounds r
+// and r G + G - 1 - c in odd ones (G CTAs): a snake over items sorted by
+// weight, so that the CTAs' sums stay close.
+struct Item {
+  int bh, q0, n_tiles;
+};
+
+__device__ __forceinline__ int item_index(int round) {
+  const int g = static_cast<int>(gridDim.x);
+  const int c = static_cast<int>(blockIdx.x);
+  return round * g + ((round & 1) ? g - 1 - c : c);
+}
+
+__device__ __forceinline__ Item item_of(int w, int bh_count, int q_tiles, int t, int s,
+                                        int causal) {
+  Item it;
+  it.bh = w % bh_count;
+  it.q0 = (q_tiles - 1 - w / bh_count) * kBQ;
+  it.n_tiles = (s + kBK - 1) / kBK;
+  if (causal) {
+    const int last = (s - t) + min(it.q0 + kBQ, t) - 1;   // the tile's last absolute row
+    it.n_tiles = last < 0 ? 0 : min(it.n_tiles, last / kBK + 1);
+  }
+  return it;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                int hq, int hkv, int bh_count, int q_tiles, int t, int s, int causal,
+                float scale) {
+  using L = Smem<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 2;
+  uint64_t* k_full = bars + 4;
+  uint64_t* v_full = bars + 4 + kStages;
+  uint64_t* k_empty = bars + 4 + 2 * kStages;
+  uint64_t* v_empty = bars + 4 + 3 * kStages;
+  const int items = q_tiles * bh_count;
+  const int q_off = s - t;   // absolute key position of query row 0
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      hopper::mbar_init(&q_full[qb], 1);
+      hopper::mbar_init(&q_empty[qb], kConsumers);
+    }
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&k_full[st], 1);
+      hopper::mbar_init(&v_full[st], 1);
+      hopper::mbar_init(&k_empty[st], kConsumers);
+      hopper::mbar_init(&v_empty[st], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 4 * kConsumers) {
+    // ---- Producer warpgroup: one thread loads each item's q tile into the
+    // free one of two q buffers, and its K and V tiles through the ring,
+    // which runs on from one item to the next.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 128 * kConsumers) {
+      int g = 0;   // K/V tiles loaded so far
+      int j = 0;   // items so far
+      for (int r = 0; r * static_cast<int>(gridDim.x) < items; ++r) {
+        const int w = item_index(r);
+        if (w >= items) continue;
+        const Item it = item_of(w, bh_count, q_tiles, t, s, causal);
+        const int b = it.bh / hq;
+        const int kv_bh = b * hkv + (it.bh - b * hq) / (hq / hkv);
+        const int qb = j & 1;
+        hopper::mbar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);   // the first round passes
+        hopper::mbar_arrive_expect_tx(&q_full[qb], L::kQBytes);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p) {
+          hopper::tma_load_3d(smem + L::kQ + qb * L::kQBytes + p * L::kQPanelBytes, &q_map,
+                              &q_full[qb], p * kPanelCols, it.q0, it.bh);
+        }
+        for (int kt = 0; kt < it.n_tiles; ++kt, ++g) {
+          const int st = g % kStages;
+          const uint32_t parity = ((g / kStages) & 1) ^ 1;
+          hopper::mbar_wait(&k_empty[st], parity);
+          hopper::mbar_arrive_expect_tx(&k_full[st], L::kTileBytes);
+#pragma unroll
+          for (int p = 0; p < L::kPanels; ++p) {
+            hopper::tma_load_3d(smem + L::kK + st * L::kTileBytes + p * L::kKVPanelBytes,
+                                &k_map, &k_full[st], p * kPanelCols, kt * kBK, kv_bh);
+          }
+          hopper::mbar_wait(&v_empty[st], parity);
+          hopper::mbar_arrive_expect_tx(&v_full[st], L::kTileBytes);
+#pragma unroll
+          for (int p = 0; p < L::kPanels; ++p) {
+            hopper::tma_load_3d(smem + L::kV + st * L::kTileBytes + p * L::kKVPanelBytes,
+                                &v_map, &v_full[st], p * kPanelCols, kt * kBK, kv_bh);
+          }
+        }
+        ++j;
+      }
+    }
+  } else {
+    // ---- Consumer warpgroup wg: query rows q0 + 64 wg + [0, 64) of each item.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    // Accumulator layout (m64nN): register i of a thread holds row
+    // r0 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + c0 + (i & 1).
+    const int r0 = 16 * (tid / 32) + lane / 4;
+    const int c0 = 2 * (lane % 4);
+
+    auto k_base = [&](int g) {
+      return hopper::smem_addr(smem + L::kK + (g % kStages) * L::kTileBytes);
+    };
+    auto v_base = [&](int g) {
+      return hopper::smem_addr(smem + L::kV + (g % kStages) * L::kTileBytes);
+    };
+    auto parity = [](int g) { return static_cast<uint32_t>((g / kStages) & 1); };
+
+    float o[kD / 2];
+    float sc[kBK / 2];          // scores of tile kt, then its p
+    uint32_t pa[kBK / 16][4];   // p of tile kt - 1 in bf16: the A operand of O += P V
+    float m[2], l[2], alpha[2];
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+
+    int g = 0;   // K/V tiles consumed so far
+    int j = 0;   // items so far
+    for (int r = 0; r * static_cast<int>(gridDim.x) < items; ++r) {
+      const int w = item_index(r);
+      if (w >= items) continue;
+      const Item it = item_of(w, bh_count, q_tiles, t, s, causal);
+      const int n = it.n_tiles;
+      const int row0 = it.q0 + 64 * wg + r0;   // the thread's first row in the q head
+      // Tiles this warpgroup's rows see: causal tiles past its last row are
+      // only waited for and released.
+      int n_own = n;
+      if (causal) {
+        const int last = q_off + it.q0 + 64 * wg + 63;
+        n_own = last < 0 ? 0 : min(n, last / kBK + 1);
+      }
+      // Key limits of the thread's two rows in tile kt; true when some row
+      // of the warpgroup needs a mask there (the diagonal, the key padding).
+      auto limits = [&](int kt) {
+        const int k0 = kt * kBK;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          lim[hf] = (causal ? min(s - 1, q_off + row0 + 8 * hf) : s - 1) - k0;
+        }
+        return k0 + kBK > s || (causal && k0 + kBK - 1 > q_off + it.q0 + 64 * wg);
+      };
+#pragma unroll
+      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        m[hf] = kNegInf;
+        l[hf] = 0.f;
+      }
+      const int qb = j & 1;
+      const uint32_t q_base =
+          hopper::smem_addr(smem + L::kQ + qb * L::kQBytes) + 64 * wg * kRowBytes;
+      hopper::mbar_wait(&q_full[qb], (j >> 1) & 1);
+
+      // Step 0 issues S of tile 0; step kt (1 <= kt < n_own) issues S of
+      // tile kt and O += P V of tile kt - 1, whose product runs while the
+      // softmax of tile kt does; the last step issues P V of tile n_own - 1.
+      if (n_own > 0) {
+        hopper::mbar_wait(&k_full[g % kStages], parity(g));
+        fence_regs(sc);
+        wgmma_fence();
+        issue_s<kD>(sc, q_base, k_base(g));
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (tid == 0) hopper::mbar_arrive(&k_empty[g % kStages]);
+        bool edge = limits(0);
+        softmax_tile(sc, m, l, alpha, edge, lim, c0, scale);
+        rescale_and_pack<kD>(o, alpha, sc, pa);
+
+        for (int kt = 1; kt < n_own; ++kt) {
+          const int gk = g + kt;
+          hopper::mbar_wait(&k_full[gk % kStages], parity(gk));
+          hopper::mbar_wait(&v_full[(gk - 1) % kStages], parity(gk - 1));
+          fence_regs(sc);
+          fence_regs(o);
+          wgmma_fence();
+          issue_s<kD>(sc, q_base, k_base(gk));
+          issue_pv<kD>(o, pa, v_base(gk - 1));
+          wgmma_wait<1>();
+          fence_regs(sc);
+          if (tid == 0) hopper::mbar_arrive(&k_empty[gk % kStages]);
+          edge = limits(kt);
+          softmax_tile(sc, m, l, alpha, edge, lim, c0, scale);
+          wgmma_wait<0>();
+          fence_regs(o);
+          if (tid == 0) hopper::mbar_arrive(&v_empty[(gk - 1) % kStages]);
+          rescale_and_pack<kD>(o, alpha, sc, pa);
+        }
+
+        const int last = g + n_own - 1;
+        hopper::mbar_wait(&v_full[last % kStages], parity(last));
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv<kD>(o, pa, v_base(last));
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (tid == 0) hopper::mbar_arrive(&v_empty[last % kStages]);
+      }
+      for (int kt = n_own; kt < n; ++kt) {   // tiles past this warpgroup's rows
+        const int gk = g + kt;
+        hopper::mbar_wait(&k_full[gk % kStages], parity(gk));
+        if (tid == 0) hopper::mbar_arrive(&k_empty[gk % kStages]);
+        hopper::mbar_wait(&v_full[gk % kStages], parity(gk));
+        if (tid == 0) hopper::mbar_arrive(&v_empty[gk % kStages]);
+      }
+      if (tid == 0) hopper::mbar_arrive(&q_empty[qb]);
+      g += n;
+      ++j;
+
+      // Epilogue: out = l > 0 ? acc / l : 0, rows past T not stored.
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        if (row >= t) continue;
+        const float norm = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+        __nv_bfloat16* orow = out + (static_cast<long long>(it.bh) * t + row) * kD;
+#pragma unroll
+        for (int c = 0; c < kD / 8; ++c) {
+          const int i = 4 * c + 2 * hf;
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + c0) =
+              __floats2bfloat162_rn(o[i] * norm, o[i + 1] * norm);
+        }
+      }
+    }
+  }
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
+           int t, int s, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  const uint64_t bhq = static_cast<uint64_t>(b) * hq;
+  const uint64_t bhkv = static_cast<uint64_t>(b) * hkv;
+  if (!hopper::bf16_map_3d(&q_map, q, kD, t, bhq, kPanelCols, kBQ) ||
+      !hopper::bf16_map_3d(&k_map, k, kD, s, bhkv, kPanelCols, kBK) ||
+      !hopper::bf16_map_3d(&v_map, v, kD, s, bhkv, kPanelCols, kBK)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long q_tiles = (t + kBQ - 1) / kBQ;
+  const long long items = q_tiles * static_cast<long long>(bhq);
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  int device = 0;
+  int sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int blocks = static_cast<int>(items < sms ? items : (sms > 0 ? sms : 1));
+  const int smem = Smem<kD>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_wgmma<kD><<<blocks, kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), hq, hkv, static_cast<int>(bhq),
+      static_cast<int>(q_tiles), t, s, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgmma
+
+// Launches the simt instance on `stream`. dtype: 0 = float32, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success); refuses shapes the
 // kernel does not take with cudaErrorInvalidValue. The caller checks types,
 // devices and contiguity.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int b, int hq, int hkv, int t, int s, int d,
                                    int causal, float scale, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || t <= 0 || s <= 0 || d <= 0 || d > kMaxD ||
+  if (b <= 0 || hq <= 0 || hkv <= 0 || t <= 0 || s <= 0 || d <= 0 || d > simt::kMaxD ||
       hq % hkv != 0 || b > 65535 || hq > 65535) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, out, b, hq, hkv, t, s, d, causal, scale, st);
+  if (dtype == 0) return simt::dispatch_d<float>(q, k, v, out, b, hq, hkv, t, s, d, causal, scale, st);
   if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, b, hq, hkv, t, s, d, causal, scale, st);
+    return simt::dispatch_d<__nv_bfloat16>(q, k, v, out, b, hq, hkv, t, s, d, causal, scale, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Launches the wgmma instance on `stream`: bfloat16 q, k, v and out at
+// D = 64 or 128, each 16-byte aligned. Returns the cudaError_t of the launch
+// (0 on success); refuses what the instance does not take with
+// cudaErrorInvalidValue, as it does when the driver refuses a tensor map.
+// The caller checks types, devices and contiguity.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                                         void* out, int b, int hq, int hkv, int t, int s,
+                                         int d, int causal, float scale, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || t <= 0 || s <= 0 || (d != 64 && d != 128) ||
+      hq % hkv != 0 || b > 65535 || hq > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const uintptr_t addrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (addrs & 15) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64) return wgmma::launch<64>(q, k, v, out, b, hq, hkv, t, s, causal, scale, st);
+  return wgmma::launch<128>(q, k, v, out, b, hq, hkv, t, s, causal, scale, st);
 }

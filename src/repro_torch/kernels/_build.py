@@ -3,14 +3,16 @@
 Each source file is compiled on its own by ``nvcc`` into a shared library
 with a plain C interface for Hopper (``sm_90a``) and loaded with
 ``ctypes``. Libraries land in ``<repo>/build/repro_torch/`` under a name
-keyed by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. A missing ``nvcc``, a
-compile error or a load error raises: no caller falls back to the plain
-PyTorch version.
+keyed by a hash of the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. A missing ``nvcc``, a compile error or a load error
+raises: no caller falls back to the plain PyTorch version.
 
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for all of them; :func:`load` builds one library if needed and
-returns the loaded handle.
+returns the loaded handle; :func:`ptxas_report` returns what ``ptxas -v``
+said of a library's kernels when it was built (registers, shared memory,
+spills).
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "SOURCES", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "SOURCES", "build", "load",
+           "ptxas_report"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -63,10 +67,28 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _headers(source: Path) -> list:
+    """The ``csrc`` headers ``source`` includes, directly or through another
+    header, in the order first met."""
+    found, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC_DIR / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _library_path(name: str) -> Path:
-    """``BUILD_DIR/lib<name>-<hash of source + flags>.so``."""
+    """``BUILD_DIR/lib<name>-<hash of source + its headers + flags>.so``."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -87,7 +109,9 @@ def build(*names: str) -> Dict[str, Path]:
     procs = {}
     for name, path in missing.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        # -Xptxas -v only reports (it changes no code): kept beside the library.
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     errors = []
@@ -97,6 +121,7 @@ def build(*names: str) -> Dict[str, Path]:
             errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            missing[name].with_suffix(".ptxas.txt").write_text(out)
             os.replace(tmp, missing[name])
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -113,3 +138,10 @@ def load(name: str) -> ctypes.CDLL:
             _loaded[name] = lib
             loads += 1
         return lib
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` printed when ``csrc/<name>.cu``'s current library
+    was built ("" if it was built elsewhere)."""
+    log = _library_path(name).with_suffix(".ptxas.txt")
+    return log.read_text() if log.is_file() else ""

@@ -1,9 +1,11 @@
 """Public wrappers of attention: the flash kernel (prefill) and the decode path.
 
 ``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors
-(counted in this module's ``launches``) and runs its plain version on CPU
-tensors. ``decode_attention`` is the one-new-token path: at q_len = 1 the
-work streams the KV cache once and a blocked kernel buys nothing, so it is
+(counted in this module's ``launches``, and by instance in
+``launches_by_design``) and runs its plain version on CPU tensors. The
+instance is chosen by :func:`design` from the dtype and head dim alone.
+``decode_attention`` is the one-new-token path: at q_len = 1 the work
+streams the KV cache once and a blocked kernel buys nothing, so it is
 plain tensor ops here, as it is plain einsums in the reference.
 """
 
@@ -16,13 +18,24 @@ import torch
 from repro_torch.kernels.flash_attention.flash_attention import (
     DTYPES,
     MAX_HEAD_DIM,
+    WGMMA_HEAD_DIMS,
     flash_attention_cuda,
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per launch, never for the plain version on the CPU.
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# +1 per launch, never for the plain version on the CPU; and the same
+# launches by instance.
 launches = 0
+launches_by_design = {"wgmma": 0, "simt": 0}
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance for q, k, v of ``dtype`` at ``head_dim``:
+    ``"wgmma"`` (tensor cores, TMA) for bfloat16 at D = 64 or 128,
+    ``"simt"`` (float32 FMAs) for everything else. float32 stays off the
+    tensor cores, where it would be TF32."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,7 +46,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Causal (queries suffix-aligned to the keys), GQA by ``h // (Hq //
     Hkv)``; a query row that sees no key gives 0. CPU tensors run the plain
     version; CUDA tensors (contiguous, float32 or bfloat16, one type, D <=
-    256) launch the kernel or raise. ``block_q``/``block_k`` are accepted
+    256; 16-byte aligned for the wgmma instance) launch the kernel of
+    :func:`design` or raise. ``block_q``/``block_k`` are accepted
     for the reference's signature: the kernel tiles by its own sizes, which
     change the result only by float rounding.
     """
@@ -62,15 +76,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"flash_attention takes head dims 1..{MAX_HEAD_DIM} and at most 65535"
             f" batches and heads, got D={d}, B={b}, Hq={hq}")
+    kind = design(q.dtype, d)
+    if kind == "wgmma" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention's wgmma instance needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     if k.shape[2] == 0:
         return out.zero_()
     with torch.cuda.device(q.device):
-        flash_attention_cuda(q, k, v, out, causal, sm_scale)
+        flash_attention_cuda(q, k, v, out, causal, sm_scale, kind)
     global launches
     launches += 1
+    launches_by_design[kind] += 1
     return out
 
 

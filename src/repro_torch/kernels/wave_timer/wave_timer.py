@@ -11,6 +11,22 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_ANCHORS = 8
+BULK_ALIGN = 16   # bytes: address and size granule of a bulk copy
+
+
+def copy_split(src_ptr: int, dst_ptr: int, nbytes: int) -> tuple:
+    """``(head, body)`` of a copy of ``nbytes`` from ``src_ptr`` to ``dst_ptr``.
+
+    Bytes ``[head, head + body)`` go by bulk copies: both addresses are
+    16-byte aligned there and ``body`` is a multiple of 16. The head
+    ``[0, head)`` and the tail ``[head + body, nbytes)``, each under 16
+    bytes, go by threads. Where the two addresses disagree mod 16 no byte
+    can go in bulk: ``(0, 0)``, the byte path.
+    """
+    if (src_ptr - dst_ptr) % BULK_ALIGN:
+        return 0, 0
+    head = min(nbytes, -src_ptr % BULK_ALIGN)
+    return head, (nbytes - head) // BULK_ALIGN * BULK_ALIGN
 
 
 @functools.cache
@@ -23,7 +39,12 @@ def _entries():
     stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     stamp.restype = ctypes.c_int
-    return read, stamp
+    ring = lib.wave_timer_stamp_through_ring
+    ring.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p]
+    ring.restype = ctypes.c_int
+    return read, stamp, ring
 
 
 def _anchor_array(anchors: Sequence[torch.Tensor]):
@@ -49,11 +70,18 @@ def stamp_through_cuda(primary: torch.Tensor, out: torch.Tensor,
     """Launch the copy + stamp kernel: ``out`` = ``primary`` byte for byte.
 
     Both are contiguous tensors of one size on one device (checked by
-    ``ops.stamp_through``). Raises if the launch is refused.
+    ``ops.stamp_through``). The bulk-copy ring takes the copy when
+    :func:`copy_split` leaves it a body, the byte path otherwise. Raises if
+    the launch is refused.
     """
     ptrs, count = _anchor_array(anchors)
     nbytes = primary.numel() * primary.element_size()
-    rc = _entries()[1](primary.data_ptr(), out.data_ptr(), nbytes, ptrs, count,
-                       ticks.data_ptr(), torch.cuda.current_stream(ticks.device).cuda_stream)
+    stream = torch.cuda.current_stream(ticks.device).cuda_stream
+    src, dst = primary.data_ptr(), out.data_ptr()
+    head, body = copy_split(src, dst, nbytes)
+    if body > 0:
+        rc = _entries()[2](src, dst, nbytes, head, body, ptrs, count, ticks.data_ptr(), stream)
+    else:
+        rc = _entries()[1](src, dst, nbytes, ptrs, count, ticks.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"stamp_through kernel launch failed: cudaError {rc}")

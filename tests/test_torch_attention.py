@@ -161,6 +161,18 @@ def test_run_attention_routes_like_reference(impl):
     np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 20, "simt"),
+    (torch.bfloat16, 20, "simt"), (torch.bfloat16, 200, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 256, "simt"),
+])
+def test_flash_design_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 at D = 64 and 128 take the tensor-core instance; float32 (TF32
+    there) and every other D take the float32 SIMT one."""
+    assert fa_ops.design(dtype, d) == want
+
+
 def test_flash_wrapper_rejects_bad_shapes():
     q, k, v = _to_torch(_qkv(1, 1, 3, 2, 4, 4, 8))
     with pytest.raises(ValueError, match="GQA"):
@@ -182,6 +194,18 @@ GPU_CASES = [
     (2, 3, 1, 50, 50, 20, True, torch.float32),        # generic head dim
     (1, 2, 2, 130, 130, 256, True, torch.bfloat16),
     (1, 2, 1, 77, 300, 200, False, torch.float32),
+    # The wgmma instance (bf16, D = 64 or 128).
+    (8, 32, 8, 504, 504, 128, True, torch.bfloat16),   # the serve path's longest prefill
+    (2, 8, 2, 1, 300, 128, True, torch.bfloat16),      # ragged T < S
+    (2, 8, 2, 65, 300, 128, True, torch.bfloat16),
+    (2, 8, 2, 130, 300, 128, True, torch.bfloat16),
+    (2, 4, 2, 130, 60, 128, True, torch.bfloat16),     # T > S: rows that see no key
+    (1, 4, 4, 257, 257, 128, True, torch.bfloat16),    # GQA group 1
+    (1, 8, 1, 200, 200, 128, True, torch.bfloat16),    # GQA group 8
+    (2, 4, 4, 300, 300, 64, True, torch.bfloat16),     # D = 64
+    (2, 8, 2, 70, 30, 64, True, torch.bfloat16),       # D = 64, T > S
+    (2, 4, 2, 130, 700, 128, False, torch.bfloat16),   # non-causal, T < S
+    (1, 4, 1, 1000, 1000, 128, True, torch.bfloat16),  # many key tiles
 ]
 
 
@@ -190,11 +214,13 @@ GPU_CASES = [
 def test_flash_kernel_matches_plain_on_gpu(b, hq, hkv, t, s, d, causal, dtype):
     dev = _cuda()
     q, k, v = (x.to(dev) for x in _to_torch(_qkv(t * s, b, hq, hkv, t, s, d), dtype))
-    before = fa_ops.launches
+    kind = fa_ops.design(dtype, d)
+    before, before_kind = fa_ops.launches, fa_ops.launches_by_design[kind]
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 1 and got.dtype == dtype
+    assert fa_ops.launches_by_design[kind] == before_kind + 1
     atol = BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     if t > s and causal:
@@ -212,3 +238,8 @@ def test_flash_kernel_refuses_what_it_does_not_take():
     big = torch.zeros(1, 1, 4, 272, device=dev)
     with pytest.raises(ValueError, match="head dims"):
         fa_ops.flash_attention(big, big, big)
+    # The wgmma instance reads q, k, v by TMA: 16-byte aligned starts only.
+    flat = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16, device=dev)
+    odd = flat[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.flash_attention(odd, odd, odd)

@@ -258,6 +258,66 @@ def test_escape_hatch_buffers_fit_the_batch(pipelined):
     np.testing.assert_array_equal(res.values, full[0].numpy().sum(axis=0))
 
 
+def _group_needs(batch, plan, m, n):
+    """The most pairs any (slot, destination) group holds in each chunk of
+    ``plan``, and in any slot's whole send (numpy, from the batch)."""
+    keys, _, valid = batch
+    cid = np.abs(keys.astype(np.int64)) % n
+    chunk = np.asarray(plan.waves.chunk_of_cluster)[cid]
+    dest = np.asarray(plan.schedule.assignment)[cid]
+    chunks = plan.waves.num_chunks
+    per = np.zeros((keys.shape[0], chunks, m), np.int64)
+    for s in range(keys.shape[0]):
+        np.add.at(per[s], (chunk[s][valid[s]], dest[s][valid[s]]), 1)
+    return int(per.sum(axis=1).max()), tuple(int(c) for c in per.max(axis=(0, 2)))
+
+
+def test_reused_escalated_plan_replays_at_cut_caps():
+    """Batch 0 trips the escape hatch and caches the escalated plan (every
+    cap k_per_shard); batches 1-2 reuse it. The reuse replays at caps cut to
+    each batch's largest group, with the reference's outputs and overflow."""
+    import jax.numpy as jnp
+
+    from repro.core import schedule_cache as rsc
+    from repro.core.mapreduce import MapReduceConfig, MapReduceJob
+    from repro_torch.core import schedule_cache as tsc
+
+    m, k, n = 4, 1024, 64
+    cfg = dict(num_slots=m, num_clusters=n, scheduler="lpt", stats="sketch",
+               sketch_width=128, sketch_depth=4, stream_prefix=0.25)
+    ref = MapReduceJob(_identity, MapReduceConfig(use_kernels=True, reuse=rsc.ReusePolicy(),
+                                                  **cfg), backend="vmap")
+    port = tmr.MapReduceJob(_identity, tmr.MapReduceConfig(reuse=tsc.ReusePolicy(), **cfg),
+                            device="cpu")
+    runs = []
+    execute = port._execute
+
+    def spy(inter, plan, caps=None):
+        runs.append((plan, caps))
+        return execute(inter, plan, caps)
+
+    port._execute = spy
+    for b in range(3):
+        batch = _adversarial_batch(10 * b + 1, m=m, k=k, n=n)
+        runs.clear()
+        r = ref.run(tuple(jnp.asarray(a) for a in batch))
+        p = port.run(tuple(torch.from_numpy(a) for a in batch))
+        _assert_outputs_equal(r, p)
+        assert p.overflow == r.overflow == 0
+        assert p.reused == (b > 0) and port.capacity_fallbacks == 1
+        plan, caps = runs[-1]
+        assert plan.chunk_caps == (k,) * plan.waves.num_chunks == (k,) * 4
+        assert plan.stats_overestimate and not plan.caps_estimated
+        if b == 0:
+            continue
+        assert len(runs) == 1 and caps is not None
+        need_total, need_chunks = _group_needs(batch, plan, m, n)
+        capacity, chunk_caps = caps
+        assert capacity <= need_total
+        assert all(c <= max(1, w) for c, w in zip(chunk_caps, need_chunks))
+        assert m * m * sum(chunk_caps) < m * m * k * plan.waves.num_chunks
+
+
 def test_sketch_snapshot_keeps_its_provider():
     m, n = 4, 16
     hist = np.random.default_rng(2).integers(1, 50, (m, n)).astype(np.float64)

@@ -4,9 +4,12 @@ The tick word format, the tick unit and the calibration are held against
 the reference's numpy code on the same inputs; the plain versions of
 ``read_ticks`` / ``stamp_through`` (what CPU tensors run) are checked for
 monotone stamps and bit-identical copies; ``force_backend`` drives the
-``"none"`` backend. The ``gpu`` cases launch the ``%globaltimer`` kernels:
-bitwise copies, stamps that advance across a device-side spin, and stamp
-intervals against CUDA event times. The reference is imported inside the
+``"none"`` backend; ``copy_split`` (the copy kernel's head / bulk body /
+tail split) covers every byte once. The ``gpu`` cases launch the
+``%globaltimer`` kernels: bitwise copies (through the bulk-copy ring and
+the byte path, at sizes around one ring stage and one ring, at every
+source and destination offset mod 16), stamps that advance across a
+device-side spin, and stamp intervals against CUDA event times. The reference is imported inside the
 CPU tests only, so the ``gpu`` cases also run where JAX is absent
 (``--noconftest -m gpu``).
 """
@@ -16,10 +19,12 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro_torch.kernels.wave_timer import calibration as tcal
 from repro_torch.kernels.wave_timer import ops as wt
 from repro_torch.kernels.wave_timer import ref as tref
+from repro_torch.kernels.wave_timer.wave_timer import copy_split, stamp_through_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +199,41 @@ def test_cpu_tensors_never_count_as_launches():
     assert (wt.read_ticks_launches, wt.stamp_through_launches) == (r0, s0)
 
 
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 1 << 40), st.integers(0, 1 << 40), st.integers(0, 1 << 20))
+def test_copy_split_covers_every_byte_once(src, dst, nbytes):
+    head, body = copy_split(src, dst, nbytes)
+    tail = nbytes - head - body
+    assert head >= 0 and body >= 0 and tail >= 0
+    if (src - dst) % 16:
+        assert (head, body) == (0, 0)                 # the byte path takes it all
+        return
+    assert body % 16 == 0
+    if body:
+        assert (src + head) % 16 == 0 and (dst + head) % 16 == 0
+        assert head < 16 and tail < 16
+    else:
+        assert nbytes - head < 16
+    pieces = [(0, head), (head, head + body), (head + body, nbytes)]
+    cover = np.zeros(nbytes, np.int64)
+    for lo, hi in pieces:
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("src_mod,dst_mod", [(s, d) for s in range(16) for d in (0, 3, 8)])
+def test_copy_split_at_every_offset(src_mod, dst_mod):
+    """Every source offset mod 16 against three destination offsets, at a
+    size of one ring (6 stages of 32 KB) plus a few bytes."""
+    nbytes = 6 * 32768 + 7
+    head, body = copy_split(4096 + src_mod, 8192 + dst_mod, nbytes)
+    if src_mod != dst_mod:
+        assert (head, body) == (0, 0)
+    else:
+        assert head == (16 - src_mod) % 16
+        assert body == (nbytes - head) // 16 * 16 and nbytes - head - body < 16
+
+
 # ---------------------------------------------------------------------------
 # On the card.
 # ---------------------------------------------------------------------------
@@ -211,8 +251,8 @@ def _cuda():
 @pytest.mark.parametrize("offset", [0, 1])
 def test_cuda_stamp_through_copies_bit_for_bit(dtype, n, offset):
     dev = _cuda()
-    # offset=1 starts the primary one element into its buffer, off the
-    # 16-byte alignment of the vector path.
+    # offset=1 starts the primary one element into its buffer: against a
+    # fresh (aligned) copy the two disagree mod 16, so the byte path copies.
     base = _payload(dtype, n + offset, seed=n).to(dev)
     x = base[offset:]
     s0 = wt.stamp_through_launches
@@ -223,6 +263,33 @@ def test_cuda_stamp_through_copies_bit_for_bit(dtype, n, offset):
     assert _same_bits(y, x)
     assert ticks.device == dev and ticks.dtype == torch.uint32
     assert wt.combine_ticks(wt.ticks_numpy(ticks)) > 0
+
+
+# Bytes around one 32 KB ring stage and one ring of 6 stages, and a share
+# of several rings a CTA.
+_RING_SIZES = [32768 - 16, 32768, 32768 + 17, 6 * 32768 - 1, 6 * 32768, 6 * 32768 + 33,
+               132 * 6 * 32768 + 5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbytes", _RING_SIZES)
+@pytest.mark.parametrize("src_off", range(16))
+def test_cuda_stamp_through_ring_at_every_offset(nbytes, src_off):
+    """Source offsets 0-15 each, with the destination at the same offset
+    mod 16 (the bulk-copy ring, with a head and a tail) and at offset 0
+    (the byte path unless the source is aligned too)."""
+    dev = _cuda()
+    base = _payload(torch.uint8, nbytes + 16, seed=nbytes + src_off).to(dev)
+    src = base[src_off:src_off + nbytes]
+    for dst_off in sorted({src_off, 0}):
+        buf = torch.full((nbytes + 16,), 0xA5, dtype=torch.uint8, device=dev)
+        dst = buf[dst_off:dst_off + nbytes]
+        ticks = torch.zeros(2, dtype=torch.uint32, device=dev)
+        stamp_through_cuda(src, dst, [base], ticks)
+        torch.cuda.synchronize()
+        assert torch.equal(dst, src), (nbytes, src_off, dst_off)
+        assert (buf[:dst_off] == 0xA5).all() and (buf[dst_off + nbytes:] == 0xA5).all()
+        assert wt.combine_ticks(wt.ticks_numpy(ticks)) > 0
 
 
 @pytest.mark.gpu
