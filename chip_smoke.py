@@ -6,10 +6,15 @@ Run from the repository root:
     python3 chip_smoke.py [--seed S]
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all at once; ``ptxas -v`` of the flash-attention and
-wave-timer libraries is printed, and the flash library's SASS must hold
-HGMMA), holds each kernel against its plain
-PyTorch version at the shapes its path gives it and times both, then
+``nvcc`` per source, all at once; ``ptxas -v`` of the flash-attention,
+wave-timer, XOR and fused-reduce libraries is printed, the last two must
+not spill, and the flash library's SASS must hold HGMMA), holds each
+kernel against its plain PyTorch version at the shapes its path gives it
+and times both (the fused reduce's sums and counts at every chunk of a
+real plan, and its sums on normals unchanged by padding appended to or
+put in front of chunk 0's stream; the XOR kernel's encode instance
+beside the three passes it replaced, and its flat instance beside
+``torch.bitwise_xor``), then
 drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
 against a numpy oracle:
@@ -299,18 +304,23 @@ def ptxas_kernels(report: str) -> dict:
 
 
 def ptxas_phase(build) -> dict:
-    """What ``ptxas -v`` said of the two libraries whose kernels were redesigned
-    for Hopper (flash attention's instances, the wave timer's), one line a
-    kernel. The wgmma instance must not spill, must enter with the 168
-    registers a thread that its setmaxnreg split needs (384 x 168 = 128 x 40
-    + 256 x 232), and its SASS must hold HGMMA (cuobjdump)."""
+    """What ``ptxas -v`` said of the four libraries whose kernels were
+    redesigned for Hopper (flash attention's instances, the wave timer's,
+    the XOR word kernel's encode and flat instances, the fused reduce's two
+    launches), one line a kernel. The XOR and fused kernels must not spill.
+    The wgmma instance must not spill, must enter with the 168 registers a
+    thread that its setmaxnreg split needs (384 x 168 = 128 x 40 + 256 x
+    232), and its SASS must hold HGMMA (cuobjdump)."""
     out = {}
-    for name in ("flash_attention", "wave_timer"):
+    for name in ("flash_attention", "wave_timer", "xor_words", "fused_shuffle_reduce"):
         kernels = ptxas_kernels(build.ptxas_report(name))
         check(bool(kernels), f"ptxas reported on {name}.cu")
         for kernel, info in kernels.items():
             print(f"ptxas {name}.cu: {kernel[:72]}: {info}", flush=True)
         out[name] = kernels
+    for name in ("xor_words", "fused_shuffle_reduce"):
+        check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
+                  for v in out[name].values()), f"{name}.cu's kernels do not spill")
     wgmma = {k: v for k, v in out["flash_attention"].items() if "flash_fwd_wgmma" in k}
     check(len(wgmma) == 2, "ptxas reported both wgmma instances (D = 64, 128)")
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in wgmma.values()),
@@ -452,51 +462,98 @@ def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
     return res
 
 
-def xor_phase(cs_ops, xor_ref, m, cap2, w_row, dev):
-    """The XOR kernel at the coded path's chunk-0 encode shape: ``(m^3 * cap2,
-    w_row)`` int32 words (random bits: XOR does the same work on any data).
+def xor_phase(cs_ops, encode_ref, xor_ref, m, cap2, w_row, dev):
+    """The XOR kernel's two instances at the coded path's chunk-0 shape, on
+    random int32 words (XOR does the same work on any data).
 
-    Bitwise against the plain version, which is also the library call
-    (``torch.bitwise_xor``); times both and the ``.contiguous()`` copy that
-    materialises the encode's (partner, dst)-swapped operand. Returns a dict.
+    Encode: ``encode_packets`` on an ``(m, m, m, cap2, w_row)`` slab,
+    bitwise against its plain version; timed beside the plain version, the
+    three passes it replaces (the ``.contiguous()`` swap copy, the flat
+    instance, ``masked_fill_``) and the library yardstick,
+    ``torch.bitwise_xor`` of the slab and its strided swap followed by
+    ``masked_fill_`` (no single PyTorch call computes the masked swap-XOR).
+    Its bound: 8 B a packet word (read once, written once), 4 B a zero
+    word. Flat: ``xor_words`` on two ``(m^3 cap2, w_row)`` slabs, bitwise
+    against its plain version, which is the library call
+    (``torch.bitwise_xor``); a second XOR restores the slab. Returns a dict.
     """
     rows = m ** 3 * cap2
+    words = rows * w_row
     gen = torch.Generator(device=dev).manual_seed(3)
     a = torch.randint(-2 ** 31, 2 ** 31, (rows, w_row), generator=gen, device=dev,
                       dtype=torch.int32)
-    b = a.view(m, m, m, cap2, w_row).transpose(1, 2).contiguous().view(rows, w_row)
+    slab = a.view(m, m, m, cap2, w_row)
+    got = cs_ops.encode_packets(slab)
+    want = encode_ref(slab)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "xor_words encode instance == plain, bitwise")
+    err = float((got.long() - want.long()).abs().max())
+    del got, want
+    ids = torch.arange(m, device=dev)
+    snd, dst_a, dst_b = ids[:, None, None], ids[None, :, None], ids[None, None, :]
+    pair_ok = (dst_a != dst_b) & (dst_a != snd) & (dst_b != snd)
+    no_pair = ~pair_ok[..., None, None]
+    packet_share = float(pair_ok.float().mean())
+
+    def three_pass():
+        swapped = slab.transpose(1, 2).contiguous()
+        x = cs_ops.xor_words(a, swapped.view(rows, w_row)).view_as(slab)
+        return x.masked_fill_(no_pair, 0)
+
+    def library():
+        return torch.bitwise_xor(slab, slab.transpose(1, 2)).masked_fill_(no_pair, 0)
+
+    check(torch.equal(three_pass(), cs_ops.encode_packets(slab)), "three passes == encode")
+    b_ms, by = bound_ms((8 * packet_share + 4 * (1 - packet_share)) * words,
+                        packet_share * words, INT32_OPS_PER_S)
+    res = {
+        "shape": [m, m, m, cap2, w_row], "cap2": cap2, "packet_share": packet_share,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: cs_ops.encode_packets(slab), reps=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: encode_ref(slab), reps=5, warmup=1),
+        "three_pass_ms": cuda_ms(three_pass, reps=5, warmup=1),
+        "library_ms": cuda_ms(library, reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": by,
+    }
+    b = torch.randint(-2 ** 31, 2 ** 31, (rows, w_row), generator=gen, device=dev,
+                      dtype=torch.int32)
     got = cs_ops.xor_words(a, b)
     want = xor_ref(a, b)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "xor_words kernel == plain, bitwise")
+    check(torch.equal(got, want), "xor_words flat instance == plain, bitwise")
     check(torch.equal(cs_ops.xor_words(got, b), a), "xor_words decode restores the slab")
-    err = float((got.long() - want.long()).abs().max())
+    flat_err = float((got.long() - want.long()).abs().max())
     del got, want
-    words = rows * w_row
-    b_ms, by = bound_ms(3 * 4 * words, words, INT32_OPS_PER_S)
-    res = {
-        "shape": [rows, w_row], "cap2": cap2, "max_abs_err": err,
-        "ms": cuda_ms(lambda: cs_ops.xor_words(a, b), reps=5, warmup=1),
-        "plain_ms": cuda_ms(lambda: xor_ref(a, b), reps=5, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.bitwise_xor(a, b), reps=5, warmup=1),
-        "swap_ms": cuda_ms(lambda: a.view(m, m, m, cap2, w_row).transpose(1, 2).contiguous(),
-                           reps=5, warmup=1),
-        "bound_ms": b_ms, "bound_by": by,
-    }
-    del a, b
+    fb_ms, fby = bound_ms(3 * 4 * words, words, INT32_OPS_PER_S)
+    flat = {"shape": [rows, w_row], "max_abs_err": flat_err}
+    # In turns (flat, library, library, flat): two versions compared within
+    # one call, in both orders.
+    times = {"ms": [], "library_ms": []}
+    calls = {"ms": lambda: cs_ops.xor_words(a, b), "library_ms": lambda: torch.bitwise_xor(a, b)}
+    for key in ("ms", "library_ms", "library_ms", "ms"):
+        times[key].append(cuda_ms(calls[key], reps=5, warmup=1))
+    flat.update({k: float(np.mean(v)) for k, v in times.items()})
+    flat.update(plain_ms=cuda_ms(lambda: xor_ref(a, b), reps=5, warmup=1),
+                bound_ms=fb_ms, bound_by=fby)
+    res["flat"] = flat
+    del a, b, slab
     return res
 
 
 class FusedProbe:
     """Stands in for ``fused_shuffle_reduce`` during one engine run.
 
-    Every call launches the kernel as the engine would, then holds it
-    against the plain version on the same inputs (bitwise: the values are
-    integers), against an exact float64 sum on standard normals at the
-    same shapes (|error| <= 1e-5 * sum of |values| of the segment), and
-    times the kernel, the plain version and one ``index_add_`` call that
-    computes the same function from the unsorted rows. ``on_first`` is
-    called with the first launch's inputs (chunk 0, the largest).
+    Every call launches the kernel as the engine would, then holds its sums
+    and counts against the plain version on the same inputs (bitwise: the
+    values are integers, the counts exact), its sums against an exact
+    float64 sum on standard normals at the same shapes (|error| <= 1e-5 *
+    sum of |values| of the segment), and times the kernel, the plain
+    version and the library yardstick: one ``index_add_`` that computes the
+    same sums from the unsorted rows plus one ``torch.bincount`` of the
+    segment ids for the counts. On the first call (chunk 0, the largest)
+    the same stream on normals is fed again with padding appended, and
+    shifted by padding rows in front: the sums must keep every bit.
+    ``on_first`` is called with the first launch's inputs.
     """
 
     def __init__(self, real, ref, on_first=None):
@@ -508,39 +565,50 @@ class FusedProbe:
     def __call__(self, values, gather_idx, seg_ids, num_segments):
         if not self.chunks and self.on_first is not None:
             self.on_first(values, gather_idx, seg_ids, num_segments)
-        out = self.real(values, gather_idx, seg_ids, num_segments)
-        want = self.ref(values, gather_idx, seg_ids, num_segments)
+        out, counts = self.real(values, gather_idx, seg_ids, num_segments)
+        want, want_counts = self.ref(values, gather_idx, seg_ids, num_segments)
         torch.cuda.synchronize()
         check(torch.equal(out, want), "fused kernel == plain on integer values")
-        err = float((out - want).abs().max())
+        check(torch.equal(counts, want_counts), "fused kernel's counts == plain, exactly")
+        err = max(float((out - want).abs().max()), float((counts - want_counts).abs().max()))
+        del want, want_counts
 
         m, n, v = values.shape
         ok = (seg_ids >= 0) & (seg_ids < num_segments)
         rows = int(ok.sum())
         # The library yardstick: with the segment of every unsorted row,
-        # one index_add_ computes the same sums with no gather.
+        # one index_add_ computes the same sums with no gather, and one
+        # bincount of the sorted ids the counts.
         seg_of_row = torch.full((m, n), num_segments, dtype=torch.long,
                                 device=values.device)
         seg_of_row.scatter_(1, gather_idx.long(), seg_ids.long().clamp(0, num_segments))
         seg_of_row += torch.arange(m, device=values.device)[:, None] * (num_segments + 1)
         seg_flat = seg_of_row.reshape(-1)
         vals_flat = values.reshape(-1, v)
+        flat = torch.where(ok, seg_ids.long(), num_segments)
+        flat = (flat + torch.arange(m, device=values.device)[:, None]
+                * (num_segments + 1)).reshape(-1)
 
         def library():
             acc = torch.zeros(m * (num_segments + 1), v, device=values.device)
-            return acc.index_add_(0, seg_flat, vals_flat)
+            return (acc.index_add_(0, seg_flat, vals_flat),
+                    torch.bincount(flat, minlength=m * (num_segments + 1)))
 
-        lib = library().view(m, num_segments + 1, v)[:, :num_segments]
-        check(torch.equal(lib, want), "index_add_ yardstick == plain")
-        del lib, seg_of_row
+        lib, lib_counts = library()
+        check(torch.equal(lib.view(m, num_segments + 1, v)[:, :num_segments], out)
+              and torch.equal(lib_counts.view(m, num_segments + 1)[:, :num_segments].float(),
+                              counts), "index_add_ + bincount yardstick == kernel")
+        del lib, lib_counts, seg_of_row
 
-        float_err = self._float_check(values, gather_idx, seg_ids, num_segments, ok)
-        nbytes, ops = rows * (4 + 4 * v) + m * num_segments * v * 4, rows * v
+        float_err, invariant = self._float_check(values, gather_idx, seg_ids, num_segments,
+                                                 ok)
+        nbytes = rows * (4 + 4 * v) + m * num_segments * (v + 1) * 4
+        ops = rows * v
         b, by = bound_ms(nbytes, ops)
         self.chunks.append({
             "shape": [m, n, v], "segments": num_segments, "valid_rows": rows,
             "bytes": nbytes, "ops": ops,
-            "max_abs_err": err, "float_rel_err": float_err,
+            "max_abs_err": err, "float_rel_err": float_err, "pad_shift_invariant": invariant,
             "ms": cuda_ms(lambda: self.real(values, gather_idx, seg_ids, num_segments),
                           reps=5, warmup=1),
             "plain_ms": cuda_ms(lambda: self.ref(values, gather_idx, seg_ids, num_segments),
@@ -548,26 +616,47 @@ class FusedProbe:
             "library_ms": cuda_ms(library, reps=5, warmup=1),
             "bound_ms": b, "bound_by": by,
         })
-        return out
+        return out, counts
 
     def _float_check(self, values, gather_idx, seg_ids, num_segments, ok):
-        """Kernel on standard normals vs the exact (float64) segment sums."""
+        """Kernel on standard normals vs the exact (float64) segment sums;
+        on chunk 0 also the same stream with 1,000 padding rows appended and
+        with 7 padding rows (id -1) in front, whose sums must be identical.
+        Returns ``(largest relative error, "checked" or None)``."""
         m, n, v = values.shape
-        gen = torch.Generator(device=values.device).manual_seed(len(self.chunks))
-        normals = torch.randn(values.shape, generator=gen, device=values.device)
-        got = self.real(normals, gather_idx, seg_ids, num_segments).double()
-        slot = torch.arange(m, device=values.device)[:, None].expand(m, n)[ok]
+        dev = values.device
+        gen = torch.Generator(device=dev).manual_seed(len(self.chunks))
+        normals = torch.randn(values.shape, generator=gen, device=dev)
+        got = self.real(normals, gather_idx, seg_ids, num_segments)[0]
+        invariant = None
+        if not self.chunks:
+            for lead, extra in ((0, 1000), (7, 0)):
+                again = self.real(
+                    torch.cat([normals, torch.ones((m, lead + extra, v), device=dev)], dim=1),
+                    torch.cat([torch.full((m, lead), n, dtype=torch.int32, device=dev),
+                               gather_idx,
+                               torch.zeros((m, extra), dtype=torch.int32, device=dev)], dim=1),
+                    torch.cat([torch.full((m, lead), -1, dtype=torch.int32, device=dev),
+                               seg_ids, torch.full((m, extra), num_segments,
+                                                   dtype=torch.int32, device=dev)], dim=1),
+                    num_segments)[0]
+                check(torch.equal(again, got), f"fused kernel on normals: {lead} padding rows"
+                      f" in front and {extra} behind leave every bit of the sums")
+                del again
+            invariant = "checked"
+        got = got.double()
+        slot = torch.arange(m, device=dev)[:, None].expand(m, n)[ok]
         src = gather_idx[ok].long() + slot * n
         dst = seg_ids[ok].long() + slot * num_segments
         picked = normals.reshape(-1, v)[src].double()
         del normals
-        exact = torch.zeros(m * num_segments, v, dtype=torch.float64, device=values.device)
+        exact = torch.zeros(m * num_segments, v, dtype=torch.float64, device=dev)
         exact.index_add_(0, dst, picked)
         scale = torch.zeros_like(exact).index_add_(0, dst, picked.abs())
         diff = (got.reshape(-1, v) - exact).abs()
         check(bool((diff <= 1e-5 * scale).all()),
               "fused kernel on normals within 1e-5 * sum|x| of the exact sums")
-        return float((diff / scale.clamp_min(1e-30)).max())
+        return float((diff / scale.clamp_min(1e-30)).max()), invariant
 
 
 class PlanSpy:
@@ -687,6 +776,7 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
         job = MapReduceJob(lambda b: b, MapReduceConfig(
             num_slots=CODED_M, num_clusters=n, **cfg))
         x0, f0 = xor_mod.launches, fused_mod.launches
+        by0 = dict(xor_mod.launches_by_design)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -696,8 +786,12 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
         coded = job.cfg.shuffle_replication == 2
         check(job.last_plan.waves.replication == job.cfg.shuffle_replication,
               f"coded path {label}: the plan carries r")
-        check(xor_mod.launches - x0 == (2 * chunks if coded else 0),
-              f"coded path {label}: xor_words launched twice a chunk on a coded run only")
+        by_design = {k: xor_mod.launches_by_design[k] - by0[k] for k in by0}
+        check(xor_mod.launches - x0 == (2 * chunks if coded else 0)
+              and by_design == ({"encode": chunks, "flat": chunks} if coded
+                                else {"encode": 0, "flat": 0}),
+              f"coded path {label}: xor_words launched once a chunk to encode and once to"
+              f" decode, on a coded run only (got {by_design})")
         check(fused_mod.launches - f0 == chunks,
               f"coded path {label}: the fused kernel launched once a chunk")
         check(res.overflow == 0, f"coded path {label}: no overflow")
@@ -707,13 +801,13 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
                 "shuffle_pairs": res.shuffle_pairs,
                 "replication_bytes": res.replication_bytes,
                 "quantize_exact": res.quantize_exact,
-                "xor_launches": xor_mod.launches - x0,
+                "xor_launches": xor_mod.launches - x0, "xor_launches_by_design": by_design,
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         runs[label] = info
         print(f"coded path {label}: shuffle {res.shuffle_bytes} B in {res.shuffle_rows} rows "
               f"({res.shuffle_pairs} non-local pairs), replication {res.replication_bytes} B, "
               f"quantize_exact {res.quantize_exact}, xor_words launches "
-              f"{info['xor_launches']} | phase A {info['phase_a']:.1f} ms | plan "
+              f"{info['xor_launches']} {by_design} | phase A {info['phase_a']:.1f} ms | plan "
               f"{info['plan']:.1f} ms | phase B {info['phase_b']:.1f} ms | run "
               f"{wall_ms:.1f} ms | peak {info['peak_gb']:.1f} GB", flush=True)
         del job
@@ -752,8 +846,11 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
           flush=True)
     del batch, uncoded, coded, seq, u8, c8, f8
     torch.cuda.empty_cache()
+    by_design = {k: sum(r["xor_launches_by_design"][k] for r in runs.values())
+                 for k in ("encode", "flat")}
     return {"m": CODED_M, "k": CODED_K, "n": n, "runs": runs, "wire_ratio": ratio,
-            "wire_ratio_theory": theory, "int8_rel_err": rel}, launches
+            "wire_ratio_theory": theory, "int8_rel_err": rel,
+            "launches_by_design": by_design}, launches
 
 
 def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapReduceConfig,
@@ -1345,7 +1442,7 @@ def main(argv=None) -> int:
     from repro_torch.core.stats_provider import CountMinParams
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_shuffle import ops as cs_ops
-    from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
+    from repro_torch.kernels.coded_shuffle.ref import encode_packets_ref, xor_words_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -1465,10 +1562,11 @@ def main(argv=None) -> int:
         fused_ops.fused_shuffle_reduce = probe.real
     check(len(probe.chunks) > 0 and bool(segment), "probe run reached the fused kernel")
     for c in probe.chunks:
+        shifted = ", padded/shifted stream: same bits" if c["pad_shift_invariant"] else ""
         print(f"kernel fused_shuffle_reduce {tuple(c['shape'])} -> {c['segments']} "
-              f"segments, {c['valid_rows']} valid rows: bitwise ok, normals rel err "
-              f"{c['float_rel_err']:.2e} | kernel {c['ms']:.4f} ms | plain "
-              f"{c['plain_ms']:.4f} ms | index_add_ {c['library_ms']:.4f} ms | "
+              f"segments, {c['valid_rows']} valid rows: sums and counts bitwise ok, normals "
+              f"rel err {c['float_rel_err']:.2e}{shifted} | kernel {c['ms']:.4f} ms | plain "
+              f"{c['plain_ms']:.4f} ms | index_add_ + bincount {c['library_ms']:.4f} ms | "
               f"bound {c['bound_ms']:.4f} ms", flush=True)
     print(f"kernel segment_reduce {tuple(segment['shape'])} -> {segment['segments']} "
           f"segments, {segment['valid_rows']} valid rows (chunk 0, rank order): bitwise "
@@ -1694,17 +1792,25 @@ def main(argv=None) -> int:
           f"{pull['exact_bytes'] / 1e6:.2f} MB", flush=True)
     record["sketch_path"] = {"runs": sketch_runs, "hatch": hatch_run, "pull": pull}
 
-    # ---- The coded path (m = 8, K = 2^20 of batch 0), then kernel phase 5:
-    # the XOR kernel at its chunk-0 encode shape.
+    # ---- The coded path (m = 8, K = 2^20 of batch 0), then kernel phase 7:
+    # the XOR kernel's two instances at the coded path's chunk-0 shape.
     coded_n = clustering.recommended_num_clusters(CODED_M)
     record["coded_path"], launches["coded"] = coded_path(
         work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, coded_n)
     n_rep = -(-CODED_K // (CODED_M - 1))
     cap2 = min(n_rep, record["coded_path"]["runs"]["coded"]["chunk_caps"][0])
-    xor = xor_phase(cs_ops, xor_words_ref, CODED_M, cap2, V + 2, dev)
-    print(f"kernel xor_words {tuple(xor['shape'])} (chunk 0's encode): bitwise ok | kernel "
-          f"{xor['ms']:.4f} ms | plain = bitwise_xor {xor['plain_ms']:.4f} ms | swap copy "
-          f"{xor['swap_ms']:.4f} ms | bound {xor['bound_ms']:.4f} ms", flush=True)
+    xor = xor_phase(cs_ops, encode_packets_ref, xor_words_ref, CODED_M, cap2, V + 2, dev)
+    fx = xor["flat"]
+    print(f"kernel xor_words encode {tuple(xor['shape'])} (chunk 0; {xor['packet_share']:.4f} "
+          f"of the words in packets): bitwise ok | kernel {xor['ms']:.4f} ms | plain "
+          f"{xor['plain_ms']:.4f} ms | the three passes it replaced (swap copy, flat XOR, "
+          f"masked_fill_) {xor['three_pass_ms']:.4f} ms | bitwise_xor on the strided swap + "
+          f"masked_fill_ {xor['library_ms']:.4f} ms | bound {xor['bound_ms']:.4f} ms",
+          flush=True)
+    print(f"kernel xor_words flat {tuple(fx['shape'])}: bitwise ok | kernel {fx['ms']:.4f} ms | "
+          f"bitwise_xor {fx['library_ms']:.4f} ms (kernel / bitwise_xor "
+          f"{fx['ms'] / fx['library_ms']:.3f}) | plain {fx['plain_ms']:.4f} ms | bound "
+          f"{fx['bound_ms']:.4f} ms ({fx['bound_ms'] / fx['ms']:.3f} of it)", flush=True)
     record["xor_words"] = xor
     torch.cuda.empty_cache()
     record["launches"] = launches
@@ -1806,8 +1912,10 @@ def main(argv=None) -> int:
          "ms": sketch_path["ms"], "plain_ms": sketch_path["plain_ms"],
          "bound_ms": sketch_path["bound_ms"], "bound_by": sketch_path["bound_by"],
          "library_ms": sketch_path["library_ms"]},
-        # One main-path run launches the fused kernel once per chunk: its
-        # times are the sums over those launches.
+        # One main-path run calls the fused kernel once per chunk (each call
+        # two launches: segment starts, tiles): its times are the sums over
+        # those calls. The library call is index_add_ for the sums plus
+        # bincount for the counts.
         {"name": "fused_shuffle_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_shuffle_reduce.cu",
          "replaces": "src/repro/kernels/fused_shuffle_reduce/fused_shuffle_reduce.py:75",
@@ -1826,15 +1934,24 @@ def main(argv=None) -> int:
          "max_abs_err": segment["max_abs_err"], "ms": segment["ms"],
          "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
          "bound_by": segment["bound_by"], "library_ms": segment["library_ms"]},
-        # The coded path launches it twice a chunk (encode, decode) on each
-        # coded run; its times are at chunk 0's encode shape. The plain
-        # version is torch.bitwise_xor, which is also the library call.
+        # The coded path launches it twice a chunk on each coded run: the
+        # encode instance, then the flat one to decode. Its times are the
+        # encode's at chunk 0's shape; its library time is bitwise_xor on
+        # the strided swap plus masked_fill_ (no one call computes the
+        # masked swap-XOR). The flat instance's own numbers (at chunk 0's
+        # (m^3 cap2, W) words; its library call is bitwise_xor) are the
+        # flat_* keys.
         {"name": "xor_words", "route": "cuda",
          "source": "src/repro_torch/csrc/xor_words.cu",
          "replaces": "src/repro/kernels/coded_shuffle/coded_shuffle.py:40",
-         "launches": total_launches("xor_words"), "max_abs_err": xor["max_abs_err"],
+         "launches": total_launches("xor_words"),
+         "launches_by_design": record["coded_path"]["launches_by_design"],
+         "max_abs_err": max(xor["max_abs_err"], fx["max_abs_err"]),
          "ms": xor["ms"], "plain_ms": xor["plain_ms"], "bound_ms": xor["bound_ms"],
-         "bound_by": xor["bound_by"], "library_ms": xor["library_ms"]},
+         "bound_by": xor["bound_by"], "library_ms": xor["library_ms"],
+         "three_pass_ms": xor["three_pass_ms"], "flat_ms": fx["ms"],
+         "flat_plain_ms": fx["plain_ms"], "flat_library_ms": fx["library_ms"],
+         "flat_bound_ms": fx["bound_ms"]},
         # The measured path launches it to calibrate the tick unit; its time
         # is one launch of a burst of back-to-back launches. Its error is the
         # largest |stamp interval - CUDA event interval| in ms over the spins.

@@ -490,8 +490,10 @@ def _reduce_chunk(rv, rc, rm, rank_of_cluster, num_clusters: int, reduce_op: str
     """The "sort" + "run" of one received chunk, every slot at once.
 
     ``sum``: pairs ordered by rank go through the fused gather +
-    segment-sum kernel in one pass (float32 sums), and the result is
-    un-permuted back to cluster ids with one gather. ``max`` / ``count``:
+    segment-sum kernel in one pass (float32 sums, and each rank's pair
+    count from its row range), and both are un-permuted back to cluster
+    ids with one gather each (``rank_of_cluster`` is a permutation, and
+    every valid pair's rank is its cluster's). ``max`` / ``count``:
     :func:`_segment_reduce`. Also the whole of the sequential path's
     reduce: its input is one chunk holding every pair, and each cluster's
     pairs reach the kernel in the same relative order as in the pipelined
@@ -500,11 +502,10 @@ def _reduce_chunk(rv, rc, rm, rank_of_cluster, num_clusters: int, reduce_op: str
     if reduce_op != "sum":
         return _segment_reduce(rc, rv, rm, num_clusters, reduce_op)
     order, rank_sorted = _rank_order(rc, rm, rank_of_cluster, num_clusters)
-    out_by_rank = fused_ops.fused_shuffle_reduce(rv, order, rank_sorted, num_clusters)
-    out = out_by_rank[:, rank_of_cluster.long()]
-    seg = torch.where(rm, rc.long(), num_clusters)
-    counts = _segment_sum(rm.to(torch.float32)[..., None], seg, num_clusters)[..., 0]
-    return out, counts
+    out_by_rank, counts_by_rank = fused_ops.fused_shuffle_reduce(
+        rv, order, rank_sorted, num_clusters)
+    by_cluster = rank_of_cluster.long()
+    return out_by_rank[:, by_cluster], counts_by_rank[:, by_cluster]
 
 
 def _wire_payload_dtype(quantize: Optional[str], value_dtype: torch.dtype) -> torch.dtype:
@@ -771,7 +772,7 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     The shuffle then sends one XOR **multicast packet** per slot pair
     ``{d, q}`` instead of two unicast slabs: sender ``s`` XORs its
     (partner=d → dst=q) slab with its (partner=q → dst=d) slab word by word
-    (:func:`~repro_torch.kernels.coded_shuffle.ops.xor_words`). Receiver
+    (:func:`~repro_torch.kernels.coded_shuffle.ops.encode_packets`). Receiver
     ``d`` rebuilds the first slab from its replicas with the *identical*
     stable counting sort and XORs it out, which leaves the slab addressed
     to it, bit for bit. Pairs whose partner is their destination arrive
@@ -886,7 +887,8 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
 
     # ---- Per-chunk packets X[s, d, q] = S[s, p=d→q] ⊕ S[s, p=q→d], one
     # multicast per unordered pair {d, q} (both copies carry the same
-    # packet; accounted once below).
+    # packet; accounted once below), zero where there is no pair: one
+    # launch of the encode instance a chunk.
     ids = torch.arange(m, device=dev)
     a0, a1, a2 = ids[:, None, None], ids[None, :, None], ids[None, None, :]
     pair_ok = (a1 != a2) & (a1 != a0) & (a2 != a0)       # (s, d, q)
@@ -895,18 +897,15 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     off = 0
     for c in range(chunks):
         size = m * m * m * cap2[c]
-        slab = s_aug[0, off:off + size]
-        swapped = slab.view(m, m, m, cap2[c], w_row).transpose(1, 2).contiguous()
-        x = cs_ops.xor_words(slab, swapped.view(size, w_row)).view(m, m, m, cap2[c], w_row)
-        del swapped
-        send_pkts.append(x.masked_fill_(~pair_ok[..., None, None], 0))
+        slab = s_aug[0, off:off + size].view(m, m, m, cap2[c], w_row)
+        send_pkts.append(cs_ops.encode_packets(slab))
         # Packet {d, q} rows = the larger of its two slabs; each unordered
         # pair appears twice in the ordered sum, hence the halving.
         cnt = s_bm[0, off:off + size].view(m, m, m, cap2[c]).sum(dim=3)
         wire_rows = wire_rows + torch.where(
             pair_ok, torch.maximum(cnt, cnt.transpose(1, 2)), 0).sum() // 2
         off += size
-    del s_aug, s_bm, slab, x
+    del s_aug, s_bm, slab
     pairs_nonlocal = (valid & (dest != me)).sum()
 
     # ---- Double-buffered decode → reduce walk (the §4.4 shape: chunk

@@ -8,11 +8,14 @@ Each subpackage has:
 
   histogram            — phase A's per-slot K^(i) (paper §4.1)
   sketch_hist          — phase A's count-min grid under stats="sketch"
-  fused_shuffle_reduce — phase B's gather + sorted segment-sum (§4.4)
+  fused_shuffle_reduce — phase B's gather + sorted segment-sum (§4.4) and
+                         each segment's pair count
   segment_reduce       — sorted segment-sum without the gather (its own
                          entry point; no engine path launches it)
   coded_shuffle        — XOR of word slabs: the coded shuffle's packet
-                         encode and decode (shuffle_replication=2)
+                         encode (one instance: slab ^ its swap, masked)
+                         and decode (the flat instance;
+                         shuffle_replication=2)
   wave_timer           — %globaltimer stamps (read_ticks) and copy + stamp
                          (stamp_through): the measured executor's wave
                          clocks on the sharded backend; ref.py also holds

@@ -1,9 +1,11 @@
 """Public wrapper of the coded-shuffle XOR kernel + payload word packing.
 
-``xor_words`` is the multicast encode *and* decode of the coded shuffle:
-senders XOR the two destination slabs of a multicast pair into one
-packet; receivers XOR the packet against the slab they rebuild from
-their replicas. CPU tensors run the plain version; CUDA tensors launch
+Two instances of one XOR word kernel carry the coded shuffle.
+``encode_packets`` is the multicast encode: each sender XORs the two
+destination slabs of every multicast pair into one packet, and blocks
+without a pair are zero. ``xor_words`` is the flat XOR, the decode:
+receivers XOR the packet against the slab they rebuild from their
+replicas. CPU tensors run the plain versions; CUDA tensors launch
 ``csrc/xor_words.cu`` or raise.
 
 The packing helpers give the engine one word-level wire format: float
@@ -20,12 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
-from repro_torch.kernels.coded_shuffle.xor_words import xor_words_cuda
+from repro_torch.kernels.coded_shuffle.ref import encode_packets_ref, xor_words_ref
+from repro_torch.kernels.coded_shuffle.xor_words import encode_packets_cuda, xor_words_cuda
 
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per launch, never for the plain version on the CPU.
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# +1 per launch, never for the plain versions on the CPU; and the same
+# launches by instance.
 launches = 0
+launches_by_design = {"encode": 0, "flat": 0}
 
 _BYTES_PER_WORD = 4
 _WORD_DTYPES = (torch.int32, torch.uint32)
@@ -36,8 +40,8 @@ _LANE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 def xor_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise ``a ^ b`` over ``(N, W)`` int32/uint32 word slabs.
 
-    CUDA tensors launch the kernel once over all ``N * W`` words (counted
-    in this module's ``launches``); both must be contiguous.
+    CUDA tensors launch the kernel's flat instance once over all ``N * W``
+    words (counted in this module's ``launches``); both must be contiguous.
     """
     if a.device.type == "cpu" and b.device.type == "cpu":
         return xor_words_ref(a, b)
@@ -60,9 +64,47 @@ def xor_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(a.device):
         xor_words_cuda(a, b, out)
+    _count("flat")
+    return out
+
+
+def encode_packets(slab: torch.Tensor) -> torch.Tensor:
+    """The coded packets of one chunk: ``x[s, d, q] = slab[s, d, q] ^ slab[s,
+    q, d]`` where ``d != q`` and neither is ``s``, else 0.
+
+    ``slab`` is the ``(m, m, m, cap, W)`` int32/uint32 spill (sender,
+    partner, destination, row, word). CUDA slabs (contiguous) launch the
+    kernel's encode instance once (counted in ``launches``); it reads each
+    packet's two blocks once and writes no swapped copy.
+    """
+    if slab.device.type == "cpu":
+        return encode_packets_ref(slab)
+    if slab.device.type != "cuda":
+        raise ValueError(f"encode_packets needs a CUDA (or CPU) slab, got {slab.device}")
+    if slab.dim() != 5 or not slab.shape[0] == slab.shape[1] == slab.shape[2]:
+        raise ValueError(f"encode_packets needs an (m, m, m, cap, W) slab, got"
+                         f" {tuple(slab.shape)}")
+    if slab.dtype not in _WORD_DTYPES:
+        raise TypeError(f"encode_packets needs int32 or uint32 words, got {slab.dtype}")
+    m = slab.shape[0]
+    if m * m * (m + 1) // 2 > 65535:
+        raise ValueError(f"encode_packets takes at most 50 slots (the kernel's grid has"
+                         f" one row a sender and pair, at most 65535), got m={m}")
+    if not slab.is_contiguous():
+        raise ValueError("encode_packets needs a contiguous slab")
+    out = torch.empty_like(slab)
+    if slab.numel() == 0:
+        return out
+    with torch.cuda.device(slab.device):
+        encode_packets_cuda(slab, out)
+    _count("encode")
+    return out
+
+
+def _count(design: str) -> None:
     global launches
     launches += 1
-    return out
+    launches_by_design[design] += 1
 
 
 def packed_width(v_dim: int, dtype: torch.dtype) -> int:

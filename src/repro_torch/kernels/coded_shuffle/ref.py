@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the XOR word kernel."""
+"""Plain PyTorch versions of the XOR word kernel's two instances."""
 
 import torch
 
@@ -14,3 +14,20 @@ def xor_words_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f"xor_words needs matching operands, got {tuple(a.shape)}/{a.dtype}"
             f" vs {tuple(b.shape)}/{b.dtype}")
     return torch.bitwise_xor(a.view(torch.int32), b.view(torch.int32)).view(a.dtype)
+
+
+def pair_ok(m: int, device=None) -> torch.Tensor:
+    """``(m, m, m)`` bool: block ``(s, d, q)`` carries a packet, i.e. ``d != q``
+    and neither is the sender ``s``."""
+    ids = torch.arange(m, device=device)
+    s, d, q = ids[:, None, None], ids[None, :, None], ids[None, None, :]
+    return (d != q) & (d != s) & (q != s)
+
+
+def encode_packets_ref(slab: torch.Tensor) -> torch.Tensor:
+    """The coded packets of one chunk's ``(m, m, m, ...)`` word slab:
+    ``x[s, d, q] = slab[s, d, q] ^ slab[s, q, d]`` where :func:`pair_ok`,
+    else 0. int32/uint32 words; returns a new slab of the same shape."""
+    words = slab.view(torch.int32)
+    ok = pair_ok(slab.shape[0], slab.device).view(*slab.shape[:3], *(1,) * (slab.dim() - 3))
+    return torch.where(ok, words ^ words.transpose(1, 2), 0).view(slab.dtype)

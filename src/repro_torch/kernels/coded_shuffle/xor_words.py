@@ -11,21 +11,38 @@ from repro_torch.kernels import _build
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("xor_words").xor_words_i32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = _build.load("xor_words")
+    flat, encode = lib.xor_words_i32, lib.xor_encode_packets_i32
+    flat.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_void_p]
+    encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p]
+    flat.restype = encode.restype = ctypes.c_int
+    return flat, encode
 
 
 def xor_words_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel: ``out = a ^ b`` over the tensors' words.
+    """Launch the flat instance: ``out = a ^ b`` over the tensors' words.
 
     Shapes, types, device and contiguity are the caller's to check
     (``ops.xor_words``). Raises if the launch is refused.
     """
-    rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-                  torch.cuda.current_stream(a.device).cuda_stream)
+    rc = _entries()[0](a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                       torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"xor_words kernel launch failed: cudaError {rc}")
+
+
+def encode_packets_cuda(slab: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the encode instance over an ``(m, m, m, ...)`` word slab into
+    ``out`` of its shape (every word written).
+
+    Shapes, types, device and contiguity are the caller's to check
+    (``ops.encode_packets``). Raises if the launch is refused.
+    """
+    m = slab.shape[0]
+    rc = _entries()[1](slab.data_ptr(), out.data_ptr(), m, slab.numel() // m ** 3,
+                       torch.cuda.current_stream(slab.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"xor_words encode kernel launch failed: cudaError {rc}")

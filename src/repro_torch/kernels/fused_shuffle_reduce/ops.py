@@ -2,10 +2,13 @@
 
 ``fused_shuffle_reduce`` is the Reduce "sort" + "run" of one pipeline
 chunk for every slot at once: gather each slot's received pairs through
-the schedule's sort order and segment-sum them per operation cluster.
+the schedule's sort order and segment-sum them per operation cluster,
+and count each cluster's pairs on the way.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -18,7 +21,8 @@ from repro_torch.kernels.fused_shuffle_reduce.ref import (
 
 
 # Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per launch, never for the plain version on the CPU.
+# +1 per call (its two kernels, segment_starts and reduce_tiles), never for
+# the plain version on the CPU.
 launches = 0
 
 
@@ -27,13 +31,14 @@ def fused_shuffle_reduce(
     gather_idx: torch.Tensor,  # (m, N) int32 sort order into ``values``
     seg_ids: torch.Tensor,     # (m, N) int32 segment per sorted stream row
     num_segments: int,
-) -> torch.Tensor:
-    """Gather-by-order + sorted segment-sum, fused. Returns (m, S, V) f32.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather-by-order + sorted segment-sum, fused. Returns ``(out (m, S, V),
+    counts (m, S))``, both float32: the sums and the rows of each segment.
 
     ``seg_ids`` must be non-decreasing along each row; ids outside ``[0,
     num_segments)`` are padding. CPU tensors run the plain version; CUDA
-    tensors launch ``csrc/fused_shuffle_reduce.cu`` (one launch for all
-    slots, counted in this module's ``launches``) or raise.
+    tensors launch ``csrc/fused_shuffle_reduce.cu`` (one call for all
+    slots, counted once in this module's ``launches``) or raise.
     """
     if values.device.type == "cpu":
         return fused_gather_segment_reduce_ref(values, gather_idx, seg_ids, num_segments)
@@ -60,13 +65,13 @@ def fused_shuffle_reduce(
         raise ValueError(
             f"fused_shuffle_reduce supports 1..65535 slots and 1..2^31-1"
             f" segments, got m={m}, num_segments={num_segments}")
-    if n == 0 or v == 0:
-        return torch.zeros((m, num_segments, v), dtype=torch.float32,
-                           device=values.device)
     out = torch.empty((m, num_segments, v), dtype=torch.float32, device=values.device)
+    counts = torch.empty((m, num_segments), dtype=torch.float32, device=values.device)
+    if n == 0:
+        return out.zero_(), counts.zero_()
     with torch.cuda.device(values.device):
-        fused_gather_segment_reduce_cuda(values, gather_idx, seg_ids, out)
+        fused_gather_segment_reduce_cuda(values, gather_idx, seg_ids, out, counts)
     global launches
     launches += 1
-    return out
+    return out, counts
 

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import mapreduce as tmr
 from repro_torch.core import schedule_cache as tsc
 from repro_torch.kernels.coded_shuffle import ops as cs_ops
+from repro_torch.kernels.coded_shuffle.ref import encode_packets_ref
 
 
 def _identity(batch):
@@ -52,6 +53,56 @@ def test_xor_plain_matches_pallas(n, w, word):
     want = np.asarray(xor_words_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
     assert got.dtype == getattr(torch, word)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("m", [3, 4, 8])
+@pytest.mark.parametrize("cap,w", [(1, 1), (5, 13), (37, 5)])
+@pytest.mark.parametrize("word", ["int32", "uint32"])
+def test_encode_plain_matches_reference_encode(m, cap, w, word):
+    """The encode instance's plain version against the reference's encode of
+    each sender: Pallas XOR of the slab and its (partner, dst) swap in
+    interpret mode, then ``jnp.where(pair_ok, x, 0)``, bit for bit."""
+    import jax.numpy as jnp
+
+    from repro.kernels.coded_shuffle.coded_shuffle import xor_words_pallas
+
+    rng = np.random.default_rng(m * 100 + cap + w)
+    slab = _words(rng, (m, m, m, cap, w), word)
+    got = cs_ops.encode_packets(torch.from_numpy(slab))
+    assert got.dtype == getattr(torch, word) and got.shape == slab.shape
+    dd, qq = np.arange(m)[:, None], np.arange(m)[None, :]
+    for me in range(m):
+        one = jnp.asarray(slab[me])
+        x = xor_words_pallas(one.reshape(-1, w), jnp.swapaxes(one, 0, 1).reshape(-1, w),
+                             interpret=True).reshape(m, m, cap, w)
+        pair_ok = (dd != qq) & (dd != me) & (qq != me)
+        want = np.asarray(jnp.where(jnp.asarray(pair_ok)[:, :, None, None], x, 0))
+        np.testing.assert_array_equal(got[me].numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("cap,w", [(1, 1), (78, 13), (79, 13), (256, 4), (257, 4),
+                                   (4096, 5)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_encode_kernel_matches_plain(m, cap, w, offset):
+    """At blocks around one CTA's tile (256 int4 = 1024 words: 78 x 13 and
+    79 x 13 straddle it, 256 x 4 fills it) and slab starts 0, 4, 8 and 12
+    bytes past a 16-byte boundary (the vector path and the word path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(m + cap + w + offset)
+    size = m ** 3 * cap * w
+    raw = rng.integers(0, 2 ** 32, size + offset, dtype=np.uint32).view(np.int32)
+    buf = torch.from_numpy(raw).cuda()
+    slab = buf[offset:].view(m, m, m, cap, w)
+    before = dict(cs_ops.launches_by_design)
+    got = cs_ops.encode_packets(slab)
+    torch.cuda.synchronize()
+    assert cs_ops.launches_by_design["encode"] == before["encode"] + 1
+    assert cs_ops.launches_by_design["flat"] == before["flat"]
+    assert torch.equal(got, encode_packets_ref(slab))
+    assert torch.equal(cs_ops.encode_packets(slab.view(torch.uint32)).view(torch.int32), got)
 
 
 _LANE_NP = {1: np.uint8, 2: np.int16, 4: np.int32}

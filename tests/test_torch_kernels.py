@@ -11,10 +11,15 @@ the CPU tests only, so the ``gpu`` cases also run where JAX is absent
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro_torch.kernels.coded_shuffle import ops as cs_ops
 from repro_torch.kernels.coded_shuffle.ref import xor_words_ref
 from repro_torch.kernels.fused_shuffle_reduce import ops as fused_ops
+from repro_torch.kernels.fused_shuffle_reduce.fused_shuffle_reduce import (
+    TILE_ROWS,
+    tile_plan,
+)
 from repro_torch.kernels.fused_shuffle_reduce.ref import fused_gather_segment_reduce_ref
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.histogram.ref import histogram_ref
@@ -141,10 +146,12 @@ def test_fused_plain_matches_pallas(n_rows, num_segments, v, pad, kind):
     m = 2
     values, idx, seg = _fused_inputs(
         np.random.default_rng(n_rows + v), m, n_rows, num_segments, v, kind, pad)
-    got = fused_ops.fused_shuffle_reduce(
+    got, counts = fused_ops.fused_shuffle_reduce(
         torch.from_numpy(values), torch.from_numpy(idx), torch.from_numpy(seg),
-        num_segments).numpy()
+        num_segments)
+    got = got.numpy()
     assert got.shape == (m, num_segments, v) and got.dtype == np.float32
+    assert counts.shape == (m, num_segments) and counts.dtype == torch.float32
     for i in range(m):
         want = np.asarray(fused_gather_segment_reduce_pallas(
             jnp.asarray(values[i]), jnp.asarray(idx[i]), jnp.asarray(seg[i]),
@@ -153,6 +160,149 @@ def test_fused_plain_matches_pallas(n_rows, num_segments, v, pad, kind):
             np.testing.assert_array_equal(got[i], want)
         else:
             np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+
+
+def _skewed_seg(rng, m, n_rows, num_segments, pad_rows, hot_share):
+    """Sorted ids where one segment holds ``hot_share`` of the valid rows,
+    a few negative ids lead, ids past ``num_segments`` pad the tail, and
+    some segments are empty."""
+    valid = n_rows - pad_rows
+    seg = np.empty((m, n_rows), np.int64)
+    for i in range(m):
+        hot = rng.integers(0, num_segments)
+        hot -= hot % 7 == 3
+        ids = rng.integers(0, num_segments, size=valid)
+        ids[rng.random(valid) < hot_share] = hot
+        ids[ids % 7 == 3] = hot          # every id = 3 (mod 7) stays empty
+        lead = min(5, valid // 2)
+        ids[:lead] = -1 - rng.integers(0, 3, size=lead)
+        seg[i] = np.concatenate([np.sort(ids), num_segments + rng.integers(0, 3, pad_rows)])
+    return seg.astype(np.int32)
+
+
+COUNT_CASES = [
+    # (rows, segments, padding rows, hot share): a segment with more than
+    # half the rows, segments many tiles long, empty segments, padding.
+    (5000, 10, 300, 0.6),
+    (3 * TILE_ROWS + 17, 4, 0, 0.9),
+    (40 * TILE_ROWS, 3, 2 * TILE_ROWS + 5, 0.0),
+    (700, 50, 650, 0.0),
+]
+
+
+@pytest.mark.parametrize("n_rows,num_segments,pad,hot", COUNT_CASES)
+def test_fused_plain_counts_match_reference(n_rows, num_segments, pad, hot):
+    import jax
+    import jax.numpy as jnp
+
+    m, v = 2, 3
+    rng = np.random.default_rng(n_rows + num_segments)
+    seg = _skewed_seg(rng, m, n_rows, num_segments, pad, hot)
+    values = rng.integers(-3, 4, size=(m, n_rows, v)).astype(np.float32)
+    idx = np.stack([rng.permutation(n_rows) for _ in range(m)]).astype(np.int32)
+    out, counts = fused_ops.fused_shuffle_reduce(
+        torch.from_numpy(values), torch.from_numpy(idx), torch.from_numpy(seg), num_segments)
+    for i in range(m):
+        ok = (seg[i] >= 0) & (seg[i] < num_segments)
+        want = np.asarray(jax.ops.segment_sum(
+            jnp.asarray(ok, jnp.float32), jnp.asarray(np.where(ok, seg[i], 0)), num_segments))
+        np.testing.assert_array_equal(counts[i].numpy(), want)
+        exact, _ = _exact_segment_sums(torch.from_numpy(values[i:i + 1]),
+                                       torch.from_numpy(idx[i:i + 1]),
+                                       torch.from_numpy(seg[i:i + 1]), num_segments)
+        np.testing.assert_array_equal(out[i].numpy(), exact[0].numpy())
+    assert counts.sum() == ((seg >= 0) & (seg < num_segments)).sum()
+
+
+def _plan_rows(seg, num_segments, tile_rows):
+    """Every row of the tile plan, with the checks of its layout."""
+    plan = tile_plan(seg, num_segments, tile_rows)
+    rows = []
+    for block, which, s, start, end in plan:
+        lo = int(np.searchsorted(seg, s, side="left"))
+        assert (start - lo) % tile_rows == 0 and 0 < end - start <= tile_rows
+        assert block * tile_rows <= start < (block + 1) * tile_rows
+        assert which == (0 if seg[block * tile_rows] == s else 1)
+        assert (seg[start:end] == s).all()
+        rows.extend(range(start, end))
+    return plan, rows
+
+
+@pytest.mark.parametrize("n_rows,num_segments,pad,hot", COUNT_CASES)
+def test_tile_plan_covers_every_valid_row_once(n_rows, num_segments, pad, hot):
+    seg = _skewed_seg(np.random.default_rng(n_rows), 1, n_rows, num_segments, pad, hot)[0]
+    for tile_rows in (32, 96, TILE_ROWS):
+        plan, rows = _plan_rows(seg, num_segments, tile_rows)
+        valid = np.flatnonzero((seg >= 0) & (seg < num_segments))
+        assert sorted(rows) == valid.tolist()
+        # At most one tile start of each segment, and at most two multi-tile
+        # partials ("which" 0 and 1), in a block.
+        keys = [(b, s) for b, _, s, _, _ in plan]
+        assert len(keys) == len(set(keys))
+
+
+@given(st.lists(st.integers(-2, 12), min_size=1, max_size=400),
+       st.sampled_from([32, 64, 160]))
+@settings(max_examples=60, deadline=None)
+def test_tile_plan_hypothesis(ids, tile_rows):
+    seg = np.sort(np.asarray(ids, np.int32))
+    num_segments = 10
+    _, rows = _plan_rows(seg, num_segments, tile_rows)
+    valid = np.flatnonzero((seg >= 0) & (seg < num_segments))
+    assert sorted(rows) == valid.tolist()
+
+
+def _tiled_sums(values, idx, seg, num_segments, tile_rows=TILE_ROWS):
+    """The kernel's float32 arithmetic, in numpy, for one slot: lane j of a
+    tile adds rows start + j, + 32, ... in order; a shuffle-down tree
+    (16, 8, 4, 2, 1) leaves the tile's sum in lane 0; a segment adds its
+    tiles' sums in tile order."""
+    v = values.shape[1]
+    rows = values[idx]
+    out = np.zeros((num_segments, v), np.float32)
+    tiles = {}
+    for _, _, s, start, end in tile_plan(seg, num_segments, tile_rows):
+        chunk = rows[start:end]
+        lanes = np.zeros((32, v), np.float32)
+        for i in range(0, end - start, 32):
+            part = chunk[i:i + 32]
+            lanes[:len(part)] = lanes[:len(part)] + part
+        for offset in (16, 8, 4, 2, 1):
+            lanes[:32 - offset] = lanes[:32 - offset] + lanes[offset:]
+        tiles.setdefault(s, []).append((start, lanes[0].copy()))
+    for s, parts in tiles.items():
+        acc = None
+        for _, p in sorted(parts, key=lambda t: t[0]):
+            acc = p if acc is None else acc + p
+        out[s] = acc
+    return out
+
+
+def test_tiled_sums_emulation_is_close_to_exact():
+    rng = np.random.default_rng(5)
+    n, num_segments, v = 3000, 4, 3
+    seg = _skewed_seg(rng, 1, n, num_segments, 100, 0.7)[0]
+    values = rng.standard_normal((n, v)).astype(np.float32)
+    idx = rng.permutation(n).astype(np.int32)
+    got = _tiled_sums(values, idx, seg, num_segments, tile_rows=64)
+    exact, scale = _exact_segment_sums(torch.from_numpy(values[None]),
+                                       torch.from_numpy(idx[None]),
+                                       torch.from_numpy(seg[None]), num_segments)
+    assert (np.abs(got - exact[0].numpy()) <= 1e-5 * scale[0].numpy()).all()
+
+
+def _repadded(values, idx, seg, num_segments, lead, extra):
+    """The same streams with ``lead`` padding rows (id -1) in front, whose
+    values are appended to the table, and ``extra`` padding rows behind."""
+    m, n, v = values.shape
+    dev = values.device
+    values2 = torch.cat([values, torch.ones((m, lead + extra, v), device=dev)], dim=1)
+    idx2 = torch.cat([torch.full((m, lead), n, dtype=torch.int32, device=dev), idx,
+                      torch.zeros((m, extra), dtype=torch.int32, device=dev)], dim=1)
+    seg2 = torch.cat([torch.full((m, lead), -1, dtype=torch.int32, device=dev), seg,
+                      torch.full((m, extra), num_segments, dtype=torch.int32, device=dev)],
+                     dim=1)
+    return values2, idx2, seg2
 
 
 @pytest.mark.gpu
@@ -164,10 +314,11 @@ def test_fused_kernel_matches_plain(n_rows, num_segments, v, pad):
         values, idx, seg = (torch.from_numpy(a).to(dev) for a in _fused_inputs(
             rng, 3, n_rows, num_segments, v, kind, pad))
         before = fused_ops.launches
-        got = fused_ops.fused_shuffle_reduce(values, idx, seg, num_segments)
+        got, counts = fused_ops.fused_shuffle_reduce(values, idx, seg, num_segments)
         torch.cuda.synchronize()
         assert fused_ops.launches == before + 1
-        want = fused_gather_segment_reduce_ref(values, idx, seg, num_segments)
+        want, want_counts = fused_gather_segment_reduce_ref(values, idx, seg, num_segments)
+        assert torch.equal(counts, want_counts)
         if kind == "int":
             assert torch.equal(got, want)
         else:
@@ -176,13 +327,35 @@ def test_fused_kernel_matches_plain(n_rows, num_segments, v, pad):
             exact, scale = _exact_segment_sums(values, idx, seg, num_segments)
             for out in (got, want):
                 assert ((out.double() - exact).abs() <= 1e-5 * scale).all()
-        # A longer padded slab leaves every segment's sum bit-identical.
-        extra = 777
-        values2 = torch.cat([values, torch.ones_like(values[:, :extra])], dim=1)
-        idx2 = torch.cat([idx, torch.zeros_like(idx[:, :extra])], dim=1)
-        seg2 = torch.cat([seg, torch.full_like(seg[:, :extra], num_segments)], dim=1)
-        assert torch.equal(
-            fused_ops.fused_shuffle_reduce(values2, idx2, seg2, num_segments), got)
+        # A longer padded slab, and the stream shifted by leading padding,
+        # leave every segment's sum bit-identical.
+        for lead, extra in ((0, 777), (5, 0), (TILE_ROWS + 3, 1)):
+            again = fused_ops.fused_shuffle_reduce(
+                *_repadded(values, idx, seg, num_segments, lead, extra), num_segments)
+            assert torch.equal(again[0], got) and torch.equal(again[1], counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,num_segments,pad,hot", COUNT_CASES)
+def test_fused_kernel_hot_segments_match_tile_order(n_rows, num_segments, pad, hot):
+    """On normals the kernel's bits are the tile plan's float32 order, and
+    re-padding or shifting the stream changes none of them."""
+    dev = _cuda()
+    m, v = 2, 11
+    rng = np.random.default_rng(n_rows + 1)
+    seg = _skewed_seg(rng, m, n_rows, num_segments, pad, hot)
+    values = rng.standard_normal((m, n_rows, v)).astype(np.float32)
+    idx = np.stack([rng.permutation(n_rows) for _ in range(m)]).astype(np.int32)
+    vt, it, st_ = (torch.from_numpy(a).to(dev) for a in (values, idx, seg))
+    got, counts = fused_ops.fused_shuffle_reduce(vt, it, st_, num_segments)
+    for i in range(m):
+        np.testing.assert_array_equal(
+            got[i].cpu().numpy(), _tiled_sums(values[i], idx[i], seg[i], num_segments))
+    assert torch.equal(counts, fused_gather_segment_reduce_ref(vt, it, st_, num_segments)[1])
+    for lead, extra in ((1, 0), (31, 4096), (TILE_ROWS, 0)):
+        again, _ = fused_ops.fused_shuffle_reduce(
+            *_repadded(vt, it, st_, num_segments, lead, extra), num_segments)
+        assert torch.equal(again, got)
 
 
 # ---------------------------------------------------------------------------
