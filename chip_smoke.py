@@ -7,19 +7,26 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all at once; ``ptxas -v`` of the flash-attention,
-wave-timer, XOR and fused-reduce libraries is printed, the last two must
-not spill, and the flash library's SASS must hold HGMMA), holds each
-kernel against its plain PyTorch version at the shapes its path gives it
-and times both (the fused reduce's sums and counts at every chunk of a
-real plan, and its sums on normals unchanged by padding appended to or
-put in front of chunk 0's stream; the XOR kernel's encode instance
-beside the three passes it replaced, and its flat instance beside
-``torch.bitwise_xor``), then
+wave-timer, XOR, fused-reduce, histogram and sketch libraries is printed,
+the last four must not spill, the flash library's SASS must hold HGMMA,
+and the SASS of the histogram's and the sketch's mask instances must add
+with native shared integer atomics and hold no compare-and-swap loop),
+holds each kernel against its plain PyTorch version at the shapes its
+path gives it and times both (the histogram and the sketch in both
+instances: the mask on the validity mask, bitwise, and the float one on
+the same 0/1 weights, bitwise, and on random weights within rtol 1e-4,
+each timed as device time from a burst behind a spin and with CUDA
+events around one call, and every pair on one hot id, bitwise; the fused
+reduce's sums and counts at every chunk of a real plan, and its sums on
+normals unchanged by padding appended to or put in front of chunk 0's
+stream; the XOR kernel's encode instance beside the three passes it
+replaced, and its flat instance beside ``torch.bitwise_xor``), then
 drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
 against a numpy oracle:
 
-* the main path: exact statistics, three batches, pipelined == sequential;
+* the main path: exact statistics (the histogram's mask instance on the
+  validity mask), three batches, pipelined == sequential;
 * the reuse path: ``reuse=ReusePolicy()`` over the same three batches
   (batch 0 plans, the others replay the cached plan), then the plan's
   JSON snapshot loaded into a fresh job replays batch 0;
@@ -303,22 +310,46 @@ def ptxas_kernels(report: str) -> dict:
     return kernels
 
 
+def sass_functions(build, name: str) -> dict:
+    """Each kernel function's SASS in library ``name`` (cuobjdump), by its
+    mangled name."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build(name)[name])],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    parts = re.split(r"\n\s*Function : ", sass)[1:]
+    return {part.split("\n", 1)[0].strip(): part for part in parts}
+
+
+def atomics_of(sass: str) -> dict:
+    """Count of each atomic instruction kind (shared ATOMS.*, generic or
+    global ATOM.* and RED.*) in a function's SASS."""
+    counts = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOM|RED)\.[A-Z0-9.]+)", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def ptxas_phase(build) -> dict:
-    """What ``ptxas -v`` said of the four libraries whose kernels were
+    """What ``ptxas -v`` said of the six libraries whose kernels were
     redesigned for Hopper (flash attention's instances, the wave timer's,
     the XOR word kernel's encode and flat instances, the fused reduce's two
-    launches), one line a kernel. The XOR and fused kernels must not spill.
-    The wgmma instance must not spill, must enter with the 168 registers a
-    thread that its setmaxnreg split needs (384 x 168 = 128 x 40 + 256 x
-    232), and its SASS must hold HGMMA (cuobjdump)."""
+    launches, the histogram's and the sketch's mask and float instances),
+    one line a kernel. The XOR, fused, histogram and sketch kernels must not
+    spill. The wgmma instance must not spill, must enter with the 168
+    registers a thread that its setmaxnreg split needs (384 x 168 = 128 x 40
+    + 256 x 232), and its SASS must hold HGMMA (cuobjdump). The histogram's
+    and the sketch's SASS: the count of each kind of atomic a kernel holds;
+    the mask instances (template arguments <uint8, uint32>, ``Ihj``) must
+    add with native integer shared atomics and hold no compare-and-swap."""
     out = {}
-    for name in ("flash_attention", "wave_timer", "xor_words", "fused_shuffle_reduce"):
+    for name in ("flash_attention", "wave_timer", "xor_words", "fused_shuffle_reduce",
+                 "histogram", "sketch_hist"):
         kernels = ptxas_kernels(build.ptxas_report(name))
         check(bool(kernels), f"ptxas reported on {name}.cu")
         for kernel, info in kernels.items():
             print(f"ptxas {name}.cu: {kernel[:72]}: {info}", flush=True)
         out[name] = kernels
-    for name in ("xor_words", "fused_shuffle_reduce"):
+    for name in ("xor_words", "fused_shuffle_reduce", "histogram", "sketch_hist"):
         check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
                   for v in out[name].values()), f"{name}.cu's kernels do not spill")
     wgmma = {k: v for k, v in out["flash_attention"].items() if "flash_fwd_wgmma" in k}
@@ -327,73 +358,158 @@ def ptxas_phase(build) -> dict:
           "the wgmma instance does not spill")
     check(all(v["registers"] * 384 >= 128 * 40 + 256 * 232 for v in wgmma.values()),
           "the wgmma instance enters with the registers its setmaxnreg split needs")
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build("flash_attention")[
-        "flash_attention"])], capture_output=True, text=True, timeout=300, check=True).stdout
+    sass = "".join(sass_functions(build, "flash_attention").values())
     out["hgmma_in_sass"] = sass.count("HGMMA")
     check(out["hgmma_in_sass"] > 0, "the flash library's SASS holds HGMMA")
     print(f"SASS of flash_attention.cu: {out['hgmma_in_sass']} HGMMA instructions", flush=True)
+    out["atomics"] = {}
+    for name in ("histogram", "sketch_hist"):
+        functions = sass_functions(build, name)
+        check(len(functions) == 2, f"{name}.cu holds two kernel instances")
+        for fn, text in functions.items():
+            instance = "mask" if "Ihj" in fn else "float"
+            counts = atomics_of(text)
+            out["atomics"][f"{name}/{instance}"] = counts
+            print(f"SASS of {name}.cu, {instance} instance: atomics {counts}", flush=True)
+            if instance == "mask":
+                shared = sum(c for op, c in counts.items() if op.startswith("ATOMS.")
+                             and ("ADD" in op or "INC" in op))
+                check(shared > 0 and not any("CAS" in op for op in counts),
+                      f"{name}.cu's mask instance adds with native shared integer atomics "
+                      f"and holds no compare-and-swap loop")
     return out
 
 
-def histogram_phase(hist_ops, histogram_ref, ids, w, num_bins, dev):
-    """Kernel vs plain at one shape: bitwise check + times. Returns a dict."""
-    got = hist_ops.histogram(ids, w, num_bins)
-    want = histogram_ref(ids, w, num_bins)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"histogram kernel == plain at {num_bins} bins")
-    m, k = ids.shape
-    # bincount takes no negative ids: out-of-range ids go to one dump bin.
-    flat = torch.where((ids >= 0) & (ids < num_bins),
-                       ids.long() + torch.arange(m, device=dev)[:, None] * num_bins,
-                       m * num_bins).reshape(-1)
-    wf = w.reshape(-1)
-    b, by = bound_ms(m * k * 8 + m * num_bins * 4, m * k)
-    res = {
-        "bins": num_bins,
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: hist_ops.histogram(ids, w, num_bins)),
-        "plain_ms": cuda_ms(lambda: histogram_ref(ids, w, num_bins)),
-        "library_ms": cuda_ms(lambda: torch.bincount(flat, weights=wf,
-                                                     minlength=m * num_bins + 1)),
-        "bound_ms": b,
-        "bound_by": by,
-    }
+# Tolerance of the float instances on real-valued weights: their float
+# atomics add a cell's up to 2^21 terms in another order than the plain
+# version's index_add_, which moves a float32 sum by a few units of its
+# 1e-7 relative precision times the square root of the term count.
+FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3
+
+
+def random_weights(shape, seed: int) -> torch.Tensor:
+    """Uniform [0, 1) float32 weights on the card from a seeded generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.rand(shape, generator=gen, device="cuda")
+
+
+def instance_times(fn, plain, library, nbytes_mask, nbytes_float, ops) -> dict:
+    """Times of both instances of a counting kernel (``fn(weights)``) and its
+    plain version and library call, with each instance's bound."""
+    res = {}
+    for kind, nbytes in (("mask", nbytes_mask), ("float", nbytes_float)):
+        call = fn[kind]
+        dev_ms, host_ms = device_ms(call, launches=50)
+        b, by = bound_ms(nbytes, ops, INT32_OPS_PER_S if kind == "mask" else F32_OPS_PER_S)
+        prefix = "" if kind == "mask" else "float_"
+        res.update({f"{prefix}ms": dev_ms, f"{prefix}host_ms": host_ms,
+                    f"{prefix}event_ms": cuda_ms(call), f"{prefix}bound_ms": b,
+                    f"{prefix}bound_by": by, f"{prefix}library_ms": cuda_ms(library[kind])})
+    res["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
     return res
 
 
-def sketch_phase(sk_ops, sketch_ref, sketch_cells, ids, w, multipliers):
-    """Sketch kernel vs plain at one case: bitwise check + times. Returns a dict.
+def histogram_phase(hist_ops, histogram_ref, ids, valid, num_bins, dev):
+    """Both instances of the histogram kernel against the plain version at one
+    shape: the mask instance on the validity mask and the float instance on
+    the same 0/1 weights, bitwise; the float instance on random weights,
+    within FLOAT_RTOL. Times of each under ``device_ms`` (the path's number)
+    and ``cuda_ms``, with its bound (5 B or 8 B a pair). Returns a dict."""
+    want = histogram_ref(ids, valid, num_bins)
+    got = hist_ops.histogram(ids, valid, num_bins)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"histogram mask instance == plain at {num_bins} bins")
+    w01 = valid.to(torch.float32)
+    check(torch.equal(hist_ops.histogram(ids, w01, num_bins), want),
+          f"histogram float instance on 0/1 weights == plain at {num_bins} bins")
+    del got, w01
+    wr = random_weights(ids.shape, num_bins)
+    want_r = histogram_ref(ids, wr, num_bins)
+    got_r = hist_ops.histogram(ids, wr, num_bins)
+    check(torch.allclose(got_r, want_r, rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
+          f"histogram float instance on random weights within rtol {FLOAT_RTOL} at {num_bins}")
+    rel = float(((got_r - want_r).abs() / want_r.abs().clamp_min(1.0)).max())
+    del got_r, want_r
+    m, k = ids.shape
+    # bincount takes no negative ids: out-of-range and invalid pairs go to a
+    # dump bin (the mask's yardstick counts; the float one weighs).
+    in_range = (ids >= 0) & (ids < num_bins)
+    flat = torch.where(in_range, ids.long() + torch.arange(m, device=dev)[:, None] * num_bins,
+                       m * num_bins).reshape(-1)
+    flat_mask = torch.where(valid.reshape(-1), flat, m * num_bins)
+    wf = wr.reshape(-1)
+    res = {"bins": num_bins, "max_abs_err": err, "float_max_rel_err": rel}
+    res.update(instance_times(
+        {"mask": lambda: hist_ops.histogram(ids, valid, num_bins),
+         "float": lambda: hist_ops.histogram(ids, wr, num_bins)},
+        lambda: histogram_ref(ids, valid, num_bins),
+        {"mask": lambda: torch.bincount(flat_mask, minlength=m * num_bins + 1),
+         "float": lambda: torch.bincount(flat, weights=wf, minlength=m * num_bins + 1)},
+        m * k * 5 + m * num_bins * 4, m * k * 8 + m * num_bins * 4, m * k))
+    return res
+
+
+def hot_bin_phase(hist_ops, histogram_ref, sk_ops, sketch_ref, multipliers, dev) -> None:
+    """Every pair of 4 slots of 2^20 in one bin (one address takes every
+    add): both instances of both kernels equal their plain versions."""
+    ids = torch.full((4, 2 ** 20), 7, dtype=torch.int32, device=dev)
+    for w in (torch.ones(ids.shape, dtype=torch.bool, device=dev),
+              torch.ones(ids.shape, dtype=torch.float32, device=dev)):
+        got = hist_ops.histogram(ids, w, 352)
+        check(torch.equal(got, histogram_ref(ids, w, 352)) and float(got[0, 7]) == 2 ** 20,
+              f"histogram ({w.dtype}) of one hot bin == plain")
+        check(torch.equal(sk_ops.sketch_hist(ids, w, multipliers, SKETCH_WIDTH),
+                          sketch_ref(ids, w, multipliers, SKETCH_WIDTH)),
+              f"sketch ({w.dtype}) of one hot id == plain")
+    print("kernels histogram and sketch_hist, every pair of (4, 2^20) on one id: both "
+          "instances bitwise ok", flush=True)
+
+
+def sketch_phase(sk_ops, sketch_ref, sketch_cells, ids, valid, multipliers):
+    """Both instances of the sketch kernel against the plain version at one
+    case, as :func:`histogram_phase`. Returns a dict.
 
     The library yardstick is one ``torch.bincount`` over the precomputed
     flat ``(slot, row, bin)`` cell of every pair: it excludes the hashing.
     """
-    got = sk_ops.sketch_hist(ids, w, multipliers, SKETCH_WIDTH)
-    want = sketch_ref(ids, w, multipliers, SKETCH_WIDTH)
+    want = sketch_ref(ids, valid, multipliers, SKETCH_WIDTH)
+    got = sk_ops.sketch_hist(ids, valid, multipliers, SKETCH_WIDTH)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(torch.equal(got, want),
-          f"sketch kernel == plain at {len(multipliers)} x {SKETCH_WIDTH}")
+          f"sketch mask instance == plain at {len(multipliers)} x {SKETCH_WIDTH}")
+    check(torch.equal(sk_ops.sketch_hist(ids, valid.to(torch.float32), multipliers,
+                                         SKETCH_WIDTH), want),
+          f"sketch float instance on 0/1 weights == plain at {len(multipliers)} x {SKETCH_WIDTH}")
+    del got
+    wr = random_weights(ids.shape, len(multipliers))
+    want_r = sketch_ref(ids, wr, multipliers, SKETCH_WIDTH)
+    got_r = sk_ops.sketch_hist(ids, wr, multipliers, SKETCH_WIDTH)
+    check(torch.allclose(got_r, want_r, rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
+          f"sketch float instance on random weights within rtol {FLOAT_RTOL}")
+    rel = float(((got_r - want_r).abs() / want_r.abs().clamp_min(1.0)).max())
+    del got_r, want_r
     m, k = ids.shape
     depth = len(multipliers)
-    cells = sketch_cells(ids, multipliers, SKETCH_WIDTH).reshape(-1)
-    wf = w[:, None, :].expand(m, depth, k).reshape(-1)
     size = m * depth * SKETCH_WIDTH
-    lib = torch.bincount(cells, weights=wf, minlength=size).float()
+    cells = sketch_cells(ids, multipliers, SKETCH_WIDTH)
+    cells_mask = torch.where(valid[:, None, :], cells, size).reshape(-1)
+    cells = cells.reshape(-1)
+    wf = wr[:, None, :].expand(m, depth, k).reshape(-1)
+    lib = torch.bincount(cells_mask, minlength=size + 1)[:size].float()
     check(torch.equal(lib.view(m, depth, SKETCH_WIDTH), want), "bincount yardstick == plain")
     del lib
-    b, by = bound_ms(m * k * 8 + size * 4, m * k * depth)
-    res = {
-        "multipliers": [int(a) for a in multipliers],
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: sk_ops.sketch_hist(ids, w, multipliers, SKETCH_WIDTH)),
-        "plain_ms": cuda_ms(lambda: sketch_ref(ids, w, multipliers, SKETCH_WIDTH),
-                            reps=5, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.bincount(cells, weights=wf, minlength=size)),
-        "bound_ms": b,
-        "bound_by": by,
-    }
+    res = {"multipliers": [int(a) for a in multipliers], "max_abs_err": err,
+           "float_max_rel_err": rel}
+    res.update(instance_times(
+        {"mask": lambda: sk_ops.sketch_hist(ids, valid, multipliers, SKETCH_WIDTH),
+         "float": lambda: sk_ops.sketch_hist(ids, wr, multipliers, SKETCH_WIDTH)},
+        lambda: sketch_ref(ids, valid, multipliers, SKETCH_WIDTH),
+        {"mask": lambda: torch.bincount(cells_mask, minlength=size + 1),
+         "float": lambda: torch.bincount(cells, weights=wf, minlength=size)},
+        m * k * 5 + size * 4, m * k * 8 + size * 4, m * k * depth))
     return res
 
 
@@ -734,10 +850,11 @@ def reset_launches(counters) -> None:
     wrapper's count."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-        by_design = getattr(mod, "launches_by_design", None)
-        if by_design is not None:
-            for design in by_design:
-                by_design[design] = 0
+        for split in ("launches_by_design", "launches_by_instance"):
+            by = getattr(mod, split, None)
+            if by is not None:
+                for key in by:
+                    by[key] = 0
 
 
 def read_launches(counters) -> dict:
@@ -874,13 +991,16 @@ def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapRe
 
     def one(job, batch, oracle, what):
         h0, f0 = hist_mod.launches, fused_mod.launches
+        hm0 = hist_mod.launches_by_instance["mask"]
         s0 = wt_ops.stamp_through_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = job.run(batch)
         wall_ms = (time.perf_counter() - t0) * 1e3
         chunks = job.last_plan.waves.num_chunks
-        check(hist_mod.launches - h0 == M, f"{what}: phase A launched the histogram once a slot")
+        check(hist_mod.launches - h0 == M
+              and hist_mod.launches_by_instance["mask"] - hm0 == M,
+              f"{what}: phase A launched the histogram's mask instance once a slot")
         check(fused_mod.launches - f0 == M * chunks,
               f"{what}: phase B launched the fused kernel once a slot and chunk")
         stamps = wt_ops.stamp_through_launches - s0
@@ -1506,43 +1626,50 @@ def main(argv=None) -> int:
     hot = float(oracle0[1].max() / oracle0[1].sum())
     print(f"data: hottest cluster holds {hot:.4f} of the valid pairs", flush=True)
 
-    # ---- Kernel phase 1: histogram, bitwise, at n and at 2^17 bins.
+    # ---- Kernel phase 1: histogram, both instances, at n and at 2^17 bins
+    # (a cluster of CTAs splits the bins).
     keys0, _, valid0 = batch0
     ids = torch.as_tensor(work.cluster_np, device=dev)[
         torch.as_tensor(kidx0, device=dev).long()].to(torch.int32)
-    w = valid0.to(torch.float32)
-    hist_main = histogram_phase(hist_ops, histogram_ref, ids, w, n, dev)
+    hist_main = histogram_phase(hist_ops, histogram_ref, ids, valid0, n, dev)
     wide_ids = torch.remainder(keys0, WIDE_BINS).to(torch.int32)
     wide_ids[:, ::1000] = -1                          # out-of-range ids dropped
-    hist_wide = histogram_phase(hist_ops, histogram_ref, wide_ids, w, WIDE_BINS, dev)
+    hist_wide = histogram_phase(hist_ops, histogram_ref, wide_ids, valid0, WIDE_BINS, dev)
     del wide_ids
     for h in (hist_main, hist_wide):
-        print(f"kernel histogram ({M}, {K}) -> {h['bins']} bins: bitwise ok | "
-              f"kernel {h['ms']:.4f} ms | plain {h['plain_ms']:.4f} ms | "
-              f"bincount {h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms",
-              flush=True)
+        print(f"kernel histogram ({M}, {K}) -> {h['bins']} bins: mask instance bitwise ok, "
+              f"float instance bitwise on 0/1 weights, rel err {h['float_max_rel_err']:.2e} "
+              f"on random ones | mask {h['ms']:.4f} ms (events {h['event_ms']:.4f}), bound "
+              f"{h['bound_ms']:.4f} | float {h['float_ms']:.4f} ms (events "
+              f"{h['float_event_ms']:.4f}), bound {h['float_bound_ms']:.4f} | plain "
+              f"{h['plain_ms']:.4f} ms | bincount {h['library_ms']:.4f} ms, weighted "
+              f"{h['float_library_ms']:.4f} ms", flush=True)
 
-    # ---- Kernel phase 3: count-min sketch, bitwise, with the engine's
+    # ---- Kernel phase 3: count-min sketch, both instances, with the engine's
     # multipliers on batch 0's cluster ids at n = 2^17 (what the sketch path
     # launches it on) and at n, and on the raw key hashes (spread over int32)
     # with multipliers >= 2^31.
     engine_mult = CountMinParams(SKETCH_WIDTH, SKETCH_DEPTH, seed=0).multipliers
-    sketch_main = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, w, engine_mult)
+    sketch_main = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, valid0, engine_mult)
     del ids
     ids = torch.as_tensor(work.clusters_of_keys(SKETCH_N), device=dev)[
         torch.as_tensor(kidx0, device=dev).long()].to(torch.int32)
-    sketch_path = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, w, engine_mult)
+    sketch_path = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, ids, valid0, engine_mult)
     del ids
-    sketch_high = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, keys0, w,
+    sketch_high = sketch_phase(sk_ops, sketch_hist_ref, sketch_cells, keys0, valid0,
                                HIGH_MULTIPLIERS)
     torch.cuda.empty_cache()
     for label, sk in ((f"cluster ids at n={SKETCH_N}", sketch_path),
                       (f"cluster ids at n={n}", sketch_main),
                       ("key hashes, multipliers >= 2^31", sketch_high)):
         print(f"kernel sketch_hist ({M}, {K}) -> {SKETCH_DEPTH} x {SKETCH_WIDTH}, "
-              f"{label}: bitwise ok | kernel {sk['ms']:.4f} ms | plain "
-              f"{sk['plain_ms']:.4f} ms | bincount (no hashing) {sk['library_ms']:.4f} ms "
-              f"| bound {sk['bound_ms']:.4f} ms", flush=True)
+              f"{label}: mask bitwise ok, float rel err {sk['float_max_rel_err']:.2e} | mask "
+              f"{sk['ms']:.4f} ms (events {sk['event_ms']:.4f}), bound {sk['bound_ms']:.4f} | "
+              f"float {sk['float_ms']:.4f} ms (events {sk['float_event_ms']:.4f}), bound "
+              f"{sk['float_bound_ms']:.4f} | plain {sk['plain_ms']:.4f} ms | bincount (no "
+              f"hashing) {sk['library_ms']:.4f} ms, weighted {sk['float_library_ms']:.4f} ms",
+              flush=True)
+    hot_bin_phase(hist_ops, histogram_ref, sk_ops, sketch_hist_ref, engine_mult, dev)
 
     # ---- Kernel phases 2 and 4: the fused reduce at the chunk shapes of a
     # real plan (a probe run of batch 0 that checks and times every launch),
@@ -1616,6 +1743,9 @@ def main(argv=None) -> int:
             main_plan0 = job.last_plan
         del res
     launches = {"main": read_launches(counters)}
+    by_instance = {"main": dict(hist_ops.launches_by_instance)}
+    check(by_instance["main"] == {"mask": launches["main"]["histogram"], "float": 0},
+          "the main path's phase A took the histogram's mask instance (no float cast)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"main path launches: {launches['main']} | peak device memory {peak_gb:.1f} GB",
           flush=True)
@@ -1728,6 +1858,10 @@ def main(argv=None) -> int:
         chunks = job.last_plan.waves.num_chunks
         check(got["sketch_hist"] == (1 if prefix is None else 2),
               f"{what}: phase A launched the sketch kernel {1 if prefix is None else 2}x")
+        check(sk_ops.launches_by_instance == {"mask": got["sketch_hist"], "float": 0},
+              f"{what}: phase A took the sketch's mask instance (no float cast)")
+        if path is not None:
+            by_instance[path] = dict(sk_ops.launches_by_instance)
         check(got["histogram"] == 0, f"{what}: no exact histogram")
         check(job.capacity_fallbacks == fallbacks, f"{what}: {fallbacks} capacity fallbacks")
         check(got["fused_shuffle_reduce"] == chunks * (1 + fallbacks),
@@ -1855,7 +1989,7 @@ def main(argv=None) -> int:
     del coded_batch, coded_job
 
     # ---- Free the card for the serve path (the paths above peaked near 58 GB).
-    del batch0, keys0, valid0, w, prof_job, work
+    del batch0, keys0, valid0, prof_job, work
     torch.cuda.empty_cache()
     print(f"card freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
           flush=True)
@@ -1896,22 +2030,43 @@ def main(argv=None) -> int:
     chunks = record["fused_chunks"]
     fused_bound = bound_ms(sum(c["bytes"] for c in chunks), sum(c["ops"] for c in chunks))
     kernels = [
+        # Both counting kernels: the numbers at the path's shape are the mask
+        # instance's (the engine's), device time a call from a burst behind a
+        # spin (event_ms: CUDA events around one call); the float instance's
+        # are the float_* keys, on random weights; the library call is
+        # bincount (weighted for the float instance). launches_by_instance
+        # counts the main and sketch paths' launches.
         {"name": "histogram", "route": "cuda",
          "source": "src/repro_torch/csrc/histogram.cu",
          "replaces": "src/repro/kernels/histogram/histogram.py:58",
-         "launches": total_launches("histogram"), "max_abs_err": hist_main["max_abs_err"],
-         "ms": hist_main["ms"], "plain_ms": hist_main["plain_ms"],
-         "bound_ms": hist_main["bound_ms"], "bound_by": hist_main["bound_by"],
-         "library_ms": hist_main["library_ms"]},
+         "launches": total_launches("histogram"),
+         "launches_by_instance": by_instance["main"],
+         "max_abs_err": max(h["max_abs_err"] for h in (hist_main, hist_wide)),
+         "ms": hist_main["ms"], "event_ms": hist_main["event_ms"],
+         "plain_ms": hist_main["plain_ms"], "bound_ms": hist_main["bound_ms"],
+         "bound_by": hist_main["bound_by"], "library_ms": hist_main["library_ms"],
+         "float_ms": hist_main["float_ms"], "float_event_ms": hist_main["float_event_ms"],
+         "float_bound_ms": hist_main["float_bound_ms"],
+         "float_library_ms": hist_main["float_library_ms"],
+         "float_max_rel_err": max(h["float_max_rel_err"] for h in (hist_main, hist_wide)),
+         "wide_ms": hist_wide["ms"], "wide_float_ms": hist_wide["float_ms"],
+         "wide_bound_ms": hist_wide["bound_ms"]},
         {"name": "sketch_hist", "route": "cuda",
          "source": "src/repro_torch/csrc/sketch_hist.cu",
          "replaces": "src/repro/kernels/sketch_hist/sketch_hist.py:69",
          "launches": total_launches("sketch_hist"),
+         "launches_by_instance": {k: by_instance["sketch"][k] + by_instance["sketch_prefix"][k]
+                                  for k in ("mask", "float")},
          "max_abs_err": max(sk["max_abs_err"]
                             for sk in (sketch_path, sketch_main, sketch_high)),
-         "ms": sketch_path["ms"], "plain_ms": sketch_path["plain_ms"],
-         "bound_ms": sketch_path["bound_ms"], "bound_by": sketch_path["bound_by"],
-         "library_ms": sketch_path["library_ms"]},
+         "ms": sketch_path["ms"], "event_ms": sketch_path["event_ms"],
+         "plain_ms": sketch_path["plain_ms"], "bound_ms": sketch_path["bound_ms"],
+         "bound_by": sketch_path["bound_by"], "library_ms": sketch_path["library_ms"],
+         "float_ms": sketch_path["float_ms"], "float_event_ms": sketch_path["float_event_ms"],
+         "float_bound_ms": sketch_path["float_bound_ms"],
+         "float_library_ms": sketch_path["float_library_ms"],
+         "float_max_rel_err": max(sk["float_max_rel_err"]
+                                  for sk in (sketch_path, sketch_main, sketch_high))},
         # One main-path run calls the fused kernel once per chunk (each call
         # two launches: segment starts, tiles): its times are the sums over
         # those calls. The library call is index_add_ for the sums plus

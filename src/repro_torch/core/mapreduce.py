@@ -345,13 +345,13 @@ def _phase_a(inputs, map_fn: Callable, num_clusters: int, stats_fn: Callable,
     key_hashes = key_hashes.to(torch.int32)
     valid = valid.to(torch.bool)
     cluster_ids = _cluster_ids(key_hashes, num_clusters)
-    weights = valid.to(torch.float32)
-    state = stats_fn(cluster_ids, weights)
+    # The mask is the weight: the kernels' mask instance reads it as bytes.
+    state = stats_fn(cluster_ids, valid)
     if prefix_fraction is not None:
         k = int(cluster_ids.shape[1])
         cut = int(np.ceil(prefix_fraction * k))
-        in_prefix = (torch.arange(k, device=weights.device) < cut).to(torch.float32)
-        state = torch.cat([state, stats_fn(cluster_ids, weights * in_prefix)], dim=1)
+        in_prefix = torch.arange(k, device=valid.device) < cut
+        state = torch.cat([state, stats_fn(cluster_ids, valid & in_prefix)], dim=1)
     return (key_hashes, values, valid), state
 
 

@@ -28,6 +28,7 @@ __all__ = [
     "StatsCollector",
     "local_key_histogram",
     "global_key_distribution",
+    "pair_weights",
 ]
 
 
@@ -103,17 +104,27 @@ def local_key_histogram(
     """Per-slot ``K^(i)`` (eq. 4-1): counts of pairs per cluster id.
 
     ``cluster_ids``: int tensor ``(m, ...)``, one row of pairs per slot;
-    invalid entries may be marked by ``weights == 0``. Returns float32
-    ``(m, num_clusters)``. Goes through the histogram kernel on a CUDA
-    tensor and through its plain version on a CPU one.
+    invalid entries may be marked by ``weights == 0``. A bool ``weights``
+    (the validity mask phase A passes) stays a mask and takes the kernel's
+    ``mask`` instance; any other weights become float32 (the ``float``
+    instance); no weights count every pair (an all-true mask). Returns
+    float32 ``(m, num_clusters)``. Goes through the histogram kernel on a
+    CUDA tensor and through its plain version on a CPU one.
     """
     m = cluster_ids.shape[0]
     ids = cluster_ids.reshape(m, -1).to(torch.int32).contiguous()
     if weights is None:
-        w = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+        w = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
     else:
-        w = weights.reshape(m, -1).to(torch.float32).contiguous()
+        w = pair_weights(weights.reshape(m, -1))
     return hist_ops.histogram(ids, w, num_clusters)
+
+
+def pair_weights(weights: torch.Tensor) -> torch.Tensor:
+    """A bool mask as it is, anything else as float32; contiguous."""
+    if weights.dtype != torch.bool:
+        weights = weights.to(torch.float32)
+    return weights.contiguous()
 
 
 def global_key_distribution(local_hist: torch.Tensor) -> torch.Tensor:

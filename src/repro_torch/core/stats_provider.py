@@ -46,7 +46,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.stats import local_key_histogram
+from repro_torch.core.stats import local_key_histogram, pair_weights
 from repro_torch.kernels.sketch_hist import ops as sk_ops
 
 __all__ = [
@@ -219,10 +219,14 @@ class SketchStats:
         return self._bins
 
     def collect(self, cluster_ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-        """Phase-A step: ``(m, depth * width)`` float32 counters, one launch."""
+        """Phase-A step: ``(m, depth * width)`` float32 counters, one launch.
+
+        A bool ``weights`` (phase A's validity mask) takes the kernel's
+        ``mask`` instance, any other the ``float`` one (as float32).
+        """
         m = cluster_ids.shape[0]
         ids = cluster_ids.reshape(m, -1).to(torch.int32).contiguous()
-        w = weights.reshape(m, -1).to(torch.float32).contiguous()
+        w = pair_weights(weights.reshape(m, -1))
         counters = sk_ops.sketch_hist(ids, w, self.params_.multipliers, self.width)
         return counters.reshape(m, -1)
 

@@ -8,6 +8,9 @@ Each subpackage has:
 
   histogram            — phase A's per-slot K^(i) (paper §4.1)
   sketch_hist          — phase A's count-min grid under stats="sketch"
+                         (both: csrc/pair_count.cuh, and pair_split.py for
+                         the instance a weights dtype takes and the row
+                         split the kernels follow)
   fused_shuffle_reduce — phase B's gather + sorted segment-sum (§4.4) and
                          each segment's pair count
   segment_reduce       — sorted segment-sum without the gather (its own

@@ -6,22 +6,36 @@ import torch
 
 from repro_torch.kernels.histogram.histogram import histogram_cuda
 from repro_torch.kernels.histogram.ref import histogram_ref
+from repro_torch.kernels.pair_split import instance
 
 
 # Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per launch, never for the plain version on the CPU.
+# +1 per launch, never for the plain version on the CPU; and the same split
+# by instance (``pair_split.instance``).
 launches = 0
+launches_by_instance = {"mask": 0, "float": 0}
 
 
 def histogram(ids: torch.Tensor, weights: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Per-slot weighted histogram, the ``K^(i)`` rows of paper eq. 4-1.
 
-    ``ids (m, K)`` int32 and ``weights (m, K)`` float32 give ``(m,
-    num_bins)`` float32: ``out[i, b] = sum_t weights[i, t] * (ids[i, t] ==
-    b)``, ids outside ``[0, num_bins)`` dropped. CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/histogram.cu`` (one launch for all
-    slots, counted in this module's ``launches``) or raise.
+    ``ids (m, K)`` int32 and ``weights (m, K)`` give ``(m, num_bins)``
+    float32: ``out[i, b] = sum_t weights[i, t] * (ids[i, t] == b)``, ids
+    outside ``[0, num_bins)`` dropped. CPU tensors run the plain version;
+    CUDA tensors launch ``csrc/histogram.cu`` (one launch for all slots,
+    counted in this module's ``launches``) or raise. The weights' dtype
+    picks the kernel's instance (``pair_split.instance``):
+
+    * ``torch.bool``, the ``mask`` instance: a pair counts 1 where its
+      weight is True. Integer counters; equal to the plain version bit for
+      bit wherever a bin holds at most ``2^24`` pairs. Above that float32
+      cannot hold every integer and the plain version's float sums stall,
+      so the two may differ: a documented limit, not a fault (the engine's
+      bins hold at most ``K = 2^21`` pairs a slot).
+    * ``torch.float32``, the ``float`` instance: general weights, float
+      atomics in a varying order, allclose to the plain version.
     """
+    kind = instance(weights.dtype)
     if ids.device.type == "cpu":
         return histogram_ref(ids, weights, num_bins)
     if ids.device.type != "cuda" or weights.device != ids.device:
@@ -32,10 +46,8 @@ def histogram(ids: torch.Tensor, weights: torch.Tensor, num_bins: int) -> torch.
         raise ValueError(
             f"histogram needs (m, K) ids and weights of one shape, got"
             f" {tuple(ids.shape)} and {tuple(weights.shape)}")
-    if ids.dtype != torch.int32 or weights.dtype != torch.float32:
-        raise TypeError(
-            f"histogram needs int32 ids and float32 weights, got {ids.dtype}"
-            f" and {weights.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"histogram needs int32 ids, got {ids.dtype}")
     if not (ids.is_contiguous() and weights.is_contiguous()):
         raise ValueError("histogram needs contiguous ids and weights")
     m, k = ids.shape
@@ -46,8 +58,9 @@ def histogram(ids: torch.Tensor, weights: torch.Tensor, num_bins: int) -> torch.
     if k == 0:
         return out
     with torch.cuda.device(ids.device):
-        histogram_cuda(ids, weights, out)
+        histogram_cuda(ids, weights, out, kind)
     global launches
     launches += 1
+    launches_by_instance[kind] += 1
     return out
 

@@ -42,8 +42,10 @@ def _cuda():
 
 def _hist_inputs(rng, m, k, n, weights):
     ids = rng.integers(-2, n + 3, size=(m, k)).astype(np.int32)  # -1, -2, >= n too
-    if weights == "binary":
-        w = (rng.random((m, k)) < 0.8).astype(np.float32)
+    if weights in ("binary", "mask"):
+        w = rng.random((m, k)) < 0.8
+        if weights == "binary":
+            w = w.astype(np.float32)
     else:
         w = rng.random((m, k)).astype(np.float32)
     return ids, w
@@ -51,8 +53,10 @@ def _hist_inputs(rng, m, k, n, weights):
 
 @pytest.mark.parametrize("k", [1, 7, 1000, 3000])
 @pytest.mark.parametrize("n", [1, 24, 1500])
-@pytest.mark.parametrize("weights", ["binary", "random"])
+@pytest.mark.parametrize("weights", ["binary", "random", "mask"])
 def test_histogram_plain_matches_pallas(k, n, weights):
+    """``mask``: bool weights (the kernel's mask instance) against the
+    reference given the same mask as float32, bitwise."""
     import jax.numpy as jnp
 
     from repro.kernels.histogram.histogram import histogram_pallas
@@ -63,8 +67,8 @@ def test_histogram_plain_matches_pallas(k, n, weights):
     assert got.shape == (m, n) and got.dtype == np.float32
     for i in range(m):
         want = np.asarray(histogram_pallas(
-            jnp.asarray(ids[i]), jnp.asarray(w[i]), n, interpret=True))
-        if weights == "binary":
+            jnp.asarray(ids[i]), jnp.asarray(w[i].astype(np.float32)), n, interpret=True))
+        if weights != "random":
             np.testing.assert_array_equal(got[i], want)
         else:
             np.testing.assert_allclose(got[i], want, rtol=1e-6, atol=0)
@@ -84,6 +88,9 @@ def test_histogram_kernel_matches_plain(m, k, n):
     assert hist_ops.launches == before + 1
     # 0/1 weights: integer sums, exact in any order of the atomics.
     assert torch.equal(got, histogram_ref(ids_t, w_t, n))
+    # The same weights as a bool mask: the mask instance, one more launch.
+    assert torch.equal(hist_ops.histogram(ids_t, w_t > 0, n), histogram_ref(ids_t, w_t, n))
+    assert hist_ops.launches == before + 2
     ids, w = _hist_inputs(rng, m, k, n, "random")
     ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
     torch.testing.assert_close(hist_ops.histogram(ids_t, w_t, n),
@@ -391,11 +398,15 @@ def test_sketch_plain_matches_pallas(k, width, depth):
     mult = MULTIPLIERS[:depth]
     got = sk_ops.sketch_hist(torch.from_numpy(ids), torch.from_numpy(w), mult, width).numpy()
     assert got.shape == (m, depth, width) and got.dtype == np.float32
+    # The same weights as a bool mask (the kernel's mask instance).
+    got_mask = sk_ops.sketch_hist(torch.from_numpy(ids), torch.from_numpy(w > 0), mult,
+                                  width).numpy()
     for i in range(m):
         want = np.asarray(sketch_hist_pallas(
             jnp.asarray(ids[i]), jnp.asarray(w[i]), jnp.asarray(mult), width,
             interpret=True))
         np.testing.assert_array_equal(got[i], want)
+        np.testing.assert_array_equal(got_mask[i], want)
 
 
 def test_sketch_provider_multipliers_match_reference():
@@ -428,6 +439,10 @@ def test_sketch_kernel_matches_plain(m, k, width, depth):
     assert sk_ops.launches == before + 1
     # 0/1 weights: integer sums, exact in any order of the atomics.
     assert torch.equal(got, sketch_hist_ref(ids_t, w_t, mult, width))
+    # The same weights as a bool mask: the mask instance, one more launch.
+    assert torch.equal(sk_ops.sketch_hist(ids_t, w_t > 0, mult, width),
+                       sketch_hist_ref(ids_t, w_t, mult, width))
+    assert sk_ops.launches == before + 2
     ids, w = _sketch_inputs(rng, m, k, "random")
     ids_t, w_t = torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev)
     torch.testing.assert_close(sk_ops.sketch_hist(ids_t, w_t, mult, width),
