@@ -7,8 +7,9 @@ Run from the repository root:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all at once; ``ptxas -v`` of the flash-attention,
-wave-timer, XOR, fused-reduce, histogram and sketch libraries is printed,
-the last four must not spill, the flash library's SASS must hold HGMMA,
+wave-timer, XOR, fused-reduce, segment-sum, histogram, sketch and dispatch
+libraries is printed, the last six must not spill, the flash library's
+SASS must hold HGMMA,
 and the SASS of the histogram's and the sketch's mask instances must add
 with native shared integer atomics and hold no compare-and-swap loop),
 holds each kernel against its plain PyTorch version at the shapes its
@@ -19,7 +20,10 @@ each timed as device time from a burst behind a spin and with CUDA
 events around one call, and every pair on one hot id, bitwise; the fused
 reduce's sums and counts at every chunk of a real plan, and its sums on
 normals unchanged by padding appended to or put in front of chunk 0's
-stream; the XOR kernel's encode instance beside the three passes it
+stream; the sorted segment-sum at chunk 0's rows in rank order, equal to
+the fused reduce bit for bit on normals and unchanged by padding, timed
+beside ``index_add_`` and ``torch.segment_reduce``; the XOR kernel's
+encode instance beside the three passes it
 replaced, and its flat instance beside ``torch.bitwise_xor``), then
 drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
@@ -41,7 +45,9 @@ against a numpy oracle:
   size, untimed (== oracle, == the main path's output and plan), then with
   ``estimate_speeds=True, measure_timings=True`` (per-slot wave clocks from
   the %globaltimer stamp kernels): three batches, then three more with slot
-  0 slowed 2x, whose speed estimate and planned load must fall;
+  0 slowed 2x, whose speed estimate and planned load must fall; then the
+  stamp kernels at its shapes, ``read_ticks`` beside an empty kernel's
+  time a launch under the same burst timer (the launch floor, its bound);
 * the coded path: Coded MapReduce's r = 2 XOR multicast shuffle on the
   paper's 8 nodes (m = 8, one Reduce slot each; n =
   recommended_num_clusters(8) = 88) over slots 0-7 of batch 0, the first
@@ -64,9 +70,10 @@ Then it frees the card and adds the serving side:
   beside its plain version, its simt instance and
   ``scaled_dot_product_attention`` (device time from a burst behind a spin,
   and CUDA events around one call);
-* kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64
-  Zipf-skewed destinations with 2% padding, ranks and counts equal to the
-  plain version exactly (its own entry point: no engine path runs it);
+* kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64,
+  160 and 1,024 Zipf-skewed destinations with 2% padding, ranks and counts
+  equal to the plain version exactly (its own entry point: no engine path
+  runs it);
 * the serve path: ``Engine`` on Llama-3-8B at full width and depth (16.1
   GB of bf16 weights from ``torch.Generator`` seed ``--seed``,
   ``attn_impl="pallas"``), 8 lanes, ``max_len`` 1024, 16 requests with
@@ -330,12 +337,13 @@ def atomics_of(sass: str) -> dict:
 
 
 def ptxas_phase(build) -> dict:
-    """What ``ptxas -v`` said of the six libraries whose kernels were
+    """What ``ptxas -v`` said of the eight libraries whose kernels were
     redesigned for Hopper (flash attention's instances, the wave timer's,
-    the XOR word kernel's encode and flat instances, the fused reduce's two
-    launches, the histogram's and the sketch's mask and float instances),
-    one line a kernel. The XOR, fused, histogram and sketch kernels must not
-    spill. The wgmma instance must not spill, must enter with the 168
+    the XOR word kernel's encode and flat instances, the fused reduce's and
+    the sorted segment-sum's two launches each, the histogram's and the
+    sketch's mask and float instances, the dispatch ranks' single pass),
+    one line a kernel. The XOR, fused, segment-sum, histogram, sketch and
+    dispatch kernels must not spill. The wgmma instance must not spill, must enter with the 168
     registers a thread that its setmaxnreg split needs (384 x 168 = 128 x 40
     + 256 x 232), and its SASS must hold HGMMA (cuobjdump). The histogram's
     and the sketch's SASS: the count of each kind of atomic a kernel holds;
@@ -343,13 +351,14 @@ def ptxas_phase(build) -> dict:
     add with native integer shared atomics and hold no compare-and-swap."""
     out = {}
     for name in ("flash_attention", "wave_timer", "xor_words", "fused_shuffle_reduce",
-                 "histogram", "sketch_hist"):
+                 "segment_reduce", "histogram", "sketch_hist", "moe_dispatch"):
         kernels = ptxas_kernels(build.ptxas_report(name))
         check(bool(kernels), f"ptxas reported on {name}.cu")
         for kernel, info in kernels.items():
             print(f"ptxas {name}.cu: {kernel[:72]}: {info}", flush=True)
         out[name] = kernels
-    for name in ("xor_words", "fused_shuffle_reduce", "histogram", "sketch_hist"):
+    for name in ("xor_words", "fused_shuffle_reduce", "segment_reduce", "histogram",
+                 "sketch_hist", "moe_dispatch"):
         check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
                   for v in out[name].values()), f"{name}.cu's kernels do not spill")
     wgmma = {k: v for k, v in out["flash_attention"].items() if "flash_fwd_wgmma" in k}
@@ -513,15 +522,21 @@ def sketch_phase(sk_ops, sketch_ref, sketch_cells, ids, valid, multipliers):
     return res
 
 
-def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
+def segment_phase(seg_ops, seg_ref, fused, values, gather_idx, seg_ids, num_segments):
     """The sorted segment-sum at one chunk's shape: checks + times. Returns a dict.
 
     The chunk's received rows are put in rank order (the fused kernel's
     gather, done once here), with the dump id ``num_segments`` as padding.
     The kernel is held against the plain version bitwise (the values are
-    integers) and, on standard normals at the same shapes, against exact
-    float64 sums (|error| <= 1e-5 * sum of |values| of the segment). The
-    library yardstick is one ``index_add_`` over the sorted rows.
+    integers). On standard normals at the same shapes, drawn as the
+    unsorted table: the kernel on the rank-ordered rows equals the fused
+    kernel (``fused``) on the table and its gather bit for bit (both add a
+    segment's rows in one tile order), is within 1e-5 * sum of |values| of
+    the exact float64 sums, and keeps every bit with 1,000 padding rows
+    appended and with 7 padding rows (id -1) in front. Library yardsticks,
+    timed on the integer rows: one ``index_add_`` and one
+    ``torch.segment_reduce`` (lengths computed outside the timed call); the
+    row's library time is the faster of the two.
     """
     m, n, v = values.shape
     dev = values.device
@@ -536,19 +551,61 @@ def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
     flat = torch.where(ok, seg_ids.long(), num_segments)
     flat = (flat + torch.arange(m, device=dev)[:, None] * (num_segments + 1)).reshape(-1)
     vals_flat = rows_sorted.reshape(-1, v)
+    # torch.segment_reduce's lengths: the leading negative ids, each
+    # segment, the trailing padding.
+    bounds = torch.searchsorted(seg_ids, torch.arange(num_segments + 1, device=dev,
+                                                      dtype=torch.int32).expand(m, -1)
+                              .contiguous())
+    lengths = torch.cat([bounds[:, :1], bounds.diff(dim=1),
+                         n - bounds[:, -1:]], dim=1)
 
-    def library():
+    def index_add():
         acc = torch.zeros(m * (num_segments + 1), v, device=dev)
         return acc.index_add_(0, flat, vals_flat)
 
-    lib = library().view(m, num_segments + 1, v)[:, :num_segments]
+    def segment_reduce():
+        return torch.segment_reduce(rows_sorted, "sum", lengths=lengths, axis=1)
+
+    lib = index_add().view(m, num_segments + 1, v)[:, :num_segments]
     check(torch.equal(lib, want), "index_add_ yardstick == plain")
+    lib = segment_reduce()[:, 1:num_segments + 1]
+    check(torch.equal(lib, want), "torch.segment_reduce yardstick == plain")
     del lib, got, want
+    b, by = bound_ms(rows * (4 + 4 * v) + m * num_segments * v * 4, rows * v)
+    res = {
+        "shape": [m, n, v], "segments": num_segments, "valid_rows": rows,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: seg_ops.segment_reduce_sorted(rows_sorted, seg_ids,
+                                                            num_segments), reps=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: seg_ref(rows_sorted, seg_ids, num_segments),
+                            reps=5, warmup=1),
+        "index_add_ms": cuda_ms(index_add, reps=5, warmup=1),
+        "segment_reduce_ms": cuda_ms(segment_reduce, reps=5, warmup=1),
+        "bound_ms": b, "bound_by": by,
+    }
+    res["library_ms"] = min(res["index_add_ms"], res["segment_reduce_ms"])
+    del rows_sorted, vals_flat, flat
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    normals = torch.randn(values.shape, generator=gen, device=dev)
-    got_n = seg_ops.segment_reduce_sorted(normals, seg_ids, num_segments).double()
-    dst = flat.view(m, n)[ok]
+    table = torch.randn(values.shape, generator=gen, device=dev)
+    normals = torch.gather(table, 1, gather_idx.long()[..., None].expand(m, n, v))
+    got_n = seg_ops.segment_reduce_sorted(normals, seg_ids, num_segments)
+    check(torch.equal(got_n, fused(table, gather_idx, seg_ids, num_segments)[0]),
+          "segment_reduce kernel on rank-ordered normals == fused kernel on the table and "
+          "its gather, bit for bit")
+    del table
+    for lead, extra in ((0, 1000), (7, 0)):
+        again = seg_ops.segment_reduce_sorted(
+            torch.cat([torch.ones((m, lead, v), device=dev), normals,
+                       torch.ones((m, extra, v), device=dev)], dim=1),
+            torch.cat([torch.full((m, lead), -1, dtype=torch.int32, device=dev), seg_ids,
+                       torch.full((m, extra), num_segments, dtype=torch.int32, device=dev)],
+                      dim=1), num_segments)
+        check(torch.equal(again, got_n), f"segment_reduce kernel on normals: {lead} padding "
+              f"rows in front and {extra} behind leave every bit of the sums")
+        del again
+    dst = torch.where(ok, seg_ids.long(), num_segments)
+    dst = (dst + torch.arange(m, device=dev)[:, None] * (num_segments + 1))[ok]
     picked = normals[ok].double()
     del normals
     exact = torch.zeros(m * (num_segments + 1), v, dtype=torch.float64, device=dev)
@@ -558,23 +615,11 @@ def segment_phase(seg_ops, seg_ref, values, gather_idx, seg_ids, num_segments):
     shape = (m, num_segments + 1, v)
     exact = exact.view(shape)[:, :num_segments]
     scale = scale.view(shape)[:, :num_segments]
-    diff = (got_n - exact).abs()
+    diff = (got_n.double() - exact).abs()
     check(bool((diff <= 1e-5 * scale).all()),
           "segment_reduce kernel on normals within 1e-5 * sum|x| of the exact sums")
-    float_err = float((diff / scale.clamp_min(1e-30)).max())
-    del got_n, exact, scale, diff
-
-    b, by = bound_ms(rows * (4 + 4 * v) + m * num_segments * v * 4, rows * v)
-    res = {
-        "shape": [m, n, v], "segments": num_segments, "valid_rows": rows,
-        "max_abs_err": err, "float_rel_err": float_err,
-        "ms": cuda_ms(lambda: seg_ops.segment_reduce_sorted(rows_sorted, seg_ids,
-                                                            num_segments), reps=5, warmup=1),
-        "plain_ms": cuda_ms(lambda: seg_ref(rows_sorted, seg_ids, num_segments),
-                            reps=5, warmup=1),
-        "library_ms": cuda_ms(library, reps=5, warmup=1),
-        "bound_ms": b, "bound_by": by,
-    }
+    res.update(float_rel_err=float((diff / scale.clamp_min(1e-30)).max()),
+               equals_fused_bitwise=True, pad_shift_invariant="checked")
     return res
 
 
@@ -1133,14 +1178,17 @@ def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapRe
             "profile": profile}, launches
 
 
-def wave_timer_phase(wt_ops, wt_ref, copy_split, ids_shape, dev) -> dict:
+def wave_timer_phase(wt_ops, wt_ref, copy_split, launch_floor, ids_shape, dev) -> dict:
     """Kernels 5-6 at the measured path's shapes. ``stamp_through`` copies one
     slot's received cluster ids of chunk 0 (``ids_shape`` int32) bitwise,
     through the bulk-copy ring, and an unaligned byte view through the byte
     path; it is timed against its plain version and ``Tensor.copy_``, as
     device time from a burst queued behind a spin and with CUDA events
     around one call; ``read_ticks``
-    is timed over back-to-back launches. Stamp intervals are held against
+    is timed over back-to-back launches, and so is an empty kernel
+    (``launch_floor``, the same burst and launch count): its time a launch
+    is ``read_ticks``' bound (``bound_by`` "launch"; the 9 bytes it moves,
+    ``bytes_bound_ms``). Stamp intervals are held against
     CUDA event times over >= 10 ms spins (within 5%), and back-to-back stamps
     give the timer's smallest step. Returns ``{"read_ticks": ..., "stamp_through":
     ..., "timer": ...}``."""
@@ -1176,12 +1224,14 @@ def wave_timer_phase(wt_ops, wt_ref, copy_split, ids_shape, dev) -> dict:
     # issue one, and the plain version's (host) time.
     anchor = torch.ones(1, device=dev)
     ms, host_ms = device_ms(lambda: wt_ops.read_ticks(anchor), launches=200)
+    floor_ms, floor_host_ms = device_ms(lambda: launch_floor(dev), launches=200)
     t0 = time.perf_counter()
     for _ in range(1000):
         wt_ref.read_ticks_plain()
     b_ms, by = bound_ms(8 + 1, 0)
     read = {"ms": ms, "host_ms": host_ms, "plain_ms": (time.perf_counter() - t0) * 1e3 / 1000,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+            "library_ms": None, "bound_ms": floor_ms, "bound_by": "launch",
+            "floor_host_ms": floor_host_ms, "bytes_bound_ms": b_ms, "bytes_bound_by": by}
 
     # Stamp intervals against CUDA events over device-side spins.
     cal = wt_ops.tick_calibration(dev)
@@ -1364,6 +1414,7 @@ def dispatch_phase(md_ops, dispatch_ref, dev, t=DISPATCH_T, e=DISPATCH_E) -> dic
           f"dispatch kernel == plain, exactly, at T={t}, E={e}")
     check(int(counts.sum()) == int((dest_np >= 0).sum()), "counts sum to the valid tokens")
     err = float((rank.long() - want_rank.long()).abs().max())
+    del want_rank, want_counts
     ms, host_ms = device_ms(lambda: md_ops.dispatch_ranks(dest, e), launches=100)
     b, by = bound_ms(8 * t + 4 * e, 0)
     return {"tokens": t, "dests": e, "max_abs_err": err, "hot_share":
@@ -1580,7 +1631,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sketch_hist.ref import sketch_cells, sketch_hist_ref
     from repro_torch.kernels.wave_timer import ops as wt_ops
     from repro_torch.kernels.wave_timer import ref as wt_ref
-    from repro_torch.kernels.wave_timer.wave_timer import copy_split
+    from repro_torch.kernels.wave_timer.wave_timer import copy_split, launch_floor_cuda
 
     counters = {"histogram": (hist_ops, "launches"), "sketch_hist": (sk_ops, "launches"),
                 "fused_shuffle_reduce": (fused_ops, "launches"),
@@ -1675,9 +1726,10 @@ def main(argv=None) -> int:
     # real plan (a probe run of batch 0 that checks and times every launch),
     # and the sorted segment-sum at chunk 0's shape on its rank-sorted rows.
     segment = {}
+    fused_kernel = fused_ops.fused_shuffle_reduce
 
     def on_chunk0(values, gather_idx, seg_ids, num_segments):
-        segment.update(segment_phase(seg_ops, segment_reduce_sorted_ref, values,
+        segment.update(segment_phase(seg_ops, segment_reduce_sorted_ref, fused_kernel, values,
                                      gather_idx, seg_ids, num_segments))
 
     probe = FusedProbe(fused_ops.fused_shuffle_reduce, fused_gather_segment_reduce_ref,
@@ -1697,10 +1749,11 @@ def main(argv=None) -> int:
               f"bound {c['bound_ms']:.4f} ms", flush=True)
     print(f"kernel segment_reduce {tuple(segment['shape'])} -> {segment['segments']} "
           f"segments, {segment['valid_rows']} valid rows (chunk 0, rank order): bitwise "
-          f"ok, normals rel err {segment['float_rel_err']:.2e} | kernel "
-          f"{segment['ms']:.4f} ms | plain {segment['plain_ms']:.4f} ms | index_add_ "
-          f"{segment['library_ms']:.4f} ms | bound {segment['bound_ms']:.4f} ms",
-          flush=True)
+          f"ok, normals rel err {segment['float_rel_err']:.2e}, == fused kernel bit for bit, "
+          f"padded/shifted stream: same bits | kernel {segment['ms']:.4f} ms | plain "
+          f"{segment['plain_ms']:.4f} ms | index_add_ {segment['index_add_ms']:.4f} ms, "
+          f"torch.segment_reduce {segment['segment_reduce_ms']:.4f} ms | bound "
+          f"{segment['bound_ms']:.4f} ms", flush=True)
     record.update(histogram=[hist_main, hist_wide],
                   sketch=[sketch_path, sketch_main, sketch_high],
                   fused_chunks=probe.chunks, segment_reduce=segment)
@@ -1952,7 +2005,7 @@ def main(argv=None) -> int:
     # ---- Kernel phases 5 and 6: the wave timer at the measured path's
     # shapes (one slot's received ids of chunk 0).
     ids_shape = (1, M * int(main_plan0.chunk_caps[0]))
-    timer = wave_timer_phase(wt_ops, wt_ref, copy_split, ids_shape, dev)
+    timer = wave_timer_phase(wt_ops, wt_ref, copy_split, launch_floor_cuda, ids_shape, dev)
     st, rt, tm = timer["stamp_through"], timer["read_ticks"], timer["timer"]
     print(f"kernel stamp_through {ids_shape} int32 (chunk 0's received ids of one slot): "
           f"bitwise ok (ring: head, body {st['head_body']}; byte path ok) | device: kernel "
@@ -1964,7 +2017,9 @@ def main(argv=None) -> int:
           f"events: kernel {st['event_ms']:.4f} ms, copy_ {st['library_event_ms']:.4f} ms",
           flush=True)
     print(f"kernel read_ticks: device {rt['ms'] * 1e3:.3f} us a launch, host to issue "
-          f"{rt['host_ms'] * 1e3:.3f} us | plain (host perf_counter_ns) "
+          f"{rt['host_ms'] * 1e3:.3f} us | an empty kernel (the launch floor, its bound) "
+          f"{rt['bound_ms'] * 1e3:.3f} us a launch ({rt['bound_ms'] / rt['ms']:.3f} of "
+          f"read_ticks' time) | plain (host perf_counter_ns) "
           f"{rt['plain_ms'] * 1e3:.3f} us | stamp vs CUDA event intervals: "
           + ", ".join(f"{e['stamp_ms']:.4f} / {e['event_ms']:.4f} ms" for e in tm["intervals"]),
           flush=True)
@@ -2010,12 +2065,17 @@ def main(argv=None) -> int:
           f"{flash['simt_ms']:.4f} ms | bound {flash['bound_ms']:.4f} ms ({flash['bound_by']})",
           flush=True)
     record["flash_attention"] = flash
-    disp = dispatch_phase(md_ops, dispatch_ranks_ref, dev)
-    print(f"kernel dispatch_ranks T={disp['tokens']} E={disp['dests']} (Zipf 1.3, 2% "
-          f"padding; hottest destination {disp['hot_share']:.3f} of the tokens): exact | "
-          f"device {disp['ms']:.4f} ms a call (host to issue {disp['host_ms']:.4f} ms) | "
-          f"plain {disp['plain_ms']:.4f} ms | bound {disp['bound_ms']:.4f} ms", flush=True)
-    record["dispatch_ranks"] = disp
+    # At the path's E = 64, and at the largest MoE configuration's 160
+    # experts and the wrapper's limit of 1,024 destinations.
+    disp_cases = {e: dispatch_phase(md_ops, dispatch_ranks_ref, dev, e=e)
+                  for e in (DISPATCH_E, 160, 1024)}
+    for d in disp_cases.values():
+        print(f"kernel dispatch_ranks T={d['tokens']} E={d['dests']} (Zipf 1.3, 2% "
+              f"padding; hottest destination {d['hot_share']:.3f} of the tokens): exact | "
+              f"device {d['ms']:.4f} ms a call (host to issue {d['host_ms']:.4f} ms) | "
+              f"plain {d['plain_ms']:.4f} ms | bound {d['bound_ms']:.4f} ms", flush=True)
+    disp = disp_cases[DISPATCH_E]
+    record["dispatch_ranks"] = list(disp_cases.values())
     torch.cuda.empty_cache()
 
     # ---- The serve path: Llama-3-8B at full width and depth on 8 lanes.
@@ -2081,14 +2141,18 @@ def main(argv=None) -> int:
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1],
          "library_ms": sum(c["library_ms"] for c in chunks)},
         # No engine path launches it, in the reference either: its numbers
-        # are from chunk 0 of the main path's plan, in rank order.
+        # are from chunk 0 of the main path's plan, in rank order. Its library
+        # time is the faster of index_add_ and torch.segment_reduce.
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:68",
          "launches": total_launches("segment_reduce"), "on_engine_path": False,
          "max_abs_err": segment["max_abs_err"], "ms": segment["ms"],
          "plain_ms": segment["plain_ms"], "bound_ms": segment["bound_ms"],
-         "bound_by": segment["bound_by"], "library_ms": segment["library_ms"]},
+         "bound_by": segment["bound_by"], "library_ms": segment["library_ms"],
+         "index_add_ms": segment["index_add_ms"],
+         "segment_reduce_ms": segment["segment_reduce_ms"],
+         "equals_fused_bitwise": segment["equals_fused_bitwise"]},
         # The coded path launches it twice a chunk on each coded run: the
         # encode instance, then the flat one to decode. Its times are the
         # encode's at chunk 0's shape; its library time is bitwise_xor on
@@ -2108,15 +2172,18 @@ def main(argv=None) -> int:
          "flat_plain_ms": fx["plain_ms"], "flat_library_ms": fx["library_ms"],
          "flat_bound_ms": fx["bound_ms"]},
         # The measured path launches it to calibrate the tick unit; its time
-        # is one launch of a burst of back-to-back launches. Its error is the
-        # largest |stamp interval - CUDA event interval| in ms over the spins.
-        # No library call reads a device clock.
+        # is one launch of a burst of back-to-back launches, and its bound an
+        # empty kernel's time a launch in the same kind of burst (the 9 bytes
+        # it moves: bytes_bound_ms). Its error is the largest |stamp interval
+        # - CUDA event interval| in ms over the spins. No library call reads a
+        # device clock.
         {"name": "read_ticks", "route": "cuda",
          "source": "src/repro_torch/csrc/wave_timer.cu",
          "replaces": "src/repro/kernels/wave_timer/wave_timer.py:123",
          "launches": total_launches("read_ticks"), "max_abs_err": rt["max_abs_err"],
          "ms": rt["ms"], "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
-         "bound_by": rt["bound_by"], "library_ms": None},
+         "bound_by": rt["bound_by"], "library_ms": None,
+         "bytes_bound_ms": rt["bytes_bound_ms"]},
         # Launched at every wave boundary of every slot of a measured batch
         # (M * (chunks + 1)); its times are at chunk 0's received ids of one
         # slot. The library call is Tensor.copy_ (the copy without the stamp).
@@ -2142,13 +2209,18 @@ def main(argv=None) -> int:
          "library_ms": flash["library_ms"], "library_event_ms": flash["library_event_ms"]},
         # No engine or model path launches it, in the reference either: its
         # numbers are from its own entry point at 2^20 tokens and 64
-        # destinations. No single PyTorch call computes stable ranks.
+        # destinations (e160_*, e1024_*: 160 and 1,024). No single PyTorch
+        # call computes stable ranks.
         {"name": "dispatch_ranks", "route": "cuda",
          "source": "src/repro_torch/csrc/moe_dispatch.cu",
          "replaces": "src/repro/kernels/moe_dispatch/moe_dispatch.py:75",
          "launches": total_launches("dispatch_ranks"), "on_engine_path": False,
-         "max_abs_err": disp["max_abs_err"], "ms": disp["ms"], "plain_ms": disp["plain_ms"],
-         "bound_ms": disp["bound_ms"], "bound_by": disp["bound_by"], "library_ms": None},
+         "max_abs_err": max(d["max_abs_err"] for d in disp_cases.values()),
+         "ms": disp["ms"], "plain_ms": disp["plain_ms"],
+         "bound_ms": disp["bound_ms"], "bound_by": disp["bound_by"], "library_ms": None,
+         "e160_ms": disp_cases[160]["ms"], "e160_bound_ms": disp_cases[160]["bound_ms"],
+         "e1024_ms": disp_cases[1024]["ms"],
+         "e1024_bound_ms": disp_cases[1024]["bound_ms"]},
     ]
     check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
           and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0

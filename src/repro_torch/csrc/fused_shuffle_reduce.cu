@@ -24,39 +24,13 @@
 // SM would run long while the others idle), and the order in which its
 // rows are added must not depend on how the work was split.
 //
-// Design:
-// * Launch 1 (segment_starts) binary-searches each slot's sorted seg row
-//   for every segment's first row, starts[i, s] = lower_bound(s) for s in
-//   [0, S], so segment s holds rows [starts[s], starts[s + 1]). It also
-//   zeroes the segments' arrival counters.
-// * Launch 2 (reduce_tiles), persistent: first, counts = starts[s + 1] -
-//   starts[s], and a zero row of out for each empty segment. Then the work:
-//   each segment's rows are cut into tiles of tile_rows (T) rows anchored
-//   at its first row, [lo + kT, lo + (k + 1)T). Tile (s, k) belongs to the
-//   position block [bT, (b + 1)T) of its slot that holds its first row; a
-//   block holds at most one tile start of each segment, and its tiles span
-//   fewer than 2T rows. Warps take the m * ceil(N / T) blocks round robin,
-//   so the work list needs no scan and the host never waits: a hot segment
-//   is spread over as many warps as it has tiles, and blocks of padding
-//   cost two loads.
-// * A tile is summed by one warp: lane j adds rows lo + kT + j, + 32, + 64,
-//   ... in that order (kRowUnroll rows' loads in flight before their adds),
-//   up to kCols value columns a pass in registers; then a fixed shuffle
-//   tree (offsets 16, 8, 4, 2, 1) leaves the tile's sum in lane 0. A
-//   segment of one tile writes its sum to out. Otherwise each tile writes
-//   a partial of V floats into a workspace at (slot, b, which), where which
-//   is 0 for the segment that holds row bT and 1 for the one other segment
-//   whose multi-tile run may start inside the block; it then bumps the
-//   segment's arrival counter (__threadfence before, atomicAdd), and the
-//   warp that arrives last adds the partials in tile order, k = 0, 1, ...,
-//   and writes out. No float atomics.
-// * Invariant: a segment's float32 sum depends only on its own rows in
-//   stream order, on T and on the warp's 32 lanes. It does not depend on
-//   the padded length N, on where the segment starts, or on other
-//   segments: tiles are anchored at the segment, not at the slab. So the
-//   pipelined and the sequential engine, and the stacked and the sharded
-//   backend, which feed each cluster the same rows in the same order inside
-//   slabs of different lengths, agree bit for bit.
+// Design: segment-anchored tiles (segment_tiles.cuh: segment starts,
+// tiles of tile_rows rows anchored at each segment's first row, warps
+// taking position blocks round robin, lane order, shuffle tree and ordered
+// combine), with this kernel's row loader, GatherRows: lane j loads the
+// gathered rows of its stream rows start + j, + 32, ..., kRowUnroll rows'
+// loads in flight before their adds. Its counts are the segments' row
+// ranges, written where reduce_tiles zeroes the empty segments' rows.
 // * Rows are gathered: Hopper's TMA has no gather, and a 44-byte row is not
 //   a multiple of 16 B, so a lane loads its row's words itself. The stable
 //   rank sort keeps a segment's gather indices ascending, so a warp's 32
@@ -64,226 +38,50 @@
 
 #include <cuda_runtime.h>
 
+#include "segment_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 12;        // value columns a pass, kept in registers
+using segment_tiles::Args;
+using segment_tiles::kCols;
+
 constexpr int kRowUnroll = 4;    // rows a lane loads before it adds them
 
-// A warp's 32 staged partials during the combine (kCols + 1: no bank
-// conflicts when lane l writes row l).
-__shared__ float combine_stage[kWarps][32][kCols + 1];
+// Kernel 2's loader: stream row r is value row gather_idx[r] of its slot.
+struct GatherRows {
+  static constexpr bool kCounts = true;
 
-__device__ long long lower_bound(const int* seg, long long n, int key) {
-  long long lo = 0;
-  long long hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (seg[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+  __device__ __forceinline__ void sum(const Args& a, long long slot, long long start,
+                                      long long end, int c0, int nc, int lane,
+                                      float (&acc)[kCols]) const {
+    const int* idx = a.gather_idx + slot * a.n;
+    const float* table = a.values + slot * a.n * a.v + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+    for (long long r0 = start + lane; r0 < end; r0 += 32 * kRowUnroll) {
+      int g[kRowUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const long long r = r0 + 32 * u;
+        g[u] = r < end ? idx[r] : -1;
+        if (g[u] >= a.n) g[u] = -1;    // malformed index: never read outside
+      }
+      float x[kRowUnroll][kCols];
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const float* row = table + static_cast<long long>(g[u]) * a.v;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) x[u][c] = (g[u] >= 0 && c < nc) ? row[c] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        if (g[u] < 0) continue;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[c] += x[u][c];
+      }
     }
   }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_starts(const int* __restrict__ seg, long long* __restrict__ starts,
-               int* __restrict__ arrivals, int m, long long n, int num_segments) {
-  const long long per_slot = static_cast<long long>(num_segments) + 1;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m * per_slot) return;
-  const long long slot = i / per_slot;
-  const int s = static_cast<int>(i - slot * per_slot);
-  // Searching for num_segments itself gives the end of the last segment.
-  starts[i] = lower_bound(seg + slot * n, n, s);
-  if (s < num_segments) arrivals[slot * num_segments + s] = 0;
-}
-
-struct Args {
-  const float* values;
-  const int* gather_idx;
-  const int* seg;
-  const long long* starts;
-  int* arrivals;
-  float* partials;     // (m, blocks, 2, V)
-  float* out;
-  float* counts;
-  long long n;
-  long long blocks;    // position blocks a slot: ceil(n / tile_rows)
-  int m;
-  int v;
-  int num_segments;
-  int tile_rows;
 };
-
-// Sums rows [start, end) of one slot's stream for columns [c0, c0 + nc)
-// with the fixed lane order and tree; lane 0 returns the sums in acc.
-__device__ __forceinline__ void tile_sum(const Args& a, long long slot, long long start,
-                                         long long end, int c0, int nc, int lane,
-                                         float (&acc)[kCols]) {
-  const int* idx = a.gather_idx + slot * a.n;
-  const float* table = a.values + slot * a.n * a.v + c0;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-  for (long long r0 = start + lane; r0 < end; r0 += 32 * kRowUnroll) {
-    int g[kRowUnroll];
-#pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const long long r = r0 + 32 * u;
-      g[u] = r < end ? idx[r] : -1;
-      if (g[u] >= a.n) g[u] = -1;    // malformed index: never read outside
-    }
-    float x[kRowUnroll][kCols];
-#pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const float* row = table + static_cast<long long>(g[u]) * a.v;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) x[u][c] = (g[u] >= 0 && c < nc) ? row[c] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      if (g[u] < 0) continue;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] += x[u][c];
-    }
-  }
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], offset);
-  }
-}
-
-// Lane c of the warp gets lane 0's acc[c] (c < kCols).
-__device__ __forceinline__ float column_of_lane(const float (&acc)[kCols], int lane) {
-  float mine = 0.f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const float x = __shfl_sync(0xffffffffu, acc[c], 0);
-    if (lane == c) mine = x;
-  }
-  return mine;
-}
-
-// Partials of tiles k0 + lane (< tiles) of the segment starting at lo,
-// columns [c0, c0 + nc), into p. Tile k starts in block (lo + kT) / T; it
-// is that block's segment at row bT ("which" 0) unless k = 0 and the
-// segment starts past the block's first row.
-__device__ __forceinline__ void load_partials(const Args& a, long long slot, long long lo,
-                                              long long tiles, long long k0, int c0, int nc,
-                                              int lane, float (&p)[kCols]) {
-  const long long k = k0 + lane;
-  const long long t0 = lo + k * a.tile_rows;
-  const long long b = t0 / a.tile_rows;
-  const int which = (k == 0 && t0 % a.tile_rows != 0) ? 1 : 0;
-  const float* src = a.partials + ((slot * a.blocks + b) * 2 + which) * a.v + c0;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) p[c] = (k < tiles && c < nc) ? __ldcg(src + c) : 0.f;
-}
-
-// Tile (slot, s, start) of the segment [lo, hi): its sum, or its partial
-// and, for the last of the segment's tiles to finish, the ordered combine.
-__device__ void run_tile(const Args& a, long long slot, int s, long long lo, long long hi,
-                         long long start, long long block, int which, int lane) {
-  const long long tiles = (hi - lo + a.tile_rows - 1) / a.tile_rows;
-  const long long end = start + a.tile_rows < hi ? start + a.tile_rows : hi;
-  float* out_row = a.out + (slot * a.num_segments + s) * a.v;
-  float* mine = a.partials + ((slot * a.blocks + block) * 2 + which) * a.v;
-  for (int c0 = 0; c0 < a.v; c0 += kCols) {
-    const int nc = min(kCols, a.v - c0);
-    float acc[kCols];
-    tile_sum(a, slot, start, end, c0, nc, lane, acc);
-    const float x = column_of_lane(acc, lane);
-    if (lane < nc) (tiles == 1 ? out_row : mine)[c0 + lane] = x;
-  }
-  if (tiles == 1) return;
-  __threadfence();
-  __syncwarp();
-  int arrived = 0;
-  if (lane == 0) arrived = atomicAdd(a.arrivals + slot * a.num_segments + s, 1);
-  arrived = __shfl_sync(0xffffffffu, arrived, 0);
-  if (arrived != tiles - 1) return;
-  __threadfence();
-  // Last to arrive: add the partials in tile order, k = 0, 1, ..., 32 tiles
-  // a round. Lane l loads tile k0 + l's partial (the next round's loads in
-  // flight during this round's adds) and stages it in shared memory; lane c
-  // then runs column c's chain of adds.
-  float (*stage)[kCols + 1] = combine_stage[threadIdx.x / 32];
-  for (int c0 = 0; c0 < a.v; c0 += kCols) {
-    const int nc = min(kCols, a.v - c0);
-    float next[kCols];
-    load_partials(a, slot, lo, tiles, 0, c0, nc, lane, next);
-    float sum = 0.f;
-    for (long long k0 = 0; k0 < tiles; k0 += 32) {
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) stage[lane][c] = next[c];
-      __syncwarp();
-      if (k0 + 32 < tiles) load_partials(a, slot, lo, tiles, k0 + 32, c0, nc, lane, next);
-      const int count = static_cast<int>(tiles - k0 < 32 ? tiles - k0 : 32);
-      if (lane < nc) {
-        for (int l = 0; l < count; ++l) sum = k0 + l == 0 ? stage[l][lane] : sum + stage[l][lane];
-      }
-    }
-    if (lane < nc) out_row[c0 + lane] = sum;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) reduce_tiles(Args a) {
-  const int lane = threadIdx.x & 31;
-  const long long per_slot = static_cast<long long>(a.num_segments) + 1;
-  // Counts, and zeros for the empty segments' rows.
-  const long long segments = static_cast<long long>(a.m) * a.num_segments;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < segments; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long slot = i / a.num_segments;
-    const long long at = slot * per_slot + (i - slot * a.num_segments);
-    const long long len = a.starts[at + 1] - a.starts[at];
-    a.counts[i] = static_cast<float>(len);
-    if (len == 0) {
-      for (int c = 0; c < a.v; ++c) a.out[i * a.v + c] = 0.f;
-    }
-  }
-  // Position blocks, round robin over the warps of the grid.
-  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
-  const long long units = static_cast<long long>(a.m) * a.blocks;
-  for (long long u = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-       u < units; u += warps) {
-    const long long slot = u / a.blocks;
-    const long long b = u - slot * a.blocks;
-    const long long row0 = b * a.tile_rows;
-    const long long row_end = row0 + a.tile_rows < a.n ? row0 + a.tile_rows : a.n;
-    const int* seg = a.seg + slot * a.n;
-    const int first = seg[row0];
-    if (first >= a.num_segments || seg[row_end - 1] < 0) continue;   // padding only
-    const long long* starts = a.starts + slot * per_slot;
-    int s = first;
-    if (s < 0) {   // leading padding: the block's first valid row starts a segment
-      s = seg[row0 + lower_bound(seg + row0, row_end - row0, 0)];
-      if (s >= a.num_segments) continue;
-    }
-    // The segments with rows in this block, each found at the row where the
-    // one before it ends, so that ids of empty segments cost nothing.
-    while (true) {
-      const long long lo = starts[s];
-      const long long hi = starts[s + 1];
-      if (lo <= row0) {
-        // The segment holding row0: its one tile that starts in this block.
-        const long long k = (row0 - lo + a.tile_rows - 1) / a.tile_rows;
-        const long long start = lo + k * a.tile_rows;
-        if (start < hi) run_tile(a, slot, s, lo, hi, start, b, 0, lane);
-      } else {
-        run_tile(a, slot, s, lo, hi, lo, b, 1, lane);   // starts inside this block
-      }
-      if (hi >= row_end) break;
-      s = seg[hi];
-      if (s >= a.num_segments) break;
-    }
-  }
-}
 
 }  // namespace
 
@@ -302,29 +100,12 @@ extern "C" int fused_gather_segment_sum_f32(const void* values, const void* gath
       tile_rows % 32 != 0) {
     return cudaErrorInvalidValue;
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long entries = static_cast<long long>(m) * (num_segments + 1LL);
-  segment_starts<<<static_cast<unsigned>((entries + kThreads - 1) / kThreads), kThreads, 0,
-                   st>>>(static_cast<const int*>(seg), static_cast<long long*>(starts),
-                         static_cast<int*>(arrivals), m, n, num_segments);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  int device = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reduce_tiles, kThreads, 0);
-  Args a{static_cast<const float*>(values), static_cast<const int*>(gather_idx),
-         static_cast<const int*>(seg), static_cast<const long long*>(starts),
-         static_cast<int*>(arrivals), static_cast<float*>(partials),
-         static_cast<float*>(out), static_cast<float*>(counts), n,
-         (n + tile_rows - 1) / tile_rows, m, v, num_segments, tile_rows};
-  const long long units = static_cast<long long>(m) * a.blocks;
-  long long grid = static_cast<long long>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  const long long needed = (units + kWarps - 1) / kWarps;
-  if (grid > needed) grid = needed;
-  reduce_tiles<<<static_cast<unsigned>(grid), kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{static_cast<const float*>(values), static_cast<const int*>(gather_idx),
+               static_cast<const int*>(seg), static_cast<const long long*>(starts),
+               static_cast<int*>(arrivals), static_cast<float*>(partials),
+               static_cast<float*>(out), static_cast<float*>(counts), n,
+               (n + tile_rows - 1) / tile_rows, m, v, num_segments, tile_rows};
+  return segment_tiles::launch<GatherRows>(a, static_cast<long long*>(starts),
+                                           static_cast<int*>(arrivals),
+                                           static_cast<cudaStream_t>(stream));
 }

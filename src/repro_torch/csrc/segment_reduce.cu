@@ -6,7 +6,7 @@
 // values (m, N, V) float32, seg (m, N) int32, non-decreasing along each
 // row; ids outside [0, num_segments) are dropped (negative ids sort first,
 // padding ids >= num_segments last). out (m, num_segments, V) float32;
-// the kernel writes every entry.
+// the kernels write every entry.
 //
 // Replaces: src/repro/kernels/segment_reduce/segment_reduce.py ·
 // segment_reduce_sorted_pallas (a diagonal band of one-hot MXU products
@@ -19,107 +19,85 @@
 // (4 V B) once, and the output is written once: rows * (4 + 4 V) +
 // m * num_segments * V * 4 bytes, one add per value.
 //
-// Design: the fused shuffle-reduce kernel's, without the gather. One CTA
-// per (slot, segment). Two threads binary-search the sorted seg row for
-// the segment's rows [lo, hi), so dropped rows are never touched and no
-// CTA depends on another. Thread j sums the rows lo + j, lo + j + kThreads,
-// ... in that order, for up to kCols value columns at a time in registers;
-// a fixed-shape tree in shared memory then adds the kThreads partial sums.
-// No float atomics: a segment's sum depends only on its own rows in
-// stream order, never on the padded length N or on where the segment
-// starts. That takes the place of the TPU kernel's fixed-block rule (its
-// token block shrinks to N when N < 512, so its order could depend on N).
+// What stands in the way: skew. Under Zipf keys one segment holds several
+// percent of a slot's rows; one CTA a segment leaves the other SMs idle
+// while it runs.
 //
-// Cost of the simple design: a segment's rows go through one CTA, so a
-// hot segment holding a large share of the rows runs on one SM while the
-// others idle.
+// Design: kernel 2's segment-anchored tiles (segment_tiles.cuh), without
+// the gather. Tiles of tile_rows rows anchored at each segment's first row
+// are spread over the warps of a persistent grid; lane j adds rows
+// lo + kT + j, + 32, ... in order; a fixed shuffle tree and an ordered
+// combine of the partials follow. Kernel 2 adds the same rows in the same
+// order, so on the same rows (gathered there, in rank order here) the two
+// give the same bits. The loader, ContiguousRows: lane j loads its own
+// row's V words, kRowUnroll rows in flight. A warp's 32 rows are one
+// contiguous span, so each of its loads touches the span's lines, which
+// the first load brings into L1. A loader that copied each span into a
+// per-warp shared-memory stage with 16-byte cp.async copies first was
+// slower on the H100 at chunk 0's shape (0.555 ms with 2 stages in flight,
+// 0.60 ms with 4, where ptxas spilled, against 0.52 ms for this one).
 
 #include <cuda_runtime.h>
 
+#include "segment_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kCols = 16;  // value columns per pass, kept in registers
+using segment_tiles::Args;
+using segment_tiles::kCols;
 
-__device__ long long lower_bound(const int* seg, long long n, int key) {
-  long long lo = 0;
-  long long hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (seg[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
+constexpr int kRowUnroll = 4;    // rows a lane loads before it adds them
 
-__global__ void __launch_bounds__(kThreads)
-sorted_segment_sum(const float* __restrict__ values, const int* __restrict__ seg,
-                   float* __restrict__ out, long long n, int v,
-                   int num_segments) {
-  __shared__ float red[kCols][kThreads];
-  __shared__ long long range[2];
-  const int s = blockIdx.x;
-  const int slot = blockIdx.y;
-  const long long row0 = static_cast<long long>(slot) * n;
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] = lower_bound(seg + row0, n, s + threadIdx.x);
-  }
-  __syncthreads();
-  const long long lo = range[0];
-  const long long len = range[1] - lo;
-  float* out_row = out + (static_cast<long long>(slot) * num_segments + s) * v;
-  if (len == 0) {
-    for (int c = threadIdx.x; c < v; c += kThreads) out_row[c] = 0.f;
-    return;
-  }
-  const float* rows = values + (row0 + lo) * v;
+// Kernel 3's loader: stream row r is value row r of its slot.
+struct ContiguousRows {
+  static constexpr bool kCounts = false;
 
-  for (int c0 = 0; c0 < v; c0 += kCols) {
-    const int nc = min(kCols, v - c0);
-    float acc[kCols];
+  __device__ __forceinline__ void sum(const Args& a, long long slot, long long start,
+                                      long long end, int c0, int nc, int lane,
+                                      float (&acc)[kCols]) const {
+    const float* table = a.values + slot * a.n * a.v + c0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-    for (long long t = threadIdx.x; t < len; t += kThreads) {
-      const float* row = rows + t * v + c0;
+    for (long long r0 = start + lane; r0 < end; r0 += 32 * kRowUnroll) {
+      float x[kRowUnroll][kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (c < nc) acc[c] += row[c];
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const long long r = r0 + 32 * u;
+        const float* row = table + r * a.v;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) x[u][c] = (r < end && c < nc) ? row[c] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        if (r0 + 32 * u >= end) continue;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[c] += x[u][c];
       }
     }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) red[c][threadIdx.x] = acc[c];
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-      if (threadIdx.x < stride) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          red[c][threadIdx.x] += red[c][threadIdx.x + stride];
-        }
-      }
-      __syncthreads();
-    }
-    if (threadIdx.x < nc) out_row[c0 + threadIdx.x] = red[threadIdx.x][0];
-    __syncthreads();
   }
-}
+};
 
 }  // namespace
 
-// Launches the sorted segment-sum of m slots on `stream`. Returns the
-// cudaError_t of the launch (0 on success). The caller checks shapes,
+// Launches the sorted segment-sum of m slots on `stream`: segment_starts,
+// then reduce_tiles. starts ((m, S + 1) int64), arrivals ((m, S) int32) and
+// partials ((m, ceil(n / tile_rows), 2, V) float32) are scratch the caller
+// allocates; tile_rows is a positive multiple of 32. Returns the
+// cudaError_t of the launches (0 on success). The caller checks shapes,
 // types and contiguity.
-extern "C" int segment_reduce_sorted_f32(const void* values, const void* seg,
-                                         void* out, int m, long long n, int v,
-                                         int num_segments, void* stream) {
-  if (m <= 0 || n <= 0 || v <= 0 || num_segments <= 0) {
+extern "C" int segment_reduce_sorted_f32(const void* values, const void* seg, void* out,
+                                         void* starts, void* arrivals, void* partials, int m,
+                                         long long n, int v, int num_segments, int tile_rows,
+                                         void* stream) {
+  if (m <= 0 || n <= 0 || v <= 0 || num_segments <= 0 || tile_rows <= 0 ||
+      tile_rows % 32 != 0) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(num_segments, m);
-  sorted_segment_sum<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(values), static_cast<const int*>(seg),
-      static_cast<float*>(out), n, v, num_segments);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{static_cast<const float*>(values), nullptr, static_cast<const int*>(seg),
+               static_cast<const long long*>(starts), static_cast<int*>(arrivals),
+               static_cast<float*>(partials), static_cast<float*>(out), nullptr, n,
+               (n + tile_rows - 1) / tile_rows, m, v, num_segments, tile_rows};
+  return segment_tiles::launch<ContiguousRows>(a, static_cast<long long*>(starts),
+                                               static_cast<int*>(arrivals),
+                                               static_cast<cudaStream_t>(stream));
 }

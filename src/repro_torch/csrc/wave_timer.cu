@@ -25,7 +25,8 @@
 // update granularity (the smallest non-zero step between back-to-back
 // reads) depends on the part and is measured by chip_smoke.py.
 //
-// Bound: launch latency, plus for stamp_through its copy: bytes, each byte
+// Bound: launch latency (measured as the device time a launch of
+// empty_kernel, back to back), plus for stamp_through its copy: bytes, each byte
 // read once and written once. At chunk 0 of the measured path a slot's
 // received cluster ids are m * cap = 32 * 163840 int32 (21.0 MB), so the
 // copy moves 41.9 MB, 12.5 us at 3.35 TB/s. To stream at that rate the
@@ -91,6 +92,10 @@ __global__ void read_ticks_kernel(Anchors anchors, unsigned int* ticks) {
   read_anchors(anchors);
   write_stamp(ticks);
 }
+
+// Does nothing: its device time a launch, back to back, is the launch
+// floor that bounds read_ticks.
+__global__ void empty_kernel() {}
 
 __global__ void __launch_bounds__(kThreads)
 stamp_through_kernel(const unsigned char* __restrict__ src,
@@ -170,6 +175,13 @@ int pack_anchors(const void* const* ptrs, int count, Anchors* out) {
 }
 
 }  // namespace
+
+// One launch of an empty kernel (one thread) on `stream`: the launch
+// floor, read_ticks' bound. Returns the cudaError_t of the launch.
+extern "C" int wave_timer_launch_floor(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One stamp into `ticks` ((2,) uint32) after reading one byte of each of
 // the `n_anchors` (at most 8) anchors, on `stream`. Returns the

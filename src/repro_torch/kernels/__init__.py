@@ -15,6 +15,8 @@ Each subpackage has:
                          each segment's pair count
   segment_reduce       — sorted segment-sum without the gather (its own
                          entry point; no engine path launches it)
+                         (both: csrc/segment_tiles.cuh, the tiles and the
+                         order in which a segment's rows are added)
   coded_shuffle        — XOR of word slabs: the coded shuffle's packet
                          encode (one instance: slab ^ its swap, masked)
                          and decode (the flat instance;
@@ -28,5 +30,6 @@ Each subpackage has:
                          ops.py also holds the decode path (plain ops)
   moe_dispatch         — stable counting-sort ranks and counts under a
                          bucket scatter (its own entry point; no engine or
-                         model path launches it)
+                         model path launches it); span_split.py mirrors how
+                         it loads a tile
 """

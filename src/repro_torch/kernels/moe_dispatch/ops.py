@@ -20,7 +20,7 @@ from repro_torch.kernels.moe_dispatch.moe_dispatch import MAX_DESTS, dispatch_ra
 from repro_torch.kernels.moe_dispatch.ref import dispatch_ranks_ref, scatter_to_buckets
 
 # Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per call that runs the kernel's passes, never for the plain version.
+# +1 per call that runs the kernel (one launch), never for the plain version.
 launches = 0
 
 
@@ -45,9 +45,9 @@ def dispatch_ranks(dest: torch.Tensor, num_dests: int):
             f"dispatch_ranks takes 1..{MAX_DESTS} destinations and fewer than 2^31"
             f" tokens, got {num_dests} and {dest.shape[0]}")
     rank = torch.empty_like(dest)
-    counts = torch.zeros(num_dests, dtype=torch.int32, device=dest.device)
     if dest.shape[0] == 0:
-        return rank, counts
+        return rank, torch.zeros(num_dests, dtype=torch.int32, device=dest.device)
+    counts = torch.empty(num_dests, dtype=torch.int32, device=dest.device)
     with torch.cuda.device(dest.device):
         dispatch_ranks_cuda(dest, rank, counts, num_dests)
     global launches

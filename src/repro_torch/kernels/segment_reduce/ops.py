@@ -14,7 +14,8 @@ from repro_torch.kernels.segment_reduce.ref import segment_reduce_sorted_ref
 from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_sorted_cuda
 
 # Launches of the CUDA kernel since import (or since a caller reset it):
-# +1 per launch, never for the plain version on the CPU.
+# +1 per call (its two kernels, segment_starts and reduce_tiles), never for
+# the plain version on the CPU.
 launches = 0
 
 
@@ -27,8 +28,8 @@ def segment_reduce_sorted(values: torch.Tensor, seg_ids: torch.Tensor,
     version does not); ids outside ``[0, num_segments)`` are dropped. Row
     ``i`` equals the reference's ``segment_reduce_sorted(values[i],
     seg_ids[i], num_segments)``. CPU tensors run the plain version; CUDA
-    tensors launch ``csrc/segment_reduce.cu`` (one launch for all slots,
-    counted in this module's ``launches``) or raise.
+    tensors launch ``csrc/segment_reduce.cu`` (one call for all slots,
+    counted once in this module's ``launches``) or raise.
     """
     if values.device.type == "cpu":
         return segment_reduce_sorted_ref(values, seg_ids, num_segments)

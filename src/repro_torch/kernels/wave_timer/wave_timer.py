@@ -44,7 +44,10 @@ def _entries():
                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p]
     ring.restype = ctypes.c_int
-    return read, stamp, ring
+    floor = lib.wave_timer_launch_floor
+    floor.argtypes = [ctypes.c_void_p]
+    floor.restype = ctypes.c_int
+    return read, stamp, ring, floor
 
 
 def _anchor_array(anchors: Sequence[torch.Tensor]):
@@ -63,6 +66,15 @@ def read_ticks_cuda(anchors: Sequence[torch.Tensor], ticks: torch.Tensor) -> Non
                        torch.cuda.current_stream(ticks.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"read_ticks kernel launch failed: cudaError {rc}")
+
+
+def launch_floor_cuda(device: torch.device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the launch
+    floor that bounds :func:`read_ticks_cuda` (not counted as a launch of
+    kernel 5). Raises if the launch is refused."""
+    rc = _entries()[3](torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
 
 
 def stamp_through_cuda(primary: torch.Tensor, out: torch.Tensor,

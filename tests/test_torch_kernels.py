@@ -522,6 +522,112 @@ def test_segment_kernel_matches_plain(n_rows, num_segments, v, pad):
         assert torch.equal(seg_ops.segment_reduce_sorted(values2, seg2, num_segments), got)
 
 
+@given(st.integers(1, 2500), st.integers(1, 30), st.sampled_from([32, 64, 2048]),
+       st.integers(0, 400), st.sampled_from([1, 3, 11]), st.integers(0, 2 ** 31 - 1))
+@settings(max_examples=12, deadline=None)
+def test_segment_tile_order_matches_pallas(n_rows, num_segments, tile_rows, pad, v, seed):
+    """Kernel 3 adds a segment's rows in kernel 2's tile order (lane j of a
+    tile takes rows start + j, + 32, ...; a shuffle tree; tiles in order).
+    That order, in numpy, against the reference's Pallas kernel in interpret
+    mode: exact on integers, within 1e-5 of the sum of magnitudes on
+    normals; the port's plain version likewise."""
+    import jax.numpy as jnp
+
+    from repro.kernels.segment_reduce.segment_reduce import segment_reduce_sorted_pallas
+
+    rng = np.random.default_rng(seed)
+    pad = min(pad, n_rows - 1)
+    values, seg = _segment_inputs(rng, 1, n_rows, num_segments, v, "int", pad)
+    normals = rng.standard_normal(values.shape).astype(np.float32)
+    ident = np.arange(n_rows)
+    ok = (seg[0] >= 0) & (seg[0] < num_segments)
+    scale = np.zeros((num_segments, v))
+    np.add.at(scale, seg[0][ok], np.abs(normals[0][ok]).astype(np.float64))
+    for kind, x in (("int", values), ("normal", normals)):
+        want = np.asarray(segment_reduce_sorted_pallas(
+            jnp.asarray(x[0]), jnp.asarray(seg[0]), num_segments, interpret=True))
+        tiled = _tiled_sums(x[0], ident, seg[0], num_segments, tile_rows)
+        plain = seg_ops.segment_reduce_sorted(torch.from_numpy(x), torch.from_numpy(seg),
+                                              num_segments)[0].numpy()
+        if kind == "int":
+            np.testing.assert_array_equal(tiled, want)
+            np.testing.assert_array_equal(plain, want)
+        else:
+            for got in (tiled, plain):
+                assert (np.abs(got.astype(np.float64) - want) <= 1e-5 * scale).all()
+
+
+def _gathered_case(n_rows, num_segments, v, pad, hot, seed, dev):
+    """Skewed sorted ids, a permutation gather, normals; the same rows in
+    rank order for kernel 3 (all on ``dev``)."""
+    m = 2
+    rng = np.random.default_rng(seed)
+    seg = torch.from_numpy(_skewed_seg(rng, m, n_rows, num_segments, pad, hot)).to(dev)
+    values = torch.from_numpy(rng.standard_normal((m, n_rows, v)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(
+        np.stack([rng.permutation(n_rows) for _ in range(m)]).astype(np.int32)).to(dev)
+    rows = torch.gather(values, 1, idx.long()[..., None].expand(m, n_rows, v)).contiguous()
+    return values, idx, seg, rows
+
+
+SEG_BITS_CASES = [
+    # (rows, segments, V, padding rows, hot share): V = 11 (the path's),
+    # V below and at the 12 columns a pass, V past it (two passes); hot
+    # segments many tiles long; tiny slabs.
+    (5000, 10, 11, 300, 0.6),
+    (3 * TILE_ROWS + 17, 4, 11, 0, 0.9),
+    (40 * TILE_ROWS + 5, 3, 11, 2 * TILE_ROWS + 5, 0.0),
+    (9000, 6, 3, 10, 0.5),
+    (9000, 6, 12, 10, 0.5),
+    (7000, 5, 17, 30, 0.5),
+    (33, 2, 1, 1, 0.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,num_segments,v,pad,hot", SEG_BITS_CASES)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_segment_kernel_equals_fused_kernel_bitwise(n_rows, num_segments, v, pad, hot, offset):
+    """On normals, kernel 3 on the rank-sorted rows gives kernel 2's bits on
+    the gathered ones, and the tile order's bits in numpy, wherever the
+    rows start in memory (``offset`` floats past a 16-byte boundary)."""
+    dev = _cuda()
+    values, idx, seg, rows = _gathered_case(n_rows, num_segments, v, pad, hot,
+                                            n_rows + v + offset, dev)
+    m = rows.shape[0]
+    shifted = torch.cat([torch.zeros(offset, device=dev), rows.reshape(-1)])[offset:]
+    shifted = shifted.view(m, n_rows, v)
+    before = seg_ops.launches
+    got = seg_ops.segment_reduce_sorted(shifted, seg, num_segments)
+    fused, _ = fused_ops.fused_shuffle_reduce(values, idx, seg, num_segments)
+    torch.cuda.synchronize()
+    assert seg_ops.launches == before + 1
+    assert torch.equal(got, fused)
+    rows_np, seg_np = rows.cpu().numpy(), seg.cpu().numpy()
+    for i in range(m):
+        np.testing.assert_array_equal(
+            got[i].cpu().numpy(),
+            _tiled_sums(rows_np[i], np.arange(n_rows), seg_np[i], num_segments))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,num_segments,v,pad,hot", SEG_BITS_CASES[:3])
+def test_segment_kernel_pad_and_shift_invariant(n_rows, num_segments, v, pad, hot):
+    """A longer padded slab, and the stream shifted by leading padding,
+    leave every bit of kernel 3's sums."""
+    dev = _cuda()
+    _, _, seg, rows = _gathered_case(n_rows, num_segments, v, pad, hot, n_rows, dev)
+    got = seg_ops.segment_reduce_sorted(rows, seg, num_segments)
+    m = rows.shape[0]
+    for lead, extra in ((0, 777), (5, 0), (TILE_ROWS + 3, 1), (31, 4096)):
+        rows2 = torch.cat([torch.ones((m, lead, v), device=dev), rows,
+                           torch.ones((m, extra, v), device=dev)], dim=1)
+        seg2 = torch.cat([torch.full((m, lead), -1, dtype=torch.int32, device=dev), seg,
+                          torch.full((m, extra), num_segments, dtype=torch.int32, device=dev)],
+                         dim=1)
+        assert torch.equal(seg_ops.segment_reduce_sorted(rows2, seg2, num_segments), got)
+
+
 # ---------------------------------------------------------------------------
 # XOR word slabs (the coded shuffle; CPU parity in test_torch_coded.py).
 # ---------------------------------------------------------------------------
