@@ -59,15 +59,18 @@
 //   running count (which starts at the warp's offset), and a token's rank
 //   is the tile's prefix plus that count plus its peers in lower lanes,
 //   stored at once. The last tile writes counts.
-// Where the time goes (NVIDIA H100 80GB HBM3, 700 W, T = 2^20, E = 64, phase
-// stamps from %globaltimer): the tile load about 1.1 us, the counts 0.6,
-// the offsets 0.4, the look-back 3.7 (a first round of loads takes about
-// 2.9 us while every tile reads its window at once), the ranks and their
-// stores 4.5. Tried on the card and slower: __match_any_sync instead of
-// the ballots, a division a word in the look-back (the window's row and
-// destination), ranking before counting (so that the look-back waits for
-// the slowest tile's ranks), and the look-back's loads kept in flight during
-// the ranking.
+// Where the time goes (NVIDIA H100 80GB HBM3, 700 W, T = 2^20, E = 64;
+// tools/dispatch_phases.py stamps each CTA's phases): the tile load ends
+// about 1.0 us in, the counts 0.6 later, the offsets 0.35, the look-back
+// 3.9 (an L2 load takes ~2,000 cycles while every tile reads its window,
+// ~290 alone), the ranks and their stores 4.5, of which the ballots are
+// ~2.3 (unrolling them at a known bit count gains nothing: they are
+// throughput-bound). Tried in exploratory probes and slower:
+// __match_any_sync instead of the ballots, a division a word in the
+// look-back (the window's row and destination), ranking before counting
+// (the look-back then waits for the slowest tile's ranks), the look-back's
+// loads kept in flight during the ranking, and 4,096-token tiles of 256
+// or 512 threads.
 // Scratch: 1 + ceil(T / kTile) * E 64-bit words (the ticket, then the
 // descriptors), zeroed once when allocated; two calls in flight at once
 // need two scratch buffers.

@@ -33,9 +33,10 @@
 // row's V words, kRowUnroll rows in flight. A warp's 32 rows are one
 // contiguous span, so each of its loads touches the span's lines, which
 // the first load brings into L1. A loader that copied each span into a
-// per-warp shared-memory stage with 16-byte cp.async copies first was
-// slower on the H100 at chunk 0's shape (0.555 ms with 2 stages in flight,
-// 0.60 ms with 4, where ptxas spilled, against 0.52 ms for this one).
+// per-warp shared-memory stage with 16-byte cp.async copies first, with 2,
+// 4 or 8 stages in flight, was slower in exploratory probes on the H100 at
+// chunk 0's shape (with 4 and more, ptxas spilled or the registers cut
+// occupancy).
 
 #include <cuda_runtime.h>
 
