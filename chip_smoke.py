@@ -25,7 +25,7 @@ the fused reduce bit for bit on normals and unchanged by padding, timed
 beside ``index_add_`` and ``torch.segment_reduce``; the XOR kernel's
 encode instance beside the three passes it
 replaced, and its flat instance beside ``torch.bitwise_xor``), then
-drives four paths of ``MapReduceJob`` (``scheduler="os4m"``,
+drives six paths of ``MapReduceJob`` (``scheduler="os4m"``,
 ``pipeline_chunks=4``) on full-size batches and checks every output
 against a numpy oracle:
 
@@ -48,6 +48,26 @@ against a numpy oracle:
   0 slowed 2x, whose speed estimate and planned load must fall; then the
   stamp kernels at its shapes, ``read_ticks`` beside an empty kernel's
   time a launch under the same burst timer (the launch floor, its bound);
+* the elastic path (stacked unless named): a fused and a
+  ``checkpoint_waves=True`` job replay the main path's plan of batch 0 in
+  turns (== each other and the oracle, bit for bit; the walk's fence
+  priced in phase-B ms); batch 0 with slot 5 killed before wave 2 (waves
+  0-1 checkpointed, the residue re-planned onto 31 slots and replayed in
+  2 waves, == oracle, slot 5 given no load; kernel 2 launched once a
+  walked and once a replayed wave; peak memory); batch 1 replanned for
+  the dead slot (reason ``slot_dead``); ``resize(24)`` re-projecting the
+  snapshot, batch 1's pairs re-sliced into 24 shards replaying it (==
+  oracle), ``resize(32)`` back; then on the sharded backend (32 streams)
+  the same kill (== the stacked run, bit for bit) and
+  ``resize(24, devices=...)`` with one batch;
+* the multi-job path: ``MultiJobCoordinator`` on the 32-slot mesh with
+  two tenants at full width, II (batches 0-1, weight 1) and PUMA SelfJoin
+  (Zipf 0.40 over 150,000 keys, 13 values a pair, two batches from seeds
+  seed+1000 and seed+1001, weight 2), each under ``ReusePolicy()``: solo
+  runs, then ``run_queue`` in WSPT and in FIFO order and
+  ``run_interleaved``, every result == its solo run == its oracle, bit for
+  bit, the tenants' caches never colliding; the completions, the
+  measured and planned sum w*C and the coschedule overlap are printed;
 * the coded path: Coded MapReduce's r = 2 XOR multicast shuffle on the
   paper's 8 nodes (m = 8, one Reduce slot each; n =
   recommended_num_clusters(8) = 88) over slots 0-7 of batch 0, the first
@@ -141,6 +161,12 @@ K = 2 ** 21             # pairs per slot
 V = 11                  # float32 values per pair (44 B + 4 B key = 48 B)
 NUM_KEYS = 120_000      # distinct keys
 ZIPF_S = 0.97           # key skew of InvertedIndex
+# The multi-job path's second tenant: PUMA SelfJoin as the reference's
+# simulator calibrates it (Zipf 0.40 over 150,000 keys, 56 B pairs: a
+# 4-byte key and 13 float32 values), two batches from fresh seeds.
+SJ_KEYS, SJ_ZIPF_S, SJ_V, SJ_SEED = 150_000, 0.40, 13, 1000
+KILL_SLOT, KILL_WAVE = 5, 2   # the elastic path's mid-batch kill
+RESIZED_M = 24                # the elastic path's warm resize (32 -> 24 -> 32)
 INVALID = 0.02          # share of invalid pairs
 WIDE_BINS = 2 ** 17     # histogram width beyond one CTA's shared memory
 SKETCH_N = 2 ** 17      # clusters of the sketch path
@@ -226,15 +252,18 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tup
 
 
 class Workload:
-    """The InvertedIndex key population: Zipf ranks -> int32 key hashes."""
+    """A PUMA key population (InvertedIndex unless told otherwise): Zipf
+    ranks -> int32 key hashes, ``v`` float32 values a pair."""
 
-    def __init__(self, num_clusters: int, device):
-        ranks = np.arange(1, NUM_KEYS + 1, dtype=np.float64)
-        p = ranks ** -ZIPF_S
+    def __init__(self, num_clusters: int, device, num_keys: int = NUM_KEYS,
+                 zipf_s: float = ZIPF_S, v: int = V):
+        ranks = np.arange(1, num_keys + 1, dtype=np.float64)
+        p = ranks ** -zipf_s
         self.cdf = torch.as_tensor(np.cumsum(p / p.sum()), device=device)
+        self.num_keys, self.v = num_keys, v
         # Multiplicative hash of the key index: spreads keys over int32,
         # negatives included.
-        self.hashes_np = (np.arange(NUM_KEYS, dtype=np.uint32)
+        self.hashes_np = (np.arange(num_keys, dtype=np.uint32)
                           * np.uint32(2654435761)).view(np.int32)
         self.hashes = torch.as_tensor(self.hashes_np, device=device)
         self.cluster_np = self.clusters_of_keys(num_clusters)
@@ -255,10 +284,10 @@ class Workload:
         """
         rng = np.random.default_rng(seed)
         u = torch.as_tensor(rng.random((M, K)), device=self.device)
-        kidx = torch.searchsorted(self.cdf, u).clamp_(max=NUM_KEYS - 1)
+        kidx = torch.searchsorted(self.cdf, u).clamp_(max=self.num_keys - 1)
         del u
         valid_np = rng.random((M, K)) >= INVALID
-        values_np = rng.integers(0, 3, size=(M, K, V), dtype=np.int8)
+        values_np = rng.integers(0, 3, size=(M, K, self.v), dtype=np.int8)
         keys = self.hashes[kidx]
         kidx_np = kidx.to(torch.int32).cpu().numpy()
         del kidx
@@ -1178,6 +1207,336 @@ def measured_path(batches, main_runs, main_plan0, pipelined0, counters, n, MapRe
             "profile": profile}, launches
 
 
+class TimedCalls:
+    """Wraps one method of a job (``job.<name>``): each call's host time in
+    ms, after a device synchronise at both ends when ``sync``."""
+
+    def __init__(self, job, name: str, sync: bool):
+        self.ms = []
+        self._fn = getattr(job, name)
+        self._sync = sync
+        setattr(job, name, self)
+
+    def __call__(self, *args, **kwargs):
+        if self._sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._fn(*args, **kwargs)
+        if self._sync:
+            torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def reslice(batch, m: int):
+    """The same pairs re-sliced into ``m`` shards: every slot's stream laid
+    end to end, padded with invalid pairs to a multiple of ``m``."""
+    keys, values, valid = batch
+    total = keys.numel()
+    k = -(-total // m)
+    pad = m * k - total
+    v = values.shape[-1]
+    return (torch.cat([keys.reshape(-1), keys.new_zeros(pad)]).view(m, k),
+            torch.cat([values.reshape(-1, v), values.new_zeros((pad, v))]).view(m, k, v),
+            torch.cat([valid.reshape(-1), valid.new_zeros(pad)]).view(m, k))
+
+
+def run_timed(job, batch, counters) -> tuple:
+    """``job.run(batch)`` from a synchronised start: ``(result, info)`` with
+    the wall time, the phases and kernels 1 and 2's launches in the run."""
+    hist_mod, fused_mod = counters["histogram"][0], counters["fused_shuffle_reduce"][0]
+    h0, f0 = hist_mod.launches, fused_mod.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = job.run(batch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return res, {"wall_ms": wall_ms, **job.last_phase_ms,
+                 "histogram_launches": hist_mod.launches - h0,
+                 "fused_launches": fused_mod.launches - f0}
+
+
+def same_bits(res, want) -> bool:
+    """A result's values and counts equal bit for bit to another result's,
+    or to a ``(values, counts)`` pair."""
+    values, counts = (want.values, want.counts) if hasattr(want, "values") else want
+    return np.array_equal(res.values, values) and np.array_equal(res.counts, counts)
+
+
+def elastic_path(batches, main_runs, main_plan0, main_peak_gb, pipelined0, counters, n, smi,
+                 MapReduceConfig, MapReduceJob, ReusePolicy, dev):
+    """The elastic mesh at the main path's size (see the module docstring).
+    Every check raises. Returns ``(record, launches)`` with the path's
+    kernel counts (set to 0 just before it)."""
+    (batch0, oracle0), (batch1, oracle1) = batches[0], batches[1]
+    chunks = main_plan0.waves.num_chunks
+    torch.cuda.empty_cache()
+    reset_launches(counters)
+
+    # 1. The fence's price: a fused and a checkpointed job replay the main
+    # path's plan of batch 0 (loaded as a snapshot) in turns.
+    policy = ReusePolicy(max_drift=1.0, max_speed_drift=float("inf"))
+    pair = {label: MapReduceJob(lambda b: b, MapReduceConfig(
+                num_slots=M, num_clusters=n, reuse=policy, checkpoint_waves=ckpt))
+            for label, ckpt in (("fused", False), ("checkpointed", True))}
+    for job in pair.values():
+        job.load_snapshot(main_plan0.to_json())
+    turns = {"fused": [], "checkpointed": []}
+    for _ in range(2):
+        for label in ("fused", "checkpointed", "checkpointed", "fused"):
+            res, info = run_timed(pair[label], batch0, counters)
+            what = f"elastic path: {label} replay of the main plan on batch 0"
+            check(res.reused and info["histogram_launches"] == 1
+                  and info["fused_launches"] == chunks,
+                  f"{what}: replayed, kernel 1 once, kernel 2 once a wave")
+            check(same_bits(res, pipelined0), f"{what}: == the main path's fused run, "
+                  "bit for bit")
+            check_oracle(res, oracle0, what)
+            turns[label].append(info["phase_b"])
+    ck = pair["checkpointed"]
+    check(ck.last_checkpoint_wave == chunks and ck.last_replayed_waves == 0
+          and ck.last_replay_plan is None and ck.mesh_events == [],
+          "elastic path: the uninterrupted walk checkpointed every wave and replayed none")
+    fence = float(np.median(turns["checkpointed"]) / np.median(turns["fused"]))
+    print(f"elastic path: checkpointed == fused == oracle on the main plan, bit for bit | phase "
+          f"B ms in turns: fused {', '.join(f'{t:.1f}' for t in turns['fused'])}; checkpointed "
+          f"{', '.join(f'{t:.1f}' for t in turns['checkpointed'])} (median ratio {fence:.3f}) | "
+          f"{smi}", flush=True)
+    del pair, ck
+    torch.cuda.empty_cache()
+
+    # 2. A kill before wave 2 of batch 0: the residue replays on 31 slots.
+    job = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
+                                                    checkpoint_waves=True, reuse=ReusePolicy()))
+    events = []
+    job.on_mesh_change = events.append
+    replays = TimedCalls(job, "_execute", sync=True)
+    plans = TimedCalls(job, "_plan", sync=False)
+    job.set_slot_failure(KILL_SLOT, at_wave=KILL_WAVE)
+    torch.cuda.reset_peak_memory_stats()
+    killed, kinfo = run_timed(job, batch0, counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    what = f"elastic path: batch 0 with slot {KILL_SLOT} killed before wave {KILL_WAVE}"
+    check_oracle(killed, oracle0, what)
+    check(same_bits(killed, pipelined0), f"{what}: == the main path's run, bit for bit")
+    rplan = job.last_replay_plan
+    check(job.last_checkpoint_wave == KILL_WAVE and job.last_replayed_waves == chunks - KILL_WAVE,
+          f"{what}: waves 0-{KILL_WAVE - 1} checkpointed, {chunks - KILL_WAVE} replayed (got "
+          f"{job.last_checkpoint_wave}, {job.last_replayed_waves})")
+    check(rplan is not None and rplan.schedule.slot_loads[KILL_SLOT] == 0.0
+          and not bool((rplan.schedule.assignment == KILL_SLOT).any()),
+          f"{what}: the replay plan gives slot {KILL_SLOT} no load")
+    check(kinfo["fused_launches"] == KILL_WAVE + job.last_replayed_waves and len(replays.ms) == 1,
+          f"{what}: kernel 2 launched once a walked wave and once a replayed wave")
+    check([e["event"] for e in events] == ["slot_dead"] and bool(job.dead_slots[KILL_SLOT]),
+          f"{what}: one slot_dead event")
+    killed_rec = {**kinfo, "replay_ms": replays.ms[0], "replan_ms": plans.ms[-1],
+                  "replayed_waves": job.last_replayed_waves, "peak_gb": peak_gb}
+    whole = main_runs[0]
+    print(f"{what}: oracle ok, == main path, replay plan gives slot {KILL_SLOT} no load | run "
+          f"{kinfo['wall_ms']:.1f} ms (phase A {kinfo['phase_a']:.1f}, plan {kinfo['plan']:.1f}, "
+          f"phase B {kinfo['phase_b']:.1f}, of which the residue's re-plan "
+          f"{killed_rec['replan_ms']:.1f} and replay {replays.ms[0]:.1f}) against a whole batch's "
+          f"{whole['wall_ms']:.1f} ms (phase B {whole['phase_b']:.1f}) | kernel 2 launches "
+          f"{kinfo['fused_launches']} ({KILL_WAVE} walked + {job.last_replayed_waves} replayed) | "
+          f"peak {peak_gb:.1f} GB (main path {main_peak_gb:.1f} GB) | {smi}", flush=True)
+
+    # 3. Batch 1 plans around the dead slot.
+    res1, info1 = run_timed(job, batch1, counters)
+    what = "elastic path: batch 1 after the kill"
+    check(res1.plan_reason == "slot_dead" and not res1.reused
+          and res1.schedule.slot_loads[KILL_SLOT] == 0.0,
+          f"{what}: replanned for the dead slot (reason {res1.plan_reason!r}), slot "
+          f"{KILL_SLOT} has no load")
+    check(job.last_replayed_waves == 0
+          and info1["fused_launches"] == job.last_plan.waves.num_chunks, f"{what}: a clean walk")
+    check_oracle(res1, oracle1, what)
+    print(f"{what}: {res1.plan_reason}, slot {KILL_SLOT} load 0, oracle ok | run "
+          f"{info1['wall_ms']:.1f} ms (phase B {info1['phase_b']:.1f})", flush=True)
+
+    # 4. Warm resize 32 -> 24 -> 32: the snapshot is re-projected, and batch
+    # 1's pairs re-sliced into 24 shards replay it.
+    t0 = time.perf_counter()
+    job.resize(RESIZED_M)
+    resize_ms = (time.perf_counter() - t0) * 1e3
+    snap = job.schedule_cache.snapshot
+    check(job.schedule_cache.reprojections == 1 and snap.schedule.num_slots == RESIZED_M
+          and snap.schedule.slot_loads[KILL_SLOT] == 0.0,
+          f"elastic path: resize({RESIZED_M}) re-projected the snapshot, slot {KILL_SLOT} "
+          "still dead")
+    small = reslice(batch1, RESIZED_M)
+    res24, info24 = run_timed(job, small, counters)
+    what = f"elastic path: batch 1 re-sliced into {RESIZED_M} shards"
+    check(res24.reused and info24["histogram_launches"] == 1
+          and info24["fused_launches"] == snap.waves.num_chunks,
+          f"{what}: replays the re-projected plan (reason {res24.plan_reason!r})")
+    check_oracle(res24, oracle1, what)
+    del small
+    t0 = time.perf_counter()
+    job.resize(M)
+    resize_back_ms = (time.perf_counter() - t0) * 1e3
+    check(job.schedule_cache.reprojections == 2
+          and job.schedule_cache.snapshot.schedule.num_slots == M,
+          f"elastic path: resize({M}) re-projected the snapshot back")
+    res32, info32 = run_timed(job, batch1, counters)
+    check_oracle(res32, oracle1, "elastic path: batch 1 back at 32 slots")
+    check([e["event"] for e in events] == ["slot_dead", "resize", "resize"],
+          "elastic path: mesh events slot_dead, resize, resize")
+    print(f"{what}: reused, oracle ok | resize({RESIZED_M}) {resize_ms:.1f} ms (re-bin + one "
+          f"host plan), run at {RESIZED_M} {info24['wall_ms']:.1f} ms (phase B "
+          f"{info24['phase_b']:.1f}) | resize({M}) {resize_back_ms:.1f} ms, batch 1 at {M}: "
+          f"{res32.plan_reason}, reused={res32.reused}, oracle ok, run {info32['wall_ms']:.1f} ms "
+          f"| events {[e['event'] for e in events]}", flush=True)
+    cache_stats = job.schedule_cache.stats()
+    del job, res1, res24, res32
+    torch.cuda.empty_cache()
+
+    # 5. The sharded backend (32 streams): the same kill, then resize with
+    # the 24 slots' devices.
+    sjob = MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
+                                                     checkpoint_waves=True), backend="sharded")
+    sjob.set_slot_failure(KILL_SLOT, at_wave=KILL_WAVE)
+    sk, sinfo = run_timed(sjob, batch0, counters)
+    what = "elastic path: sharded batch 0 with the same kill"
+    check(same_bits(sk, killed) and sk.overflow == 0, f"{what}: == the stacked killed run, bit for "
+          "bit")
+    check(np.array_equal(sjob.last_replay_plan.schedule.assignment, rplan.schedule.assignment),
+          f"{what}: the stacked run's replay plan")
+    check(sinfo["histogram_launches"] == M
+          and sinfo["fused_launches"] == M * (KILL_WAVE + sjob.last_replayed_waves),
+          f"{what}: kernel 1 once a slot, kernel 2 once a slot and walked or replayed wave")
+    sjob.resize(RESIZED_M, devices=[dev] * RESIZED_M)
+    check(len(sjob.devices) == RESIZED_M and None not in sjob.streams
+          and len({st.cuda_stream for st in sjob.streams}) == RESIZED_M,
+          f"elastic path: sharded resize({RESIZED_M}) placed {RESIZED_M} slot streams")
+    small = reslice(batch1, RESIZED_M)
+    s24, s24info = run_timed(sjob, small, counters)
+    check_oracle(s24, oracle1, f"elastic path: sharded batch 1 at {RESIZED_M} slots")
+    check(s24info["histogram_launches"] == RESIZED_M,
+          f"elastic path: sharded batch at {RESIZED_M} slots: kernel 1 once a slot")
+    print(f"{what}: == stacked, bit for bit | run {sinfo['wall_ms']:.1f} ms (phase B "
+          f"{sinfo['phase_b']:.1f}) | resize({RESIZED_M}, devices) then batch 1: oracle ok, run "
+          f"{s24info['wall_ms']:.1f} ms", flush=True)
+    del sjob, small, sk, s24, killed
+    torch.cuda.empty_cache()
+    launches = read_launches(counters)
+    print(f"elastic path launches: histogram {launches['histogram']}, fused_shuffle_reduce "
+          f"{launches['fused_shuffle_reduce']} | peak device memory (killed batch) {peak_gb:.1f} "
+          f"GB (main path {main_peak_gb:.1f} GB) | {smi}", flush=True)
+    return {"fence": {"phase_b_turns": turns, "ratio": fence}, "killed": killed_rec,
+            "after_kill": info1,
+            "resize": {"to_ms": resize_ms, "back_ms": resize_back_ms, "run_24": info24,
+                       "run_32": info32, "cache": cache_stats},
+            "sharded": {"killed": sinfo, "run_24": s24info}, "peak_gb": peak_gb}, launches
+
+
+def multi_job_path(batches, counters, n, smi, seed, MapReduceConfig, MapReduceJob,
+                   ReusePolicy, MultiJobCoordinator, dev):
+    """Two tenants on one 32-slot mesh (see the module docstring): solo runs,
+    ``run_queue`` in WSPT and FIFO order and ``run_interleaved``, every
+    result equal to its solo run and its oracle bit for bit. Every check
+    raises. Returns ``(record, launches)`` with the path's kernel counts
+    (set to 0 just before it)."""
+    t0 = time.perf_counter()
+    sj = Workload(n, dev, num_keys=SJ_KEYS, zipf_s=SJ_ZIPF_S, v=SJ_V)
+    sj_batches = []
+    for b in range(2):
+        batch, _, oracle = sj.batch(seed + SJ_SEED + b)
+        sj_batches.append((batch, oracle))
+    del sj
+    data_s = time.perf_counter() - t0
+    for _, oracle in sj_batches:
+        check(float(oracle[0].max()) < 2 ** 24, "SelfJoin oracle below 2^24 (exact in f32)")
+    hot = float(sj_batches[0][1][1].max() / sj_batches[0][1][1].sum())
+    print(f"multi-job path: SelfJoin batches {seed + SJ_SEED}, {seed + SJ_SEED + 1} in "
+          f"{data_s:.1f} s (m={M}, K={K}, V={SJ_V}, n={n}; hottest cluster {hot:.4f} of the "
+          "pairs)", flush=True)
+    tenants = {"II": (1.0, batches[:2]), "SJ": (2.0, sj_batches)}
+    torch.cuda.empty_cache()
+    reset_launches(counters)
+
+    def make():
+        return MapReduceJob(lambda b: b, MapReduceConfig(num_slots=M, num_clusters=n,
+                                                         reuse=ReusePolicy()))
+
+    solo, solo_runs = {}, {}
+    for name, (_, bs) in tenants.items():
+        job = make()
+        solo[name], solo_runs[name] = [], []
+        for b, (batch, oracle) in enumerate(bs):
+            res, info = run_timed(job, batch, counters)
+            check_oracle(res, oracle, f"multi-job path: {name} alone, batch {b}")
+            check(info["histogram_launches"] == 1 and info["fused_launches"] > 0,
+                  f"multi-job path: {name} alone, batch {b}: kernels 1 and 2 launched")
+            solo[name].append((res.values, res.counts))
+            solo_runs[name].append(info)
+        del job
+    for name, runs in solo_runs.items():
+        print(f"multi-job path: {name} alone: runs " + ", ".join(
+            f"{r['wall_ms']:.1f} ms (plan {r['plan']:.1f}, phase B {r['phase_b']:.1f})"
+            for r in runs), flush=True)
+
+    def coordinator():
+        co = MultiJobCoordinator(num_slots=M)
+        for name, (weight, bs) in tenants.items():
+            co.add_job(name, make(), weight=weight)
+            co[name].observe_batch_seconds(
+                float(np.mean([r["wall_ms"] for r in solo_runs[name]])) / 1e3)
+            for batch, _ in bs:
+                co.submit(name, batch)
+        return co
+
+    def same_as_solo(co, what):
+        for name, (_, bs) in tenants.items():
+            results = co[name].results
+            check(len(results) == len(bs), f"{what}: {name} ran {len(bs)} batches")
+            for b, (res, want, (_, oracle)) in enumerate(zip(results, solo[name], bs)):
+                check(same_bits(res, want),
+                      f"{what}: {name} batch {b} == its solo run, bit for bit")
+                check_oracle(res, oracle, f"{what}: {name} batch {b}")
+        stats = co.tenants.stats()
+        check(stats["collisions"] == 0 and co.tenants.keys() == list(tenants)
+              and co["II"].job.schedule_cache is not co["SJ"].job.schedule_cache,
+              f"{what}: one cache a tenant, no collision")
+        return stats
+
+    queues = {}
+    for order in ("wspt", "fifo"):
+        co = coordinator()
+        planned = {o: co.planned_weighted_completion(o) for o in ("wspt", "fifo")}
+        out = co.run_queue(order)
+        stats = same_as_solo(co, f"multi-job path: run_queue({order!r})")
+        queues[order] = {"order": out["order"], "completions": out["completions"],
+                         "weighted_completion": out["weighted_completion"],
+                         "planned": planned, "coschedule_overlap": out["coschedule_overlap"],
+                         "cache": {k: stats[k] for k in ("tenants", "collisions", "batches",
+                                                         "replans", "reuses")}}
+        print(f"multi-job path: run_queue({order!r}): order {out['order']}, completions "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in out["completions"].items())
+              + f" | measured sum w*C {out['weighted_completion']:.4f} s; planned wspt "
+              f"{planned['wspt']:.4f}, fifo {planned['fifo']:.4f} | coschedule overlap "
+              f"{out['coschedule_overlap']:.3f} | every result == solo == oracle | {smi}",
+              flush=True)
+        del co
+    check(queues["wspt"]["planned"]["wspt"] <= queues["wspt"]["planned"]["fifo"] + 1e-9,
+          "multi-job path: WSPT's planned sum w*C is no more than FIFO's")
+    co = coordinator()
+    t0 = time.perf_counter()
+    seq = co.run_interleaved()
+    interleaved_s = time.perf_counter() - t0
+    check([name for name, _ in seq] == ["II", "SJ", "II", "SJ"],
+          "multi-job path: run_interleaved alternates the tenants")
+    same_as_solo(co, "multi-job path: run_interleaved")
+    del co, seq
+    launches = read_launches(counters)
+    print(f"multi-job path: run_interleaved {interleaved_s:.3f} s, every result == solo == oracle "
+          f"| launches histogram {launches['histogram']}, fused_shuffle_reduce "
+          f"{launches['fused_shuffle_reduce']}", flush=True)
+    del sj_batches, tenants
+    torch.cuda.empty_cache()
+    return {"sj": {"keys": SJ_KEYS, "zipf_s": SJ_ZIPF_S, "v": SJ_V, "data_s": data_s},
+            "solo": solo_runs, "queues": queues, "interleaved_s": interleaved_s}, launches
+
+
 def wave_timer_phase(wt_ops, wt_ref, copy_split, launch_floor, ids_shape, dev) -> dict:
     """Kernels 5-6 at the measured path's shapes. ``stamp_through`` copies one
     slot's received cluster ids of chunk 0 (``ids_shape`` int32) bitwise,
@@ -1609,6 +1968,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import clustering, scheduler as sched_lib
     from repro_torch.core.mapreduce import MapReduceConfig, MapReduceJob
+    from repro_torch.core.multi_job import MultiJobCoordinator
     from repro_torch.core.schedule_cache import ReusePolicy
     from repro_torch.core.stats_provider import CountMinParams
     from repro_torch.kernels import _build
@@ -1878,6 +2238,16 @@ def main(argv=None) -> int:
     record["measured_path"], launches["measured"] = measured_path(
         batches, runs, main_plan0, pipelined0, counters, n, MapReduceConfig, MapReduceJob,
         ReusePolicy, wt_ops, dev)
+
+    # ---- The elastic path (checkpointed walk, a mid-batch kill, warm
+    # resizes, both backends) and the multi-job path (II and SelfJoin on
+    # one mesh), on the main path's batches.
+    record["elastic_path"], launches["elastic"] = elastic_path(
+        batches, runs, main_plan0, record["peak_gb"], pipelined0, counters, n, smi, MapReduceConfig,
+        MapReduceJob, ReusePolicy, dev)
+    record["multi_job_path"], launches["multi_job"] = multi_job_path(
+        batches, counters, n, smi, args.seed, MapReduceConfig, MapReduceJob, ReusePolicy,
+        MultiJobCoordinator, dev)
     del batches, batch, oracle
     torch.cuda.empty_cache()
 
@@ -2223,6 +2593,8 @@ def main(argv=None) -> int:
          "e1024_bound_ms": disp_cases[1024]["bound_ms"]},
     ]
     check(launches["main"]["histogram"] > 0 and launches["main"]["fused_shuffle_reduce"] > 0
+          and all(launches[p]["histogram"] > 0 and launches[p]["fused_shuffle_reduce"] > 0
+                  for p in ("elastic", "multi_job"))
           and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0
           and launches["measured"]["read_ticks"] > 0
           and launches["measured"]["stamp_through"] > 0

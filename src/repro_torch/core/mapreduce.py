@@ -68,6 +68,16 @@ the same reduce, so outputs are bit-identical to the uncoded engine.
 delivered value goes through encode → decode, so coded and uncoded runs
 of one quantized job agree bit for bit.
 
+Elastic mesh: slots can die (``set_slot_failure``; a dead slot's speed is
+an exact 0.0, so every planner assigns it nothing), rejoin, and the mesh
+can be resized (``resize``: every per-slot structure is truncated or
+padded, and a cached plan is re-projected onto the new slot count instead
+of going cold). With ``checkpoint_waves`` phase B walks the waves one
+fenced copy → run pair at a time and checkpoints each finished wave on
+the host; a slot killed mid-batch (``set_slot_failure(i, at_wave=w)``)
+replays only the unfinished waves on the survivors, and outputs stay
+bit-identical to an uninterrupted run.
+
 Steady-state serving: with ``MapReduceConfig(reuse=ReusePolicy(...))``
 each plan is snapshotted in a :class:`~repro_torch.core.schedule_cache.
 ScheduleCache` and replayed while the measured statistics stay close (a
@@ -174,9 +184,11 @@ class MapReduceConfig:
     per-wave stamps on each slot's stream; without a tick source the
     executor falls back to wave-fenced host timing.
 
-    ``checkpoint_waves`` names a feature of the reference that the port
-    does not have yet; ``True`` raises ``NotImplementedError`` naming the
-    ROADMAP Queue 1 item that brings it.
+    Elastic mesh: ``checkpoint_waves`` walks phase B one fenced wave at a
+    time with host checkpoints, so a slot killed mid-batch
+    (``MapReduceJob.set_slot_failure(slot, at_wave=w)``) replays only the
+    unfinished waves on the surviving slots. It needs exact statistics,
+    the exact uncoded wire and the synthetic timing model.
     """
 
     num_slots: int                      # m — Reduce slots
@@ -192,7 +204,7 @@ class MapReduceConfig:
     estimate_speeds: bool = False       # learn speeds online from phase-B timings
     speed_ewma: float = 0.4             # estimator smoothing (newest-sample weight)
     measure_timings: Optional[bool] = None  # real per-slot wave clocks (sharded)
-    checkpoint_waves: bool = False      # elastic mesh (item 7)
+    checkpoint_waves: bool = False      # wave checkpoints (elastic mesh)
     shuffle_replication: int = 1        # 1 uncoded | 2 coded pair placement
     quantize_shuffle: Optional[str] = None  # None | int8 | fp8 wire payload
     stats: str = "exact"                # exact | sketch (count-min statistics)
@@ -234,7 +246,6 @@ class JobResult:
 def _unported(cfg: MapReduceConfig, backend: str):
     """The (setting, ROADMAP Queue 1 item) pairs of ``cfg`` the port lacks."""
     checks = [
-        (cfg.checkpoint_waves, "checkpoint_waves", 7),
         (backend == "sharded" and cfg.shuffle_replication > 1,
          "shuffle_replication=2 on backend='sharded'", _SHARDED_CODED_ITEM),
     ]
@@ -428,13 +439,16 @@ def _copy_chunk(buckets):
     """The "copy" of one chunk: slot ``j`` receives bucket ``[i, j]`` of every ``i``.
 
     ``(m_src, m_dst, cap, ...)`` → ``(m_dst, m_src · cap, ...)``: the
-    all-to-all of the reference is a transpose on one device.
+    all-to-all of the reference is a transpose on one device. The result
+    is contiguous, as the fused kernel takes it: at ``cap == 1`` (a wave
+    whose groups hold at most one pair) the reshape alone would be a
+    strided view.
     """
     bv, bc, bm = buckets
     m, _, cap = bm.shape
-    return (bv.transpose(0, 1).reshape(m, m * cap, bv.shape[-1]),
-            bc.transpose(0, 1).reshape(m, m * cap),
-            bm.transpose(0, 1).reshape(m, m * cap))
+    return (bv.transpose(0, 1).reshape(m, m * cap, bv.shape[-1]).contiguous(),
+            bc.transpose(0, 1).reshape(m, m * cap).contiguous(),
+            bm.transpose(0, 1).reshape(m, m * cap).contiguous())
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -1042,6 +1056,11 @@ class MapReduceJob:
             if not 0.0 < config.stream_prefix <= 1.0:
                 raise ValueError(
                     f"stream_prefix must be in (0, 1], got {config.stream_prefix}")
+        if config.stats == "sketch" and config.checkpoint_waves:
+            raise ValueError(
+                "stats='sketch' is incompatible with checkpoint_waves — "
+                "wave recovery zeroes completed per-cluster histogram "
+                "columns, which a count-min counter grid does not have")
         # Overflow escape hatches taken for estimate-committed capacities
         # (prefix-planned wave-1 caps; see _escalate_caps). Distinct from
         # ScheduleCache.capacity_fallbacks, which counts reused-plan
@@ -1085,6 +1104,28 @@ class MapReduceJob:
         self.last_phase_ms: Optional[dict] = None
         # The plan the last run() executed (telemetry for benches and tests).
         self.last_plan: Optional[sc.CachedSchedule] = None
+        # Elastic-mesh state: which slots have vanished (speed pinned to
+        # exact 0.0 — the dead-slot convention of ``scheduler.
+        # normalize_speeds``), and armed mid-batch kills (slot → wave
+        # index; fired by the checkpointing executor just before that
+        # wave runs). ``on_mesh_change(event_dict)`` is an optional
+        # observer hook; ``mesh_events`` keeps the full join/leave/death
+        # log either way.
+        self._dead_slots = np.zeros(config.num_slots, dtype=bool)
+        self._kill_at_wave: dict = {}
+        self.on_mesh_change: Optional[Callable[[dict], None]] = None
+        self.mesh_events: list = []
+        # Checkpoint telemetry of the last run() (None before the first
+        # checkpointed batch): wave cursor at the last completed
+        # checkpoint, how many waves the recovery replayed (0 = clean
+        # uninterrupted batch), and the WaveCheckpoint itself.
+        self.last_checkpoint_wave: Optional[int] = None
+        self.last_replayed_waves: Optional[int] = None
+        self.last_checkpoint: Optional[pipe.WaveCheckpoint] = None
+        # The recovery plan of the last mid-batch failure (None if the
+        # last batch ran clean): its schedule assigns the dead slots no
+        # load.
+        self.last_replay_plan: Optional[sc.CachedSchedule] = None
 
     def _init_slots(self, devices, num_slots: int) -> None:
         """One device and (on CUDA) one stream per slot of the sharded backend."""
@@ -1115,28 +1156,172 @@ class MapReduceJob:
         the slot read twice as *slow* (half the nominal speed); ``0.5``
         makes it read twice as fast. Affects only the wave timings the
         estimator sees (and hence future plans) — never the computed
-        outputs. ``factor == 0`` is the elastic mesh's dead slot (ROADMAP
-        Queue 1 item 7), not ported yet.
+        outputs.
+
+        ``factor == 0`` is the elastic-mesh limit: the slot is **dead**
+        (vanished, not infinitely slow) and the call routes to
+        :meth:`set_slot_failure` — future plans assign it nothing at all.
         """
         if not 0 <= slot < self.cfg.num_slots:
             raise ValueError(f"slot {slot} out of range [0, {self.cfg.num_slots})")
         if factor < 0:
             raise ValueError("slowdown factor must be >= 0 (0 = dead slot)")
         if factor == 0:
-            raise _not_ported([("set_slot_slowdown(slot, 0): a dead slot", 7)])
+            self.set_slot_failure(slot)
+            return
         self._slot_slowdown[slot] = factor
+
+    def set_slot_failure(self, slot: int, dead: bool = True,
+                         at_wave: Optional[int] = None) -> None:
+        """Declare slot ``slot`` dead (or revived) on the elastic mesh.
+
+        ``dead=True`` with no ``at_wave`` takes effect immediately: the
+        slot's speed is pinned to exact 0.0 in :meth:`current_speeds`, the
+        online estimator masks it out (a dead slot never re-inherits
+        work), and the next plan — forced by the schedule cache's
+        ``"slot_dead"`` structural check — assigns it nothing.
+
+        ``at_wave=w`` arms a **mid-batch kill** for fault injection
+        (``launch/serve.py --kill-at-wave i:w``): the slot dies just
+        before phase-B wave ``w`` executes, after waves ``0..w-1``
+        checkpointed. Requires ``MapReduceConfig(checkpoint_waves=True)``
+        — without wave checkpoints there is no consistent cut to recover
+        from.
+
+        ``dead=False`` revives a previously dead slot (a join): its speed
+        estimate resets to unknown and the next structural check replans.
+        """
+        if not 0 <= slot < self.cfg.num_slots:
+            raise ValueError(f"slot {slot} out of range [0, {self.cfg.num_slots})")
+        if at_wave is not None:
+            if not dead:
+                raise ValueError("at_wave only makes sense with dead=True")
+            if not self.cfg.checkpoint_waves:
+                raise ValueError(
+                    "set_slot_failure(at_wave=...) requires "
+                    "MapReduceConfig(checkpoint_waves=True)")
+            if at_wave < 0:
+                raise ValueError("at_wave must be >= 0")
+            self._kill_at_wave[int(slot)] = int(at_wave)
+            return
+        self._mark_slot_dead(slot, dead)
+
+    def _mark_slot_dead(self, slot: int, dead: bool = True) -> None:
+        """Flip one slot's dead bit + estimator mask; emit a mesh event."""
+        if bool(self._dead_slots[slot]) == bool(dead):
+            return
+        self._dead_slots[slot] = dead
+        self._kill_at_wave.pop(slot, None)
+        if self.speed_estimator is not None:
+            self.speed_estimator.set_slot_failure(slot, dead=dead)
+        self._emit_mesh_event({
+            "event": "slot_dead" if dead else "slot_join",
+            "slot": int(slot),
+            "num_slots": self.cfg.num_slots,
+            "alive": int(self.cfg.num_slots - int(self._dead_slots.sum())),
+        })
+
+    def _emit_mesh_event(self, event: dict) -> None:
+        """Log a join/leave/death/resize event; notify the observer hook."""
+        self.mesh_events.append(event)
+        if self.on_mesh_change is not None:
+            self.on_mesh_change(event)
+
+    def resize(self, num_slots: int, devices=None) -> None:
+        """Elastically resize the mesh to ``num_slots`` Reduce slots.
+
+        The cheap path through a membership change: instead of discarding
+        the job's warm state, every per-slot structure is re-shaped —
+
+        * a cached plan snapshot is **re-projected** onto the new slot
+          count (``CachedSchedule.reproject``: re-bin the per-shard
+          ``K^(i)`` baseline + one host re-plan from those warm
+          statistics — no cold statistics pass on the next batch);
+        * the speed estimator keeps the surviving slots' learned rates
+          (``SlotSpeedEstimator.resize``);
+        * slowdown/dead-slot vectors and armed kills are truncated or
+          padded (new slots arrive alive and nominal);
+        * the sharded drift closure is rebuilt for the new slots (the port
+          compiles nothing per shape, so no other cache is keyed on m);
+          the re-projected snapshot uploads its baseline once, at the next
+          drift check.
+
+        ``devices`` places the slots of ``backend="sharded"`` as the
+        constructor's ``devices=`` does (exactly ``num_slots`` entries;
+        ``None`` = ``num_slots`` copies of the current CUDA device) — the
+        counterpart of the reference's ``mesh``. The stacked backend takes
+        none.
+        """
+        old_m = self.cfg.num_slots
+        if num_slots == old_m:
+            return
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        if self.backend == "sharded":
+            self._init_slots(devices, num_slots)
+        elif devices is not None:
+            raise ValueError("devices= places the slots of backend='sharded'")
+
+        # Static speeds: keep survivors, pad joiners at nominal.
+        new_speeds = None
+        if self.cfg.speeds is not None:
+            base = list(self.cfg.speeds)[:num_slots]
+            base += [1.0] * (num_slots - len(base))
+            new_speeds = tuple(base)
+        self.cfg = dataclasses.replace(self.cfg, num_slots=num_slots, speeds=new_speeds)
+
+        # Per-slot state: truncate or pad (new slots alive, nominal).
+        keep = min(old_m, num_slots)
+        slowdown = np.ones(num_slots)
+        slowdown[:keep] = self._slot_slowdown[:keep]
+        self._slot_slowdown = slowdown
+        dead = np.zeros(num_slots, dtype=bool)
+        dead[:keep] = self._dead_slots[:keep]
+        self._dead_slots = dead
+        self._kill_at_wave = {s: w for s, w in self._kill_at_wave.items() if s < num_slots}
+        if self.speed_estimator is not None:
+            self.speed_estimator.resize(num_slots)
+
+        if self.schedule_cache is not None:
+            self.schedule_cache.drift_fn = self._make_sharded_drift()
+            snap = self.schedule_cache.snapshot
+            if snap is not None:
+                # Warm resize: re-project the snapshot instead of going
+                # cold — one re-plan from the re-binned K^(i) baseline.
+                self.schedule_cache.snapshot = snap.reproject(num_slots, self._plan)
+                self.schedule_cache.reprojections += 1
+        self._emit_mesh_event({
+            "event": "resize",
+            "from": int(old_m),
+            "to": int(num_slots),
+            "alive": int(num_slots - int(self._dead_slots.sum())),
+        })
+
+    @property
+    def dead_slots(self) -> np.ndarray:
+        """Boolean mask of vanished slots (copy)."""
+        return self._dead_slots.copy()
 
     def current_speeds(self) -> Optional[np.ndarray]:
         """Speed vector the next plan will use (None ≡ all nominal).
 
         Static ``cfg.speeds`` wins; otherwise the online estimate (None
-        until the estimator has seen at least one batch).
+        until the estimator has seen at least one batch). Dead slots
+        overlay an exact 0.0 on either source — with neither source set,
+        a mesh with dead slots still returns a concrete vector (nominal
+        alive, 0.0 dead) so every planner sees the failure.
         """
         if self.cfg.speeds is not None:
-            return np.asarray(self.cfg.speeds, np.float64)
-        if self.speed_estimator is not None:
-            return self.speed_estimator.speeds()
-        return None
+            base = np.asarray(self.cfg.speeds, np.float64)
+        elif self.speed_estimator is not None:
+            base = self.speed_estimator.speeds()
+        else:
+            base = None
+        if np.any(self._dead_slots):
+            if base is None:
+                base = np.ones(self.cfg.num_slots, np.float64)
+            return np.where(self._dead_slots, 0.0, base)
+        return base
 
     def proc_times_row(self, total_load: float = 1.0) -> np.ndarray:
         """This job's row of the multi-job R-matrix: per-slot time for
@@ -1481,6 +1666,7 @@ class MapReduceJob:
         key_dist: Optional[np.ndarray],
         k_per_shard: int,
         prev: Optional[sc.CachedSchedule] = None,
+        num_chunks: Optional[int] = None,
         assignment_override: Optional[np.ndarray] = None,
         strategy_override: Optional[str] = None,
         pinned_first: Optional[np.ndarray] = None,
@@ -1502,6 +1688,11 @@ class MapReduceJob:
         O(sketch size), capacities come from overestimate-only cell bounds,
         and the passed ``key_dist`` is ignored (callers may pass ``None``).
 
+        ``num_chunks`` overrides ``cfg.pipeline_chunks`` — the elastic
+        recovery path plans only the *remaining* waves after a mid-batch
+        failure, so the replayed pipeline is exactly as deep as the work
+        left to do.
+
         The remaining keywords serve streaming-prefix refinement
         (:meth:`_plan_prefixed`): ``assignment_override`` /
         ``strategy_override`` replay a committed cluster → slot
@@ -1513,6 +1704,7 @@ class MapReduceJob:
         """
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
+        pipeline_chunks = num_chunks if num_chunks is not None else cfg.pipeline_chunks
         speeds = self.current_speeds()
         provider = self._stats
         state = np.asarray(local_hist)
@@ -1549,7 +1741,7 @@ class MapReduceJob:
         elif cfg.scheduler == "auto":
             strategy, schedule, strategy_costs = sim.pick_strategy(
                 key_dist, m, eta=cfg.eta,
-                pipelined=cfg.pipelined and cfg.pipeline_chunks > 1,
+                pipelined=cfg.pipelined and pipeline_chunks > 1,
                 speeds=speeds,
                 # Measured wire rate (last batch) + per-slot locality.
                 bytes_per_pair=self._wire_rate(),
@@ -1626,7 +1818,7 @@ class MapReduceJob:
         # job-wide chunks, globally ordered by finish time under the slot
         # speeds — see ``pipeline.plan_waves``.
         waves = pipe.plan_waves(key_dist, schedule.assignment, m,
-                                cfg.pipeline_chunks, speeds=speeds,
+                                pipeline_chunks, speeds=speeds,
                                 replication=cfg.shuffle_replication,
                                 pinned_first=pinned_first)
         chunk_caps = [
@@ -1865,25 +2057,15 @@ class MapReduceJob:
         pipelined = pipelined and num_chunks > 1
         waves = num_chunks if pipelined else 1
         groups = self._groups()
-        plans, sends, overflow, wire, events = [], [], [], [], []
-        for j, (inter, (slots, dev)) in enumerate(zip(intermediate, groups)):
-            with self._on_slot(j):
-                plans.append(self._plan_tensors(planned, dev))
-                me = torch.as_tensor(slots, device=dev)
-                send, ovf, rows = _spill(inter, plans[j][0], plans[j][2], static, me,
-                                         inter[1])
-                sends.append(send)
-                overflow.append(ovf)
-                wire.append(torch.stack([rows, torch.zeros_like(rows),
-                                         torch.zeros_like(rows), rows]))
-            events.append(self._mark(j))
+        plans, sends, events, overflow, rows = self._spill_groups(intermediate, planned, static)
+        wire = [torch.stack([r, torch.zeros_like(r), torch.zeros_like(r), r]) for r in rows]
         timings = mt.WaveTimings.empty(m, waves)
         acc = cnt = None
         for c in range(waves):
             recv = []
             for j in range(m):
                 with self._on_slot(j):
-                    recv.append(self._copy_to(j, sends, events, c))
+                    recv.append(self._wave_copy(j, sends, events, c))
             if self.device.type == "cuda":               # the fence
                 for dev in {d for _, d in groups}:
                     torch.cuda.synchronize(dev)
@@ -1913,6 +2095,176 @@ class MapReduceJob:
                 with self._on_slot(j):
                     acc[j], cnt[j] = _merge_chunk(acc[j], cnt[j], out_c, cnt_c, reduce_op)
         return list(zip(acc, cnt, overflow, wire)), timings
+
+    def _spill_groups(self, intermediate, planned: sc.CachedSchedule, static):
+        """Every group's spill for a fenced walk. Per group: the plan's
+        tensors on its device, the chunks' send buckets, an event after the
+        spill, and :func:`_spill`'s overflow and wire-row scalars; returns
+        the five lists."""
+        plans, sends, events, overflow, rows = [], [], [], [], []
+        for j, (inter, (slots, dev)) in enumerate(zip(self._as_groups(intermediate),
+                                                      self._groups())):
+            with self._on_slot(j):
+                plans.append(self._plan_tensors(planned, dev))
+                me = torch.as_tensor(slots, device=dev)
+                send, ovf, wire_rows = _spill(inter, plans[j][0], plans[j][2], static, me,
+                                              inter[1])
+                sends.append(send)
+                overflow.append(ovf)
+                rows.append(wire_rows)
+            events.append(self._mark(j))
+        return plans, sends, events, overflow, rows
+
+    def _mask_completed(self, intermediate, completed: np.ndarray):
+        """Invalidate every pair whose cluster already checkpointed.
+
+        ``valid & ~completed[|key_hash| % n]``: one elementwise op per slot
+        group, no collectives. The replayed phase B then reduces exactly
+        the pairs of the unfinished waves — completed clusters contribute
+        nothing twice. Takes and returns the backend's form.
+        """
+        n = self.cfg.num_clusters
+        out = []
+        for j, ((key_hashes, values, valid), (_, dev)) in enumerate(zip(
+                self._as_groups(intermediate), self._groups())):
+            with self._on_slot(j):
+                done = torch.as_tensor(completed, dtype=torch.bool, device=dev)
+                out.append((key_hashes, values,
+                            valid & ~done[_cluster_ids(key_hashes, n).long()]))
+        return self._from_groups(out)
+
+    def _wave_copy(self, j: int, sends, events, chunk: int):
+        """Group ``j``'s received chunk ``chunk``: the stacked backend's
+        transpose of every slot's buckets, or the sharded copy of slot
+        ``j`` (:meth:`_copy_to`)."""
+        if self.backend == "stacked":
+            return _copy_chunk(sends[0][chunk])
+        return self._copy_to(j, sends, events, chunk)
+
+    def _host_merge(self, outs):
+        """One wave's per-group ``(out, counts)`` → host ``(values (n, V),
+        counts (n,))``, summed over slots (each cluster is reduced on one
+        slot), as :meth:`run` merges a whole batch."""
+        m, n = self.cfg.num_slots, self.cfg.num_clusters
+        values = self._gather([o[0] for o in outs]).cpu().numpy().reshape(m, n, -1).sum(axis=0)
+        counts = self._gather([o[1] for o in outs]).cpu().numpy().reshape(m, n).sum(axis=0)
+        return values, counts
+
+    def _execute_checkpointed(self, intermediate, planned: sc.CachedSchedule, local_k,
+                              k_per_shard: int, caps=None):
+        """Phase B with host checkpoints at wave granularity (elastic mesh).
+
+        Walks the §4.4 waves one fenced copy → run pair at a time, with
+        the steps of the other executors: one :func:`_spill` per slot
+        group, then per wave the chunk "copy", :func:`_reduce_chunk`
+        (kernel 2 for ``sum``) and a merge, which pulls the wave's outputs
+        to the host (the fence). Every cluster lives in exactly one wave
+        and is reduced on exactly one slot, and merging its single
+        non-zero contribution with exact zeros is order-insensitive, so
+        an uninterrupted walk is **bit-identical** to the fused pipeline.
+        After each wave the merged outputs land in a host
+        :class:`~repro_torch.core.pipeline.WaveCheckpoint`.
+
+        An armed kill (``set_slot_failure(slot, at_wave=w)``) fires just
+        before wave ``w``: the slot is marked dead, the walk's spill is
+        released, the *remaining* load (fresh ``K^(i)`` with completed
+        clusters zeroed) is re-planned onto the surviving slots with
+        exactly ``num_chunks − w`` chunks, completed clusters are masked
+        out of the intermediate pairs, and :meth:`_execute` replays only
+        that residue — so recovery costs the remaining waves' work, never
+        the whole batch. A kill armed past the last wave fires between
+        batches: the slot is dead for the next plan.
+
+        ``caps`` (``(capacity, chunk_caps)``) sizes the walk's buffers as
+        in :meth:`_execute`; with ``caps`` given the residue replays at
+        its own plan's cut caps too (:meth:`_needed_caps`).
+
+        Returns host ``(values (n, V), counts (n,), overflow_total)``.
+        """
+        cfg = self.cfg
+        n = cfg.num_clusters
+        static = self._static(planned, caps)
+        (_, _, _, _, reduce_op, pipelined, num_chunks, _) = static
+        pipelined = pipelined and num_chunks > 1
+        waves_total = num_chunks if pipelined else 1
+        ckpt = pipe.WaveCheckpoint(num_chunks=waves_total)
+        state = {"values": None, "counts": None, "overflow": 0, "replayed": 0}
+
+        def absorb(o, ct):
+            """Merge one wave into the host accumulators (replace for max)."""
+            if state["values"] is None:
+                state["values"], state["counts"] = np.zeros_like(o), np.zeros_like(ct)
+            if reduce_op == "max":
+                state["values"] = np.where(ct[:, None] > 0, o, state["values"])
+            else:
+                state["values"] = state["values"] + o
+            state["counts"] = state["counts"] + ct
+
+        def overflow_of(counts):
+            """Sum of the groups' overflow scalars, pulled."""
+            return int(self._gather([c.reshape(1) for c in counts]).sum())
+
+        def fire(due):
+            """Mark the due slots dead (pops their armed kills)."""
+            for slot in due:
+                self._kill_at_wave.pop(slot, None)
+                self._mark_slot_dead(slot)
+
+        def replay(cursor: int):
+            """Re-plan + re-execute the unfinished waves on the survivors."""
+            completed = (ckpt.completed_clusters if ckpt.completed_clusters is not None
+                         else np.zeros(n, dtype=bool))
+            hist = self._gather(local_k).cpu().numpy().astype(np.float64)
+            hist[:, completed] = 0.0
+            replan = self._plan(hist, hist.sum(axis=0), k_per_shard, prev=None,
+                                num_chunks=max(1, waves_total - cursor))
+            masked = self._mask_completed(intermediate, completed)
+            replay_caps = self._needed_caps(masked, replan) if caps is not None else None
+            results = self._as_groups(self._execute(masked, replan, replay_caps))
+            absorb(*self._host_merge(results))
+            state["overflow"] += overflow_of([r[2] for r in results])
+            state["replayed"] = (replan.waves.num_chunks
+                                 if cfg.pipelined and replan.waves.num_chunks > 1 else 1)
+            self.last_replay_plan = replan
+
+        def due(c: int):
+            return [slot for slot, w in self._kill_at_wave.items() if w <= c]
+
+        if not pipelined:
+            if due(0):
+                fire(due(0))
+                replay(0)
+            else:
+                results = self._as_groups(self._execute(intermediate, planned, caps))
+                absorb(*self._host_merge(results))
+                state["overflow"] += overflow_of([r[2] for r in results])
+                ckpt.mark_wave(np.arange(n), {}, n)
+        else:
+            plans, sends, events, overflow, _ = self._spill_groups(intermediate, planned, static)
+            state["overflow"] += overflow_of(overflow)
+            for c in range(num_chunks):
+                if due(c):
+                    fire(due(c))
+                    del sends, events       # the walk's spill, before the residue's
+                    replay(c)
+                    break
+                outs = []
+                for j in range(len(plans)):
+                    with self._on_slot(j):
+                        outs.append(_reduce_chunk(*self._wave_copy(j, sends, events, c),
+                                                  plans[j][1], n, reduce_op))
+                o, ct = self._host_merge(outs)
+                del outs
+                absorb(o, ct)
+                members = planned.waves.chunk_members(c)
+                ckpt.mark_wave(members, {int(k): o[k] for k in members}, n)
+
+        if self._kill_at_wave:
+            fire(list(self._kill_at_wave))
+        self.last_checkpoint = ckpt
+        self.last_checkpoint_wave = ckpt.wave_cursor
+        self.last_replayed_waves = state["replayed"]
+        return state["values"], state["counts"], state["overflow"]
 
     # -- public API ----------------------------------------------------------
 
@@ -2014,29 +2366,41 @@ class MapReduceJob:
         t2 = time.perf_counter()
 
         # ---- Phase B: measured (sharded + estimation: per-slot wave stamps,
-        # host-fenced clocks only without a tick source) or untimed.
+        # host-fenced clocks only without a tick source), untimed, or (the
+        # elastic mesh) the checkpointed walk, which merges on the host.
         measured = self._measure_timings and self.speed_estimator is not None
-        timings: Optional[mt.WaveTimings] = None
+        checkpointing = cfg.checkpoint_waves and not measured
+        if checkpointing:
+            self.last_replay_plan = None
 
         def execute(plan, caps=None):
+            """Phase B under ``plan``: ``(results, overflow, timings)``. The
+            checkpointed walk's results are the host ``(values, counts)``,
+            the others' the per-group device results."""
+            if checkpointing:
+                values, counts, overflow = self._execute_checkpointed(
+                    intermediate, plan, local_k, k_per_shard, caps)
+                return (values, counts), overflow, None
             if measured:
                 results, timings = self._execute_measured(intermediate, plan, caps)
             else:
                 results, timings = self._execute(intermediate, plan, caps), None
-            return self._as_groups(results), timings
+            results = self._as_groups(results)
+            return results, int(self._gather([r[2].reshape(1) for r in results]).sum()), timings
 
         # A reused escalated plan replays at the batch's cut caps, as the
         # escape hatch's re-execution below does.
         replay_escalated = (decision is not None and decision.action == "reuse"
                             and self._escalated(planned))
-        results, timings = execute(
+        results, overflow_total, timings = execute(
             planned, self._needed_caps(intermediate, planned) if replay_escalated else None)
-        overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
 
         # ---- Capacity fallback: a replayed plan's statistics-sized
         # buffers were too small for this batch. Overflow counting is
         # exact, so replan from the fresh statistics and re-execute —
-        # outputs are always the no-drop ones.
+        # outputs are always the no-drop ones. A checkpointed batch's kills
+        # already fired during the first walk, so its re-execution is a
+        # clean checkpointed pass.
         if decision is not None and decision.action == "reuse" and overflow_total > 0:
             cache.capacity_fallbacks += 1
             local_hist = self._gather(local_k).cpu().numpy()
@@ -2047,8 +2411,7 @@ class MapReduceJob:
             decision = sc.ReuseDecision("replan", "overflow", decision.drift,
                                         speed_drift=decision.speed_drift)
             del results
-            results, timings = execute(planned)
-            overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
+            results, overflow_total, timings = execute(planned)
 
         # ---- Estimate-commitment fallback (streaming prefix): wave 1's
         # committed cap under-provisioned this batch. Not a replan — every
@@ -2060,8 +2423,8 @@ class MapReduceJob:
             if cache is not None:
                 cache.store(planned)
             del results
-            results, timings = execute(planned, self._needed_caps(intermediate, planned))
-            overflow_total = int(self._gather([r[2].reshape(1) for r in results]).sum())
+            results, overflow_total, timings = execute(
+                planned, self._needed_caps(intermediate, planned))
 
         if cache is not None:
             cache.record(decision)
@@ -2077,14 +2440,19 @@ class MapReduceJob:
             self._observe_wave_timings(planned, key_dist)
 
         # Each cluster is reduced on exactly one slot, so the merge is a
-        # sum over slots (done on the pulled float32 arrays).
-        values = self._gather([r[0] for r in results]).cpu().numpy().reshape(m, n, -1).sum(axis=0)
-        counts_np = self._gather([r[1] for r in results]).cpu().numpy().reshape(m, n).sum(axis=0)
-        wire = self._gather([r[3][None] for r in results]).sum(dim=0)
-        acct = self._wire_accounting(wire, self._as_groups(intermediate)[0][1],
-                                     planned.waves.replication)
-        self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
-        inexact = acct.pop("inexact")
+        # sum over slots (done on the pulled float32 arrays; the
+        # checkpointed walk merged wave by wave and counts no wire bytes,
+        # as the reference's).
+        acct, inexact = {}, 0
+        if checkpointing:
+            values, counts_np = results
+        else:
+            values, counts_np = self._host_merge(results)
+            wire = self._gather([r[3][None] for r in results]).sum(dim=0)
+            acct = self._wire_accounting(wire, self._as_groups(intermediate)[0][1],
+                                         planned.waves.replication)
+            self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
+            inexact = acct.pop("inexact")
         t3 = time.perf_counter()
         self.last_phase_ms = {
             "phase_a": (t1 - t0) * 1e3,

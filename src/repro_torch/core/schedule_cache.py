@@ -27,9 +27,11 @@ always exact. :class:`ReusePolicy.capacity_slack` sizes the headroom that
 makes this rare.
 
 The JSON form of :class:`CachedSchedule` is the reference's, so a
-snapshot written by ``repro`` loads here and the reverse. The elastic
-re-projection (``rebin_hist``, ``CachedSchedule.reproject``) is ROADMAP
-Queue 1 item 7, and ``MultiTenantScheduleCache`` item 9.
+snapshot written by ``repro`` loads here and the reverse. On an elastic
+resize a snapshot is re-projected onto the new slot count
+(:func:`rebin_hist`, :meth:`CachedSchedule.reproject`) instead of going
+cold; :class:`MultiTenantScheduleCache` keys one isolated cache per job
+of a multi-job coordinator.
 """
 
 from __future__ import annotations
@@ -47,10 +49,12 @@ from repro_torch.core import slot_speeds as ss
 __all__ = [
     "DRIFT_METRICS",
     "drift_metric",
+    "rebin_hist",
     "ReusePolicy",
     "ReuseDecision",
     "CachedSchedule",
     "ScheduleCache",
+    "MultiTenantScheduleCache",
 ]
 
 DRIFT_METRICS = ("l1", "chi2")
@@ -88,6 +92,41 @@ def drift_metric(ref_hist, new_hist, kind: str = "l1") -> torch.Tensor:
     else:
         per_shard = 0.5 * ((p - q) ** 2 / (p + q).clamp_min(1e-9)).sum(dim=-1)
     return per_shard.max()
+
+
+def rebin_hist(local_hist, new_m: int) -> np.ndarray:
+    """Re-bin per-shard histograms ``(m, n) → (new_m, n)``, conserving mass.
+
+    The elastic-mesh statistics re-projection: shard axes are treated as
+    equal-width intervals of the same unit range (old shard ``i`` covers
+    ``[i/m, (i+1)/m)``, new shard ``j`` covers ``[j/new_m, (j+1)/new_m)``)
+    and each old row's counts are split across the new rows by fractional
+    interval overlap. Per-cluster totals (the column sums — the global
+    ``K`` the schedule is actually planned from) are preserved exactly up
+    to float rounding, so a resized mesh replans from *warm* statistics
+    instead of paying a cold measurement pass.
+
+    Overlaps are computed on the common integer scale ``m * new_m`` so the
+    weights are exact rationals (``overlap / new_m``), not accumulated
+    float boundaries.
+    """
+    h = np.asarray(local_hist, np.float64)
+    if h.ndim != 2:
+        raise ValueError(f"local_hist must be (m, n), got {h.shape}")
+    m = h.shape[0]
+    if new_m < 1:
+        raise ValueError("new_m must be >= 1")
+    if new_m == m:
+        return h.copy()
+    out = np.zeros((new_m, h.shape[1]))
+    for i in range(m):
+        a, b = i * new_m, (i + 1) * new_m   # old row i on the common scale
+        for j in range(a // m, -(-b // m)):
+            c, d = j * m, (j + 1) * m       # new row j on the common scale
+            ov = min(b, d) - max(a, c)
+            if ov > 0:
+                out[j] += h[i] * (ov / new_m)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +281,36 @@ class CachedSchedule:
         self.key_dist = (self.local_hist.sum(axis=0) if key_dist is None
                          else np.asarray(key_dist))
         self._hist_dev = None
+
+    def reproject(self, new_num_slots: int, planner) -> "CachedSchedule":
+        """Re-project this snapshot onto a different slot count (elastic mesh).
+
+        Instead of discarding warm state on a resize, the per-shard
+        ``K^(i)`` baseline is re-binned onto the new shard count
+        (:func:`rebin_hist` — per-cluster mass preserved) and ``planner``
+        — the job's ``_plan``-shaped callable
+        ``planner(local_hist, key_dist, k_per_shard, prev)`` — is invoked
+        once on the re-binned statistics to rebuild assignment, wave plan
+        and capacities for the new mesh. The result is a fully executable
+        snapshot whose drift baseline is the re-binned history, so the
+        next batch's decide() compares against warm statistics (and
+        reuses, when the workload is stationary) rather than starting
+        cold. ``k_per_shard`` is re-scaled so total plan-time pairs are
+        conserved (``ceil(k · m / new_m)``).
+        """
+        if new_num_slots < 1:
+            raise ValueError("new_num_slots must be >= 1")
+        old_m = int(self.local_hist.shape[0])
+        if new_num_slots == old_m:
+            return self
+        new_hist = rebin_hist(self.local_hist, new_num_slots)
+        k = self.k_per_shard
+        if k is None:  # pre-elastic snapshot: bound from the statistics
+            k = int(np.ceil(self.local_hist.sum(axis=1).max()))
+        new_k = int(np.ceil(k * old_m / new_num_slots))
+        snap = planner(new_hist, new_hist.sum(axis=0), new_k, None)
+        snap.k_per_shard = new_k
+        return snap
 
     def to_json(self) -> Dict[str, Any]:
         """Serialize plan + provenance (not the device mirror) to plain types.
@@ -420,3 +489,100 @@ class ScheduleCache:
             "last_drift": self.last_drift,
             "last_speed_drift": self.last_speed_drift,
         }
+
+
+class MultiTenantScheduleCache:
+    """Per-job keyed :class:`ScheduleCache` snapshots — one cache, N tenants.
+
+    The multi-job coordinator gives each live job its own isolated
+    :class:`ScheduleCache` under a string key; snapshots, drift baselines
+    and telemetry never cross tenants (job A's plan is useless for job B's
+    key distribution, and silently replaying it would be a correctness
+    bug, not an optimisation). Isolation is by construction — every
+    tenant holds distinct objects — and :meth:`collisions` *measures* it,
+    so a test can assert zero rather than trust the construction.
+    """
+
+    def __init__(self, policy: Optional[ReusePolicy] = None):
+        self.default_policy = policy
+        self._tenants: Dict[str, ScheduleCache] = {}
+
+    def tenant(
+        self,
+        key: str,
+        policy: Optional[ReusePolicy] = None,
+        drift_fn=None,
+    ) -> ScheduleCache:
+        """The tenant's cache, created on first use (then args must agree).
+
+        A second caller reaching for an existing key with a *different*
+        policy object is almost certainly two jobs colliding on one key;
+        that raises instead of silently sharing state.
+        """
+        cache = self._tenants.get(key)
+        if cache is None:
+            pol = policy if policy is not None else self.default_policy
+            if pol is None:
+                raise ValueError(
+                    f"tenant {key!r}: no policy given and no default_policy")
+            cache = ScheduleCache(pol, drift_fn=drift_fn)
+            self._tenants[key] = cache
+            return cache
+        if policy is not None and cache.policy is not policy:
+            raise ValueError(
+                f"tenant key collision: {key!r} already exists with a "
+                "different ReusePolicy — two jobs must not share one key")
+        if drift_fn is not None:
+            cache.drift_fn = drift_fn
+        return cache
+
+    def adopt(self, key: str, cache: ScheduleCache) -> ScheduleCache:
+        """Register an existing per-job cache under a tenant key.
+
+        Used when a job arrives already owning its ScheduleCache (built
+        from ``MapReduceConfig.reuse``): the coordinator keys it rather
+        than replacing it, so warm snapshots survive admission. Adopting
+        a *different* cache under a live key is a collision and raises.
+        """
+        existing = self._tenants.get(key)
+        if existing is not None and existing is not cache:
+            raise ValueError(
+                f"tenant key collision: {key!r} already holds another cache")
+        self._tenants[key] = cache
+        return cache
+
+    def keys(self):
+        """Tenant keys currently live (insertion order)."""
+        return list(self._tenants)
+
+    def collisions(self) -> int:
+        """Snapshot objects shared between two tenants (must be 0).
+
+        Counts pairs of distinct tenants whose live ``snapshot`` (or the
+        snapshot's device-resident baseline histogram) is the *same
+        object* — the observable form of a cross-job cache collision.
+        """
+        shared = 0
+        items = list(self._tenants.values())
+        for a in range(len(items)):
+            for b in range(a + 1, len(items)):
+                sa, sb = items[a].snapshot, items[b].snapshot
+                if sa is None or sb is None:
+                    continue
+                if sa is sb or (sa._hist_dev is not None
+                                and sa._hist_dev is sb._hist_dev):
+                    shared += 1
+        return shared
+
+    def stats(self) -> Dict[str, Any]:
+        """Aggregate + per-tenant telemetry (collision count included)."""
+        per = {k: c.stats() for k, c in self._tenants.items()}
+        agg = {
+            "tenants": len(per),
+            "collisions": self.collisions(),
+            "batches": sum(s["batches"] for s in per.values()),
+            "replans": sum(s["replans"] for s in per.values()),
+            "reuses": sum(s["reuses"] for s in per.values()),
+        }
+        agg["per_tenant"] = per
+        return agg

@@ -5,7 +5,8 @@ The reference's module also reproduces the paper's job-duration figures
 its engines call: ``scheduler="auto"`` (:func:`pick_strategy`) and the
 reuse cost gate (:func:`estimate_replan_benefit`), both built on
 :func:`estimate_reduce_time` and :func:`scheduling_overhead`, and the
-serving engine's multi-job admission order (:func:`wspt_order`).
+serving engine's and the multi-job coordinator's admission order
+(:func:`wspt_order`, :func:`weighted_completion_time`).
 
 The model is the paper's cluster (§5): 8 worker VMs with measured
 bandwidths (network 37 MB/s, disk read 203 MB/s, disk write 121 MB/s) and
@@ -32,6 +33,7 @@ __all__ = [
     "pick_strategy",
     "estimate_replan_benefit",
     "wspt_order",
+    "weighted_completion_time",
 ]
 
 
@@ -296,3 +298,17 @@ def wspt_order(times, weights=None):
     with np.errstate(divide="ignore", invalid="ignore"):
         ratio = np.where(w > 0, t / np.where(w > 0, w, 1.0), np.inf)
     return np.argsort(ratio, kind="stable")
+
+
+def weighted_completion_time(times, weights=None, order=None):
+    """``Σ wᵢ Cᵢ`` when jobs run back-to-back in ``order``.
+
+    ``C_j`` is the cumulative time until job ``j`` finishes. ``order=None``
+    means FIFO (submission order) — the baseline WSPT is compared with.
+    """
+    t = np.asarray(times, dtype=np.float64)
+    w = (np.ones_like(t) if weights is None
+         else np.asarray(weights, dtype=np.float64))
+    idx = np.arange(t.shape[0]) if order is None else np.asarray(order)
+    completion = np.cumsum(t[idx])
+    return float(np.sum(w[idx] * completion))

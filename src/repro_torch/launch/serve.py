@@ -24,9 +24,12 @@ warm-starts the steady-state job from a persisted
 :class:`~repro_torch.core.schedule_cache.CachedSchedule` (skipping the cold
 replan); ``--save-snapshot p.json`` writes the final plan back.
 
-Elastic mesh (steady-state): ``--slot-slowdown i:0`` (a dead slot),
-``--checkpoint-waves`` and ``--kill-at-wave i:w`` are not ported yet and
-raise ``NotImplementedError`` naming ROADMAP item 7. In engine mode
+Elastic mesh (steady-state): ``--slot-slowdown i:0`` declares slot ``i``
+dead before the run; ``--checkpoint-waves`` persists phase-B progress at
+wave granularity; ``--kill-at-wave i:w`` kills slot ``i`` mid-batch just
+before wave ``w`` — only the unfinished waves replay on the survivors,
+and outputs stay bit-identical to an uninterrupted run. Every mesh event
+(a death, a join, a resize) is printed as it happens. In engine mode
 ``--slot-slowdown i:0`` is a dead lane, as in the reference.
 
 Timing source (steady-state): ``--backend shard_map`` maps to the port's
@@ -105,8 +108,8 @@ def parse_slowdowns(specs: Optional[List[str]]) -> List[Tuple[int, float]]:
 
     The factor is a wall-clock multiplier (2 = twice as slow), matching
     :meth:`repro_torch.core.mapreduce.MapReduceJob.set_slot_slowdown`. A
-    factor of exactly ``0`` declares the slot/lane **dead**: an engine
-    lane is then planned nothing (a dead MapReduce slot is ROADMAP item 7).
+    factor of exactly ``0`` declares the slot/lane **dead**: it is then
+    planned nothing.
     """
     out: List[Tuple[int, float]] = []
     for spec in specs or []:
@@ -130,8 +133,8 @@ def parse_kills(specs: Optional[List[str]]) -> List[Tuple[int, int]]:
 
     Arms a mid-batch fault injection: slot ``i`` dies just before phase-B
     wave ``w`` of the first batch executes (the reference's
-    ``MapReduceJob.set_slot_failure`` with ``at_wave``; ROADMAP item 7 in
-    the port). Requires ``--checkpoint-waves``.
+    :meth:`repro_torch.core.mapreduce.MapReduceJob.set_slot_failure` with
+    ``at_wave``). Requires ``--checkpoint-waves``.
     """
     out: List[Tuple[int, int]] = []
     for spec in specs or []:
@@ -148,11 +151,6 @@ def parse_kills(specs: Optional[List[str]]) -> List[Tuple[int, int]]:
     return out
 
 
-def _elastic_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the elastic mesh is not ported yet (ROADMAP item 7)")
-
-
 def _steady_state_main(args) -> None:
     """The ``--steady-state`` mode: MapReduce serving with schedule reuse."""
     import numpy as np
@@ -167,10 +165,6 @@ def _steady_state_main(args) -> None:
     kills = parse_kills(args.kill_at_wave)
     if kills and not args.checkpoint_waves:
         raise SystemExit("--kill-at-wave requires --checkpoint-waves")
-    if args.checkpoint_waves:
-        raise _elastic_not_ported("--checkpoint-waves")
-    if any(factor == 0 for _, factor in slowdowns):
-        raise _elastic_not_ported("--slot-slowdown i:0 (a dead slot)")
     device = torch.device(args.device)
 
     def make_batch(seed: int, alpha: float):
@@ -199,6 +193,11 @@ def _steady_state_main(args) -> None:
             # there: real slots can be genuinely slow without any
             # injection), synthetic slowdown-driven timings when stacked.
             estimate_speeds=bool(slowdowns) or args.backend == "shard_map",
+            # Wave checkpointing owns the fenced program structure, so it
+            # pins the synthetic timing model (measured mode is the other
+            # owner; the two are mutually exclusive by construction).
+            measure_timings=False if args.checkpoint_waves else None,
+            checkpoint_waves=args.checkpoint_waves,
             stats=args.stats,
             stream_prefix=args.stream_prefix,
             reuse=ReusePolicy(max_drift=args.max_drift,
@@ -213,6 +212,12 @@ def _steady_state_main(args) -> None:
             raise SystemExit(f"--slot-slowdown slot {slot} out of range "
                              f"[0, {slots})")
         job.set_slot_slowdown(slot, factor)
+    for slot, wave in kills:
+        if not 0 <= slot < slots:
+            raise SystemExit(f"--kill-at-wave slot {slot} out of range "
+                             f"[0, {slots})")
+        job.set_slot_failure(slot, at_wave=wave)
+    job.on_mesh_change = lambda ev: print(f"  mesh event: {ev}")
     if args.schedule_snapshot:
         with open(args.schedule_snapshot) as f:
             job.load_snapshot(json.load(f))
@@ -233,6 +238,11 @@ def _steady_state_main(args) -> None:
           f"{cache['speed_replans']} speed replans)")
     if steady:
         print(f"median reused-batch wall: {np.median(steady) * 1e3:.1f} ms")
+    if args.checkpoint_waves and job.last_checkpoint_wave is not None:
+        print(f"wave checkpoints: cursor {job.last_checkpoint_wave}, "
+              f"{job.last_replayed_waves} waves replayed on the last batch"
+              + (f", {len(job.mesh_events)} mesh events"
+                 if job.mesh_events else ""))
     if slowdowns and job.speed_estimator is not None:
         est = job.speed_estimator.speeds()
         if est is not None:

@@ -21,7 +21,7 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "import sys, repro_torch, repro_torch.core.mapreduce, "
         "repro_torch.core.schedule_cache, repro_torch.core.simulator, "
         "repro_torch.core.slot_speeds, repro_torch.core.stats_provider, "
-        "repro_torch.core.mesh_timing, "
+        "repro_torch.core.mesh_timing, repro_torch.core.multi_job, "
         "repro_torch.kernels.wave_timer.ops, repro_torch.kernels.wave_timer.ref, "
         "repro_torch.kernels.wave_timer.calibration, "
         "repro_torch.kernels.wave_timer.wave_timer, "
@@ -86,8 +86,6 @@ def test_read_ticks_without_a_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("field,value,item,backend", [
-    ("checkpoint_waves", True, 7, "stacked"),
-    ("checkpoint_waves", True, 7, "sharded"),
     ("shuffle_replication", 2, 14, "sharded"),
 ])
 def test_unported_settings_name_their_roadmap_item(field, value, item, backend):
@@ -96,6 +94,33 @@ def test_unported_settings_name_their_roadmap_item(field, value, item, backend):
              else {"backend": "sharded", "devices": ["cpu"] * 2})
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         MapReduceJob(lambda x: x, cfg, **where)
+
+
+@pytest.mark.parametrize("field,value,item,backend", [
+    ("checkpoint_waves", True, 7, "stacked"),
+    ("checkpoint_waves", True, 7, "sharded"),
+])
+def test_once_unported_settings_run_as_the_reference(field, value, item, backend):
+    """Settings that named their ROADMAP item before it was ported now
+    construct and run, equal to the reference's ``vmap`` job bit for bit."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core import mapreduce as ref_mr
+
+    rng = np.random.default_rng(item)
+    batch = ((rng.zipf(1.3, size=(2, 256)) % 97).astype(np.int32),
+             rng.integers(0, 5, size=(2, 256, 3)).astype(np.float32),
+             rng.random((2, 256)) > 0.05)
+    cfg = dict(num_slots=2, num_clusters=4, **{field: value})
+    where = ({"device": "cpu"} if backend == "stacked"
+             else {"backend": "sharded", "devices": ["cpu"] * 2})
+    got = MapReduceJob(lambda x: x, MapReduceConfig(**cfg), **where).run(
+        tuple(torch.from_numpy(a) for a in batch))
+    want = ref_mr.MapReduceJob(lambda x: x, ref_mr.MapReduceConfig(**cfg),
+                               backend="vmap").run(tuple(jnp.asarray(a) for a in batch))
+    np.testing.assert_array_equal(got.values, np.asarray(want.values))
+    np.testing.assert_array_equal(got.counts, np.asarray(want.counts))
 
 
 def _reuse_with_negative_drift(sc_module):

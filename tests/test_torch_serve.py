@@ -5,7 +5,10 @@ port's, lane by lane, for each scheduler, with lane speeds, a dead lane,
 several jobs and sketch admission; the lane queues, balance and finish
 ratios must be equal exactly. Serving: ``Engine.run`` on the llama3 smoke
 twin with the reference's parameters, token streams equal exactly. The
-launcher runs in a subprocess with ``--device cpu``.
+launcher runs in a subprocess with ``--device cpu``; its elastic-mesh
+flags print the reference launcher's mesh events and plan decisions, and
+the reference README's elastic command gives outputs equal to a numpy
+oracle.
 """
 
 import dataclasses
@@ -174,10 +177,23 @@ def test_engine_refuses_a_model_on_another_device():
 # ---------------------------------------------------------------------------
 
 
-def _launch(*args, timeout=240):
+def _launch(*args, timeout=240, module="repro_torch.launch.serve"):
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *args], capture_output=True,
+        [sys.executable, "-m", module, *args], capture_output=True,
         text=True, timeout=timeout, env={**os.environ, "PYTHONPATH": str(SRC)})
+
+
+def _elastic_lines(stdout):
+    """The mesh events and each batch's plan decision (``REPLAN (slot_dead
+    )``, ``reuse  (ok ...``), without the wall times, and the checkpoint
+    summary line."""
+    keep = []
+    for line in stdout.splitlines():
+        if line.startswith("  mesh event:") or line.startswith("wave checkpoints:"):
+            keep.append(line)
+        elif line.startswith("  batch"):
+            keep.append(line.split(" drift=")[0])
+    return keep
 
 
 def test_launcher_engine_mode_on_cpu():
@@ -199,8 +215,67 @@ def test_launcher_steady_state_on_cpu():
 @pytest.mark.parametrize("flags", [["--checkpoint-waves"], ["--slot-slowdown", "1:0"],
                                    ["--checkpoint-waves", "--kill-at-wave", "1:1"]])
 def test_launcher_elastic_flags_name_item_7(flags):
-    out = _launch("--device", "cpu", "--steady-state", "2", "--lanes", "4", *flags)
-    assert out.returncode != 0 and "item 7" in out.stderr
+    """The elastic flags, which named their ROADMAP item before the port had
+    the elastic mesh, now run as the reference launcher's do: exit 0 with
+    its mesh events, plan decisions and checkpoint cursor."""
+    args = ("--steady-state", "2", "--lanes", "4", *flags)
+    out = _launch("--device", "cpu", *args)
+    assert out.returncode == 0, out.stderr
+    ref = _launch(*args, module="repro.launch.serve")
+    assert ref.returncode == 0, ref.stderr
+    assert _elastic_lines(out.stdout) == _elastic_lines(ref.stdout)
+    assert ("wave checkpoints:" in out.stdout) == ("--checkpoint-waves" in flags)
+    if "--kill-at-wave" in flags:
+        assert "mesh event: {'event': 'slot_dead', 'slot': 1" in out.stdout
+    if "1:0" in flags:      # dead before the observer hook is installed
+        assert "estimated slot speeds (synthetic timing model): 1.00 0.00" in out.stdout
+
+
+def test_launcher_readme_elastic_command_is_exact(monkeypatch, capsys):
+    """``--steady-state 8 --slot-slowdown 2:0 --checkpoint-waves --kill-at-wave
+    1:1 --device cpu`` (in-process): every batch's values and counts equal a
+    numpy oracle bit for bit, slots 1 and 2 end dead, and the mesh events
+    and plan decisions are the reference launcher's."""
+    from repro_torch.launch import serve
+
+    flags = ["--steady-state", "8", "--slot-slowdown", "2:0", "--checkpoint-waves",
+             "--kill-at-wave", "1:1"]
+    seen, jobs = [], []
+    real = serve.steady_state_loop
+
+    def spy(job, batches, on_batch=None):
+        jobs.append(job)
+
+        def tee():
+            for batch in batches:
+                seen.append([batch])
+                yield batch
+
+        def hook(i, res, wall):
+            seen[i].append(res)
+            on_batch(i, res, wall)
+
+        return real(job, tee(), hook)
+
+    monkeypatch.setattr(serve, "steady_state_loop", spy)
+    monkeypatch.setattr(sys, "argv", ["serve", *flags, "--device", "cpu"])
+    serve.main()
+    stdout = capsys.readouterr().out
+    assert len(seen) == 8
+    n = jobs[0].cfg.num_clusters
+    for (keys, vals, valid), res in seen:
+        kh = keys.numpy().astype(np.int64)
+        cid = np.abs(kh)[valid.numpy()] % n
+        v = vals.numpy()[valid.numpy()].astype(np.float64)
+        want = np.stack([np.bincount(cid, weights=v[:, c], minlength=n)
+                         for c in range(v.shape[1])], axis=1)
+        np.testing.assert_array_equal(res.values, want)
+        np.testing.assert_array_equal(res.counts, np.bincount(cid, minlength=n))
+        assert res.overflow == 0
+    assert jobs[0].dead_slots.tolist() == [False, True, True, False]
+    ref = _launch(*flags, module="repro.launch.serve")
+    assert ref.returncode == 0, ref.stderr
+    assert _elastic_lines(stdout) == _elastic_lines(ref.stdout)
 
 
 @pytest.mark.gpu

@@ -535,9 +535,9 @@ def test_sharded_constructor_refusals():
         tmr.MapReduceJob(_identity, cfg, device="cpu", devices=["cpu"] * 3)
     with pytest.raises(ValueError, match="unknown backend"):
         tmr.MapReduceJob(_identity, cfg, backend="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         tmr.MapReduceJob(_identity, tmr.MapReduceConfig(num_slots=3, num_clusters=8,
-                                                        checkpoint_waves=True),
+                                                        shuffle_replication=2),
                          backend="sharded", devices=["cpu"] * 3)
 
 
