@@ -75,7 +75,11 @@ against a numpy oracle:
   bitwise), coded with a sequential phase B (== coded), uncoded and coded
   with an int8 wire (== each other; within 1e-4 of a float64 oracle of the
   dequantized pairs) and coded with an fp8 wire (exact for {0, 1, 2}:
-  == uncoded). Cut from m = 32 and K = 2^21 because the coded spills hold
+  == uncoded), and the coded run once more on ``backend="sharded"`` (8
+  slot programs and streams; == the stacked coded run and the oracle,
+  equal wire and replication bytes, kernels 1, 2 and 7 launched once a
+  slot where the stacked run launches them once, phase B printed beside
+  the stacked one). Cut from m = 32 and K = 2^21 because the coded spills hold
   m^3 * sum(cap2) rows of W + 2 words: about 300 GB at m = 32, and at m = 8
   and K = 2^21 two 15.9 GB spills and a peak near 75 GB.
 
@@ -108,7 +112,23 @@ Then it frees the card and adds the serving side:
   logit margin, and fails the run if that margin is above 1e-3);
 * the launcher: ``python -m repro_torch.launch.serve --arch smollm-360m``
   at its defaults (``--attn-impl pallas``), as a subprocess; its prefills
-  must launch the flash kernel.
+  must launch the flash kernel;
+* the MoE path (the serve path's model freed first): grok-1-314b
+  (hf:xai-org/grok-1) at full width (d_model 6144, 48 heads, 8 KV heads,
+  8 experts top-2 of d_ff 32768, vocab 131072, bf16), depth cut from 64
+  to 4 layers (42.6 GB of weights from seed ``--seed``), its experts over
+  4 expert slots stacked on the card (2 a slot): a prefill of 8 prompts of
+  512 tokens drawn Zipf(1.3) over the vocabulary under the default
+  placement, the OS4M expert balancer's re-plan of every layer with the
+  expert weights moved to match, and the same prefill again (logits within
+  0.02 x max|logit|, the same expert counts, no overflow in either at a
+  dropless capacity; per-slot loads and balance ratios printed before and
+  after); then ``Engine`` serving 8 requests of 128-512 prompt tokens on 4
+  lanes with ``attn_impl="pallas"`` (every prefill layer through the flash
+  kernel's wgmma instance), 20 decode steps under the profiler, and a
+  2-layer float32 twin at full width served on the card and on the CPU
+  with the same weights, whose token streams must agree (or differ only at
+  a top-2 margin of at most 1e-3). Only the flash kernel runs on this path.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
@@ -182,6 +202,13 @@ SOURCE_OF = {"read_ticks": "wave_timer", "stamp_through": "wave_timer",
 
 DISPATCH_T, DISPATCH_E = 2 ** 20, 64   # kernel 8: tokens, destinations
 SERVE_LANES, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 1024, 16   # the serve path
+# The MoE path: grok-1-314b cut to 4 layers (42.6 GB of bf16 weights), 4
+# expert slots stacked on the card (2 experts a slot), a prefill of 8 Zipf
+# prompts of 512 tokens, 8 requests served on 4 lanes, and a 2-layer
+# float32 twin with 4 requests of 6 new tokens.
+MOE_LAYERS, MOE_EP_SLOTS, MOE_PROMPTS, MOE_PROMPT_LEN = 4, 4, 8, 512
+MOE_REQUESTS, MOE_LANES, MOE_TWIN_REQUESTS, MOE_TWIN_NEW = 8, 4, 4, 6
+MOE_BF16_TOL = 0.02     # |logit diff| <= this x max|logit| between placements
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core rate, dense
@@ -960,13 +987,17 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
     del vals, q, cid, valid_np
     xor_mod = counters["xor_words"][0]
     fused_mod = counters["fused_shuffle_reduce"][0]
+    hist_mod = counters["histogram"][0]
     reset_launches(counters)
     runs = {}
 
-    def run(label, **cfg):
+    def run(label, backend="stacked", **cfg):
         job = MapReduceJob(lambda b: b, MapReduceConfig(
-            num_slots=CODED_M, num_clusters=n, **cfg))
-        x0, f0 = xor_mod.launches, fused_mod.launches
+            num_slots=CODED_M, num_clusters=n, **cfg), backend=backend)
+        # One program a slot on the sharded backend: every kernel launches
+        # once a slot where the stacked run launches it once.
+        slots = CODED_M if backend == "sharded" else 1
+        x0, f0, h0 = xor_mod.launches, fused_mod.launches, hist_mod.launches
         by0 = dict(xor_mod.launches_by_design)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -978,15 +1009,20 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
         check(job.last_plan.waves.replication == job.cfg.shuffle_replication,
               f"coded path {label}: the plan carries r")
         by_design = {k: xor_mod.launches_by_design[k] - by0[k] for k in by0}
-        check(xor_mod.launches - x0 == (2 * chunks if coded else 0)
-              and by_design == ({"encode": chunks, "flat": chunks} if coded
+        per = chunks * slots
+        check(xor_mod.launches - x0 == (2 * per if coded else 0)
+              and by_design == ({"encode": per, "flat": per} if coded
                                 else {"encode": 0, "flat": 0}),
-              f"coded path {label}: xor_words launched once a chunk to encode and once to"
-              f" decode, on a coded run only (got {by_design})")
-        check(fused_mod.launches - f0 == chunks,
-              f"coded path {label}: the fused kernel launched once a chunk")
+              f"coded path {label}: xor_words launched once a chunk (and slot) to encode and"
+              f" once to decode, on a coded run only (got {by_design})")
+        check(fused_mod.launches - f0 == per,
+              f"coded path {label}: the fused kernel launched once a chunk (and slot)")
+        check(hist_mod.launches - h0 == slots,
+              f"coded path {label}: the histogram launched once (a slot) in phase A")
         check(res.overflow == 0, f"coded path {label}: no overflow")
-        info = {"wall_ms": wall_ms, **job.last_phase_ms, "chunks": chunks,
+        info = {"wall_ms": wall_ms, **job.last_phase_ms, "chunks": chunks, "backend": backend,
+                "fused_launches": fused_mod.launches - f0,
+                "histogram_launches": hist_mod.launches - h0,
                 "chunk_caps": list(job.last_plan.chunk_caps),
                 "shuffle_bytes": res.shuffle_bytes, "shuffle_rows": res.shuffle_rows,
                 "shuffle_pairs": res.shuffle_pairs,
@@ -1010,6 +1046,17 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
     coded = run("coded", shuffle_replication=2)
     check(np.array_equal(coded.values, uncoded.values)
           and np.array_equal(coded.counts, uncoded.counts), "coded == uncoded, bit for bit")
+    sharded = run("coded sharded", backend="sharded", shuffle_replication=2)
+    check_oracle(sharded, oracle, "coded path sharded")
+    check(np.array_equal(sharded.values, coded.values)
+          and np.array_equal(sharded.counts, coded.counts),
+          "sharded coded == stacked coded, bit for bit")
+    check(sharded.shuffle_bytes == coded.shuffle_bytes
+          and sharded.replication_bytes == coded.replication_bytes
+          and sharded.shuffle_rows == coded.shuffle_rows,
+          "sharded coded: wire and replication bytes == the stacked run's")
+    print(f"coded path: phase B sharded {runs['coded sharded']['phase_b']:.1f} ms over "
+          f"{CODED_M} slot streams vs stacked {runs['coded']['phase_b']:.1f} ms", flush=True)
     seq = run("coded sequential", shuffle_replication=2, pipelined=False)
     check(np.array_equal(seq.values, coded.values)
           and np.array_equal(seq.counts, coded.counts), "coded sequential == coded pipelined")
@@ -1035,7 +1082,7 @@ def coded_path(work, batch0, kidx0, counters, MapReduceConfig, MapReduceJob, n):
           f"{theory:.4f}); int8 {u8.shuffle_bytes} B uncoded, {c8.shuffle_bytes} B coded; "
           f"int8 values within {rel:.2e} of the dequantized oracle; launches {launches}",
           flush=True)
-    del batch, uncoded, coded, seq, u8, c8, f8
+    del batch, uncoded, coded, sharded, seq, u8, c8, f8
     torch.cuda.empty_cache()
     by_design = {k: sum(r["xor_launches_by_design"][k] for r in runs.values())
                  for k in ("encode", "flat")}
@@ -1954,6 +2001,246 @@ def launcher_run(timeout: int = 600) -> dict:
     return {"wall_s": wall, "line": line, "flash_launches": flash}
 
 
+def moe_prompts(vocab: int, seed: int) -> np.ndarray:
+    """The MoE path's prefill batch: MOE_PROMPTS prompts of MOE_PROMPT_LEN
+    tokens drawn Zipf(1.3) over the vocabulary (hot tokens crowd a few
+    experts, as the corpus of ``examples/moe_balance.py``)."""
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(1.3, (MOE_PROMPTS, MOE_PROMPT_LEN)) % vocab).astype(np.int64)
+
+
+def slot_loads(counts: np.ndarray, placements: np.ndarray, slots: int) -> np.ndarray:
+    """Per-slot routed load of every MoE layer: ``(L, slots)``."""
+    return np.stack([np.bincount(p[0], weights=c, minlength=slots)
+                     for c, p in zip(counts, placements)])
+
+
+def moe_path(counters, fa_ops, args, dev) -> tuple:
+    """grok-1-314b at full width, depth cut to MOE_LAYERS, bf16 weights from
+    seed ``args.seed``, MOE_EP_SLOTS expert slots stacked on the card:
+    a Zipf prefill under the default placement, the OS4M expert balancer's
+    re-plan with the weights moved, the same prefill again (logits within
+    bf16 tolerance, no overflow in either), then ``Engine`` serving
+    MOE_REQUESTS requests on MOE_LANES lanes with attn_impl="pallas", 20
+    decode steps under the profiler, and a 2-layer float32 twin served on
+    the card and on the CPU with the same weights (equal token streams, or a
+    divergence at a top-2 margin of at most 1e-3). Returns ``(record,
+    launches)`` over the whole path (counts set to 0 just before it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import balancer as bal_lib
+    from repro_torch.models.model import DecoderModel, default_placements, forward, init_model
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    full = get_config("grok-1-314b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS, attn_impl="pallas")
+    moe = cfg.moe
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev, ep_slots=MOE_EP_SLOTS)
+    torch.cuda.synchronize()
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    rec = {"config": "grok-1-314b", "reduced": {"n_layers": [full.n_layers, MOE_LAYERS]},
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+           "experts": moe.num_experts, "top_k": moe.top_k, "d_ff": moe.d_ff,
+           "vocab": cfg.vocab, "ep_slots": MOE_EP_SLOTS, "weights_gb": weight_gb,
+           "init_s": time.perf_counter() - t0}
+    print(f"moe path: grok-1-314b, {MOE_LAYERS} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {moe.num_experts} experts top-{moe.top_k}, d_ff {moe.d_ff}, "
+          f"{MOE_EP_SLOTS} expert slots: {weight_gb:.2f} GB of bf16 weights in "
+          f"{rec['init_s']:.1f} s", flush=True)
+
+    # ---- 1-2: a Zipf prefill under the default placement, the balancer's
+    # re-plan with the weights moved, and the same prefill again. The
+    # capacity is dropless (every send bucket holds its slot's tokens), so
+    # no placement drops a token.
+    tokens = torch.as_tensor(moe_prompts(cfg.vocab, args.seed), device=dev)
+    n_src = MOE_PROMPTS * (MOE_PROMPT_LEN // MOE_EP_SLOTS)
+    capacity = n_src * moe.top_k
+
+    def prefill(placements):
+        times, out = [], None
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = forward(model, cfg, tokens=tokens, mode="prefill",
+                              placements=placements, moe_capacity=capacity)
+                out.logits.float().sum().item()
+                times.append((time.perf_counter() - t) * 1e3)
+        return out, times
+
+    base_place = default_placements(cfg, MOE_EP_SLOTS, device=dev)
+    before, before_ms = prefill(None)
+    counts = before.stats["expert_counts"].cpu().numpy()
+    check(int(before.stats["overflow"]) == 0, "moe path: no overflow under the default placement")
+    check(np.all(counts.sum(axis=1) == MOE_PROMPTS * MOE_PROMPT_LEN * moe.top_k),
+          "moe path: every token routed to top-k experts in every layer")
+    balancer = bal_lib.ExpertBalancer(moe.num_experts, MOE_EP_SLOTS, MOE_LAYERS, interval=1,
+                                      ema=0.0)
+    balancer.observe(counts)
+    t = time.perf_counter()
+    placements, perms, reports = balancer.replan()
+    plan_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for layer, perm in zip(model.layers, perms):
+        bal_lib.permute_expert_weights(layer.moe, perm)
+    torch.cuda.synchronize()
+    permute_ms = (time.perf_counter() - t) * 1e3
+    after, after_ms = prefill(torch.as_tensor(placements, device=dev))
+    check(int(after.stats["overflow"]) == 0, "moe path: no overflow under the OS4M placement")
+    check(torch.equal(after.stats["expert_counts"], before.stats["expert_counts"]),
+          "moe path: the re-placed experts see the same routing")
+    diff = float((after.logits.float() - before.logits.float()).abs().max())
+    scale = float(before.logits.float().abs().max())
+    check(bool(torch.isfinite(before.logits).all()) and diff <= MOE_BF16_TOL * scale,
+          f"moe path: logits after the re-plan within {MOE_BF16_TOL} x max|logit| of the "
+          f"default placement's (|diff| {diff:.4g}, max|logit| {scale:.4g})")
+    same_top = float((after.logits[:, -1].argmax(-1) == before.logits[:, -1].argmax(-1))
+                     .float().mean())
+    load_before = slot_loads(counts, base_place.cpu().numpy(), MOE_EP_SLOTS)
+    load_after = slot_loads(counts, placements, MOE_EP_SLOTS)
+    ratio = lambda loads: (loads.max(axis=1) / loads.mean(axis=1)).tolist()   # noqa: E731
+    rec["balance"] = {
+        "expert_counts": counts.tolist(), "slot_loads_before": load_before.tolist(),
+        "slot_loads_after": load_after.tolist(), "balance_before": ratio(load_before),
+        "balance_after": ratio(load_after), "reports": [dataclasses.asdict(r) for r in reports],
+        "perms": [p.tolist() for p in perms], "replan_ms": plan_ms, "permute_ms": permute_ms,
+        "prefill_ms_before": before_ms, "prefill_ms_after": after_ms,
+        "logit_max_abs_diff": diff, "logit_max_abs": scale, "last_token_argmax_equal": same_top,
+        "capacity": capacity, "tokens": MOE_PROMPTS * MOE_PROMPT_LEN}
+    for i in range(MOE_LAYERS):
+        print(f"moe path layer {i}: expert counts {counts[i].astype(int).tolist()} | slot loads "
+              f"{load_before[i].astype(int).tolist()} -> {load_after[i].astype(int).tolist()} | "
+              f"balance ratio {ratio(load_before)[i]:.4f} -> {ratio(load_after)[i]:.4f} "
+              f"(report {reports[i].baseline_ratio:.4f} -> {reports[i].balance_ratio:.4f}, "
+              f"{reports[i].moved_experts} experts moved)", flush=True)
+    print(f"moe path: prefill {MOE_PROMPTS} x {MOE_PROMPT_LEN} tokens, dropless capacity "
+          f"{capacity}: {np.median(before_ms):.1f} ms (default placement), "
+          f"{np.median(after_ms):.1f} ms (OS4M placement) | re-plan {plan_ms:.2f} ms, weight "
+          f"move {permute_ms:.1f} ms | logits |diff| {diff:.4g} of max {scale:.4g}, last-token "
+          f"argmax equal {same_top:.3f} | overflow 0 and 0", flush=True)
+    del before, after
+    # Back to the weights' default order, which the engine's default
+    # placement reads.
+    for layer, perm in zip(model.layers, perms):
+        bal_lib.permute_expert_weights(layer.moe, np.arange(moe.num_experts), prev_perm=perm)
+
+    # ---- 3: the engine on MOE_LANES lanes, as the serve path holds Llama-3-8B.
+    ecfg = EngineConfig(lanes=MOE_LANES, max_len=SERVE_MAX_LEN, scheduler="os4m")
+    eng = Engine(cfg, model, ecfg, device=dev, ep_slots=MOE_EP_SLOTS)
+    reqs = serve_requests(cfg.vocab, args.seed, MOE_REQUESTS)
+    budgets = {r.rid: r.max_new for r in reqs}
+    flash0 = dict(fa_ops.launches_by_design)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = sorted(done, key=lambda r: r.rid)
+    check([r.rid for r in served] == list(range(len(reqs))), "moe serve: every request served")
+    check(all(1 <= len(r.output) <= budgets[r.rid] for r in served),
+          "moe serve: every output within its decode budget")
+    design = {k: fa_ops.launches_by_design[k] - flash0[k] for k in flash0}
+    check(design == {"wgmma": MOE_LAYERS * len(reqs), "simt": 0},
+          f"moe serve: every prefill layer went through kernel 9's wgmma instance ({design})")
+    tokens_out = sum(len(r.output) for r in served)
+    steps = np.asarray(eng.step_seconds[1:]) * 1e3
+    prefill_ms = np.asarray(eng.prefill_seconds) * 1e3
+    rec["serve"] = {
+        "requests": len(reqs), "lanes": MOE_LANES, "max_len": SERVE_MAX_LEN,
+        "prompt_lens": [int(r.prompt.shape[0]) for r in reqs],
+        "out_lens": [len(r.output) for r in served], "wall_s": wall, "tokens": tokens_out,
+        "tokens_per_s": tokens_out / wall, "prefill_ms": prefill_ms.tolist(),
+        "prefill_ms_median": float(np.median(prefill_ms)),
+        "decode_steps": len(eng.step_seconds), "decode_ms_median": float(np.median(steps)),
+        "decode_ms_p90": float(np.percentile(steps, 90)),
+        "balance_ratio": eng.last_balance_ratio, "finish_ratio": eng.last_finish_ratio,
+        "flash_launches_by_design": design, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    sv = rec["serve"]
+    print(f"moe serve: {len(served)} requests, {tokens_out} tokens in {wall:.2f} s "
+          f"({sv['tokens_per_s']:.1f} tok/s) | prefill median {sv['prefill_ms_median']:.1f} ms "
+          f"an admission | decode {sv['decode_steps']} steps, median "
+          f"{sv['decode_ms_median']:.2f} ms, p90 {sv['decode_ms_p90']:.2f} ms | flash kernel "
+          f"{design} | peak {sv['peak_gb']:.1f} GB", flush=True)
+
+    # 20 lock-step decode steps under the profiler: the device's idle share.
+    from repro_torch.models.model import init_cache
+
+    cache = init_cache(cfg, MOE_LANES, SERVE_MAX_LEN, dtype=torch.float32, device=dev)
+    pos = np.full(MOE_LANES, int(np.median(sv["prompt_lens"])), np.int64)
+    cur = np.full((MOE_LANES, 1), 7, np.int32)
+
+    def steps20():
+        nonlocal cache
+        with torch.inference_mode():
+            for i in range(20):
+                cache, nxt = eng._decode(model, cache, torch.as_tensor(cur, device=dev),
+                                         torch.as_tensor(pos + i, device=dev))
+                nxt.cpu()
+
+    with torch.inference_mode():
+        eng._decode(model, cache, torch.as_tensor(cur, device=dev), torch.as_tensor(pos, device=dev))
+        prof = profile_run("moe profile 20 decode steps", steps20)
+    rec["serve"]["profile_20_decode_steps"] = prof
+    rec["serve"]["idle_share"] = (1 - prof["device_ms"] / prof["wall_ms"]
+                                  if prof["device_ms"] > 0 else None)
+    print(f"moe serve: device idle share over 20 decode steps "
+          f"{rec['serve']['idle_share']}", flush=True)
+    del cache, eng, model, done, served
+    torch.cuda.empty_cache()
+
+    # ---- 4: the 2-layer float32 twin, on the card and on the CPU with the
+    # same weights (drawn on the card, copied to the host).
+    twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    gpu_model = init_model(twin, seed=args.seed, device=dev, ep_slots=MOE_EP_SLOTS)
+    cpu_model = DecoderModel(twin, device="cpu", ep_slots=MOE_EP_SLOTS)
+    with torch.no_grad():
+        for dst, src in zip(cpu_model.parameters(), gpu_model.parameters()):
+            dst.copy_(src)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [(rng.zipf(1.3, int(rng.integers(16, 33))) % twin.vocab).astype(np.int32)
+               for _ in range(MOE_TWIN_REQUESTS)]
+
+    def twin_reqs():
+        return [Request(rid=i, prompt=p, max_new=MOE_TWIN_NEW) for i, p in enumerate(prompts)]
+
+    twin_ecfg = EngineConfig(lanes=MOE_LANES, max_len=64, scheduler="os4m", eos=-1)
+    streams, twin_s = {}, {}
+    for where, mdl in (("cuda", gpu_model), ("cpu", cpu_model)):
+        t = time.perf_counter()
+        eng = Engine(twin, mdl, twin_ecfg, device=mdl.device)
+        streams[where] = {r.rid: r.output for r in eng.run(twin_reqs())}
+        twin_s[where] = time.perf_counter() - t
+    diverged = []
+    for rid, a in streams["cuda"].items():
+        b = streams["cpu"][rid]
+        if a != b:
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            margin = top2_margin(gpu_model, twin, list(prompts[rid]) + a[:j], dev)
+            diverged.append({"rid": rid, "step": j, "top2_margin": margin})
+    for d in diverged:
+        check(d["top2_margin"] <= 1e-3, f"moe f32 twin: request {d['rid']} diverges at step "
+              f"{d['step']} with a top-2 margin of {d['top2_margin']:.3g} (a real disagreement)")
+    rec["f32_twin"] = {"n_layers": 2, "requests": MOE_TWIN_REQUESTS, "max_new": MOE_TWIN_NEW,
+                       "streams_equal": not diverged, "diverged": diverged,
+                       "tokens": sum(len(o) for o in streams["cuda"].values()),
+                       "seconds": twin_s}
+    print(f"moe f32 twin (2 layers, full width, {MOE_TWIN_REQUESTS} requests): card vs CPU token "
+          f"streams {'equal' if not diverged else 'differ: ' + str(diverged)} (card "
+          f"{twin_s['cuda']:.1f} s, CPU {twin_s['cpu']:.1f} s)", flush=True)
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    # Over the whole path: the prefills of steps 1-2 and the engine's
+    # (wgmma), the twin's on the card (simt).
+    rec["launches_by_design"] = dict(fa_ops.launches_by_design)
+    del gpu_model, cpu_model, eng
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2451,6 +2738,8 @@ def main(argv=None) -> int:
     # ---- The serve path: Llama-3-8B at full width and depth on 8 lanes.
     record["serve_path"], launches["serve"] = serve_path(counters, fa_ops, args, dev)
     record["launcher"] = launcher_run()
+    # ---- The MoE path: grok-1-314b at full width, 4 layers, 4 expert slots.
+    record["moe_path"], launches["moe"] = moe_path(counters, fa_ops, args, dev)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).
@@ -2572,7 +2861,10 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:111",
          "launches": total_launches("flash_attention"),
-         "launches_by_design": record["serve_path"]["launches_by_design"],
+         "launches_by_design": {
+             k: record["serve_path"]["launches_by_design"][k]
+             + record["moe_path"]["launches_by_design"][k] for k in ("wgmma", "simt")},
+         "moe_launches": launches["moe"]["flash_attention"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
          "event_ms": flash["event_ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -2598,13 +2890,14 @@ def main(argv=None) -> int:
           and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0
           and launches["measured"]["read_ticks"] > 0
           and launches["measured"]["stamp_through"] > 0
-          and launches["serve"]["flash_attention"] > 0,
+          and launches["serve"]["flash_attention"] > 0
+          and launches["moe"]["flash_attention"] > 0,
           "every kernel of an engine path was launched on it")
-    check(all(launches[p]["flash_attention"] == 0 for p in launches if p != "serve"),
-          "only the serve path launched the flash kernel")
-    check(launches["serve"]["flash_attention"] == total_launches("flash_attention")
-          and all(launches["serve"][k] == 0 for k in counters if k != "flash_attention"),
-          "the serve path launched only the flash kernel")
+    check(all(launches[p]["flash_attention"] == 0 for p in launches if p not in ("serve", "moe")),
+          "only the serve and MoE paths launched the flash kernel")
+    check(all(launches[p][k] == 0 for p in ("serve", "moe") for k in counters
+              if k != "flash_attention"),
+          "the serve and MoE paths launched only the flash kernel (kernel 8 stays off them)")
     check(all(launches[p]["xor_words"] == 0 for p in launches if p != "coded"),
           "no uncoded path launched xor_words")
     check(all(launches[p][k] == 0 for p in launches if p != "measured"

@@ -131,9 +131,6 @@ __all__ = ["MapReduceConfig", "JobResult", "MapReduceJob"]
 _INT32_MIN = -(2 ** 31)
 REDUCE_OPS = ("sum", "max", "count")
 BACKENDS = ("stacked", "sharded")
-# The ROADMAP Queue 1 item that brings the coded shuffle to the sharded
-# backend (the reference's _phase_b_shard_coded under shard_map).
-_SHARDED_CODED_ITEM = 14
 _FP8 = torch.float8_e4m3fn
 # Half-way between 448, e4m3fn's largest finite value, and 480: the
 # reference's cast rounds every larger magnitude (and +-inf) to NaN, while
@@ -241,20 +238,6 @@ class JobResult:
     shuffle_pairs: Optional[int] = None   # non-local pairs the wire carried
     replication_bytes: int = 0            # coded replica-exchange bytes (not shuffle)
     quantize_exact: Optional[bool] = None  # quantized round trip lossless? (None = off)
-
-
-def _unported(cfg: MapReduceConfig, backend: str):
-    """The (setting, ROADMAP Queue 1 item) pairs of ``cfg`` the port lacks."""
-    checks = [
-        (backend == "sharded" and cfg.shuffle_replication > 1,
-         "shuffle_replication=2 on backend='sharded'", _SHARDED_CODED_ITEM),
-    ]
-    return [(name, item) for hit, name, item in checks if hit]
-
-
-def _not_ported(missing) -> NotImplementedError:
-    return NotImplementedError("not ported yet: " + ", ".join(
-        f"{name} (ROADMAP Queue 1 item {item})" for name, item in missing))
 
 
 def _resolve_measure(cfg: MapReduceConfig, backend: str) -> bool:
@@ -444,11 +427,7 @@ def _copy_chunk(buckets):
     whose groups hold at most one pair) the reshape alone would be a
     strided view.
     """
-    bv, bc, bm = buckets
-    m, _, cap = bm.shape
-    return (bv.transpose(0, 1).reshape(m, m * cap, bv.shape[-1]).contiguous(),
-            bc.transpose(0, 1).reshape(m, m * cap).contiguous(),
-            bm.transpose(0, 1).reshape(m, m * cap).contiguous())
+    return tuple(_transpose_slots(t).flatten(1, 2) for t in buckets)
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -740,8 +719,9 @@ def _drive_stacked(body):
     """Run a phase-B body over all m stacked slots.
 
     Every collective is local: the rows already hold every slot, so
-    ``pmax`` is the value itself and the copy of a chunk is the transpose
-    of its ``(src, dst, cap)`` buckets.
+    ``pmax`` is the value itself, the copy of a chunk is the transpose of
+    its ``(src, dst, cap)`` buckets, and the coded body's replica and
+    packet exchanges are transposes of their ``(src, dst, ...)`` axes.
     """
     send = reply = None
     while True:
@@ -753,8 +733,17 @@ def _drive_stacked(body):
             reply = arg
         elif kind == "spill":
             send, reply = arg, None
-        else:
+        elif kind == "copy":
             reply = _copy_chunk(send[arg])
+        elif kind == "replicas":
+            reply = tuple(_transpose_slots(t) for t in arg)
+        else:   # packets
+            reply = _transpose_slots(arg)
+
+
+def _transpose_slots(x: torch.Tensor) -> torch.Tensor:
+    """The stacked all-to-all: ``(src, dst, ...)`` → ``(dst, src, ...)``."""
+    return x.transpose(0, 1).contiguous()
 
 
 def _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op: str):
@@ -772,7 +761,8 @@ def _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op: str):
     return acc, cnt + cnt_c
 
 
-def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static):
+def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static,
+                   slots):
     """Coded phase B: r=2 pair placement + XOR multicast (arXiv 1512.01625).
 
     The coded execution of the same §4.4 chunk walk. Record ``j`` of slot
@@ -799,23 +789,35 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     :func:`_reduce_chunk`. Invalid rows are all-zero words (XOR-neutral)
     and masked out.
 
-    Stacked over slots, the reference's all-to-alls are transposes of the
-    ``(src, dst, ...)`` axes. Both ragged spills run over all slots' rows
-    as one stream with the slot inside the chunk-major group id —
-    ``(chunk, slot, partner | src, dst)`` — so each chunk's slab of every
-    slot is one contiguous block, as the kernel takes it. Returns what
-    :func:`_phase_b_body` returns; ``wire`` holds the packet rows (each
-    multicast once), the replica rows, the inexact records and the
-    non-local pairs.
+    The program of the consecutive slots ``slots`` (one a row of
+    ``intermediate``): all m on the stacked backend, one on the sharded
+    backend. A generator like :func:`_phase_b_body`, which yields at each
+    collective —
+
+    * ``("pmax", x)`` → the maximum of ``x`` over every slot (int8 scale);
+    * ``("replicas", (kh, v, ok))`` → the replica exchange: each tensor is
+      ``(rows, partner, ...)`` and comes back ``(rows, src, ...)``, what
+      every sender sent to these rows;
+    * ``("packets", x)`` → one chunk's packet exchange: ``(rows, dst, ...)``
+      out, ``(rows, src, ...)`` back.
+
+    Both ragged spills run over these rows' records as one stream with the
+    row inside the chunk-major group id — ``(chunk, row, partner | src,
+    dst)`` — so each chunk's slab is one contiguous block, as the encode
+    kernel takes it, and a slot holds only its own m² groups a chunk.
+    Returns what :func:`_phase_b_body` returns; ``wire`` holds the packet
+    rows (each multicast once), the replica rows, the inexact records and
+    the non-local pairs.
     """
     (m, n, capacity, chunk_caps, reduce_op, pipelined, num_chunks, quantize) = static
     key_hashes, values, valid = intermediate
     dev = values.device
-    _, k, v_dim = values.shape
+    rows, k, v_dim = values.shape
     v_dtype = values.dtype
+    me = torch.arange(slots[0], slots[0] + rows, device=dev)[:, None]   # each row's slot
+    ridx = torch.arange(rows, device=dev)[:, None]
     cluster_ids = _cluster_ids(key_hashes, n)
     cid = cluster_ids.long()
-    me = torch.arange(m, device=dev)[:, None]        # each slot's own index
     dest = assignment[cid].long()
     if pipelined and num_chunks > 1:
         chunks, caps = num_chunks, tuple(chunk_caps)
@@ -827,32 +829,36 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     # records, so ⌈K/(m−1)⌉ bounds every (chunk, partner, dst) group.
     n_rep = -(-k // (m - 1))
     cap2 = tuple(int(min(n_rep, c)) for c in caps)
+    tt = torch.arange(n_rep, device=dev) * (m - 1)
 
     # ---- Quantized wire payload (optional): one global scale, so sender,
     # replica holder and receiver encode a record to the same bits.
-    scale, wire_vals, deliv_vals, inexact = _quantize_wire(values, valid, quantize)
+    magnitude = None
+    if quantize == "int8":
+        magnitude = yield ("pmax", _quantize_magnitude(values, valid))
+    scale, wire_vals, deliv_vals, inexact = _quantize_wire(values, valid, quantize, magnitude)
     pay_dtype = _wire_payload_dtype(quantize, v_dtype)
     w_pay = cs_ops.packed_width(v_dim, pay_dtype)
     w_row = w_pay + 2        # + cluster_id+1 word, + j+1 word (0 = invalid)
-    jidx = torch.arange(k, device=dev, dtype=torch.int32).expand(m, k)
+    jidx = torch.arange(k, device=dev, dtype=torch.int32).expand(rows, k)
     aug = torch.cat([cs_ops.pack_payload_words(wire_vals), (cluster_ids + 1)[..., None],
                      (jidx + 1)[..., None]], dim=2)
 
     # ---- r=2 replica exchange: slot p receives the records j of slot s
     # with π(s, j) == p, i.e. j ≡ (p − s − 1) (mod m−1) — a strided slice.
-    ofs = (torch.arange(m, device=dev) - me - 1) % m          # (src, partner)
-    sidx = ofs[..., None] + torch.arange(n_rep, device=dev) * (m - 1)
+    ofs = (torch.arange(m, device=dev) - me - 1) % m          # (row, partner)
+    sidx = ofs[..., None] + tt                                # (row, partner, n_rep)
     smask = (sidx < k) & (ofs < m - 1)[..., None]             # partner == src: none
-    pick = sidx.clamp(max=k - 1).reshape(m, -1)
-    send_kh = torch.where(smask, key_hashes.gather(1, pick).view(m, m, n_rep), 0)
+    pick = sidx.clamp(max=k - 1).reshape(rows, -1)
+    send_kh = torch.where(smask, key_hashes.gather(1, pick).view(rows, m, n_rep), 0)
     send_v = torch.where(smask[..., None], values.gather(
-        1, pick[..., None].expand(m, m * n_rep, v_dim)).view(m, m, n_rep, v_dim), 0)
-    send_ok = smask & valid.gather(1, pick).view(m, m, n_rep)
-    # The exchange: (src, partner, ...) → (partner, src, ...).
-    r_kh = send_kh.transpose(0, 1)
-    r_v = send_v.transpose(0, 1)
-    r_ok = send_ok.transpose(0, 1)
-    r_j = sidx.transpose(0, 1).to(torch.int32)
+        1, pick[..., None].expand(rows, m * n_rep, v_dim)).view(rows, m, n_rep, v_dim), 0)
+    send_ok = smask & valid.gather(1, pick).view(rows, m, n_rep)
+    del sidx, smask, pick
+    r_kh, r_v, r_ok = yield ("replicas", (send_kh, send_v, send_ok))
+    del send_kh, send_v, send_ok
+    # Record j of src s reached me at offset (me − s − 1) mod m.
+    r_j = (((me - torch.arange(m, device=dev) - 1) % m)[..., None] + tt).to(torch.int32)
     rows_rep = r_ok.sum()
     r_cluster = _cluster_ids(r_kh, n)
     r_dest = assignment[r_cluster.long()].long()
@@ -861,27 +867,27 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     r_wire = _quantize_encode(r_v, scale, quantize) if quantize else r_v
     r_aug = torch.cat([cs_ops.pack_payload_words(r_wire), (r_cluster + 1)[..., None],
                        (r_j + 1)[..., None]], dim=3)
-    del send_kh, send_v, send_ok, r_v, r_wire
+    del r_kh, r_v, r_wire
 
     # ---- Two ragged spills with the same group layout. Sender side: my
-    # records by (chunk, me, partner, dst), dst ≠ me — the packets' XOR
-    # terms. Replica side: received replicas by (chunk, me, src, dst) —
+    # records by (chunk, row, partner, dst), dst ≠ me — the packets' XOR
+    # terms. Replica side: received replicas by (chunk, row, src, dst) —
     # bit-equal rebuilds of each src's (partner=me, dst) slabs (same stable
     # sort, same caps, same j order), which open the packets; their dst=me
     # column carries the pairs the replicas deliver.
-    groups = chunks * m * m * m
-    caps2_np = np.repeat(np.asarray(cap2, np.int64), m * m * m)
+    groups = chunks * rows * m * m
+    caps2_np = np.repeat(np.asarray(cap2, np.int64), rows * m * m)
     total2 = int(caps2_np.sum())
     partner = (me + 1 + jidx % (m - 1)) % m
     gid = torch.where(valid & (dest != me),
-                      ((chunk_of_pair * m + me) * m + partner) * m + dest,
+                      ((chunk_of_pair * rows + ridx) * m + partner) * m + dest,
                       groups).to(torch.int32)
     s_aug, _, s_bm, ovf_send = _ragged_counting_sort_to_buckets(
-        gid.reshape(1, -1), aug.reshape(1, m * k, w_row), cluster_ids.reshape(1, -1),
+        gid.reshape(1, -1), aug.reshape(1, rows * k, w_row), cluster_ids.reshape(1, -1),
         caps2_np, total2)
     del aug, gid
     src = torch.arange(m, device=dev)[:, None]
-    r_gid = torch.where(r_ok, ((r_chunk * m + me[..., None]) * m + src) * m + r_dest,
+    r_gid = torch.where(r_ok, ((r_chunk * rows + ridx[..., None]) * m + src) * m + r_dest,
                         groups).to(torch.int32)
     k_aug, _, _, ovf_rep = _ragged_counting_sort_to_buckets(
         r_gid.reshape(1, -1), r_aug.reshape(1, -1, w_row), r_cluster.reshape(1, -1),
@@ -904,18 +910,18 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     # packet; accounted once below), zero where there is no pair: one
     # launch of the encode instance a chunk.
     ids = torch.arange(m, device=dev)
-    a0, a1, a2 = ids[:, None, None], ids[None, :, None], ids[None, None, :]
-    pair_ok = (a1 != a2) & (a1 != a0) & (a2 != a0)       # (s, d, q)
+    a0, a1, a2 = me[..., None], ids[None, :, None], ids[None, None, :]
+    pair_ok = (a1 != a2) & (a1 != a0) & (a2 != a0)       # (row, d, q)
     send_pkts = []
     wire_rows = torch.zeros((), dtype=torch.int64, device=dev)
     off = 0
     for c in range(chunks):
-        size = m * m * m * cap2[c]
-        slab = s_aug[0, off:off + size].view(m, m, m, cap2[c], w_row)
-        send_pkts.append(cs_ops.encode_packets(slab))
+        size = rows * m * m * cap2[c]
+        slab = s_aug[0, off:off + size].view(rows, m, m, cap2[c], w_row)
+        send_pkts.append(cs_ops.encode_packets(slab, first_sender=slots[0]))
         # Packet {d, q} rows = the larger of its two slabs; each unordered
         # pair appears twice in the ordered sum, hence the halving.
-        cnt = s_bm[0, off:off + size].view(m, m, m, cap2[c]).sum(dim=3)
+        cnt = s_bm[0, off:off + size].view(rows, m, m, cap2[c]).sum(dim=3)
         wire_rows = wire_rows + torch.where(
             pair_ok, torch.maximum(cnt, cnt.transpose(1, 2)), 0).sum() // 2
         off += size
@@ -925,40 +931,36 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
     # ---- Double-buffered decode → reduce walk (the §4.4 shape: chunk
     # c+1's packet exchange is issued before chunk c's reduce).
     acc_dtype = torch.float32 if reduce_op == "sum" else v_dtype
-    acc = torch.zeros((m, n, v_dim), dtype=acc_dtype, device=dev)
-    cnt_acc = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    acc = torch.zeros((rows, n, v_dim), dtype=acc_dtype, device=dev)
+    cnt_acc = torch.zeros((rows, n), dtype=torch.float32, device=dev)
     big = torch.iinfo(torch.int64).max
     # A decoded row (me, src, q) counts when src ≠ me and it is either a
     # packet from a pair (q ≠ src) or the replica-delivered column q == me.
     d_ok_static = ((a1 != a0) & ((a2 == a0) | (a2 != a1)))[..., None]
     src_of_row = a1[..., None]
     off = own_off = 0
-
-    def _exchange(x):
-        """The packet all-to-all: (src, dst, ...) → (dst, src, ...)."""
-        return x.transpose(0, 1).contiguous()
-
-    recv = _exchange(send_pkts[0])
+    recv = yield ("packets", send_pkts[0])
+    send_pkts[0] = None
     for c in range(chunks):
         rx = recv
-        send_pkts[c] = None
         if c + 1 < chunks:
-            recv = _exchange(send_pkts[c + 1])
-        size = m * m * m * cap2[c]
+            recv = yield ("packets", send_pkts[c + 1])
+            send_pkts[c + 1] = None
+        size = rows * m * m * cap2[c]
         # One XOR opens everything: for q ≠ me the packet minus my rebuilt
         # slab leaves src's (partner=q → me) slab; the q == me column has no
         # packet (zeros), so my replica-delivered (partner=me → me) slab
         # passes straight through.
         dec = cs_ops.xor_words(rx.view(size, w_row), k_aug[0, off:off + size])
         del rx
-        dec = dec.view(m, m, m, cap2[c], w_row)
+        dec = dec.view(rows, m, m, cap2[c], w_row)
         meta = dec[..., w_pay]
-        d_ok = ((meta > 0) & d_ok_static).reshape(m, -1)
+        d_ok = ((meta > 0) & d_ok_static).reshape(rows, -1)
         d_vals = cs_ops.unpack_payload_words(dec[..., :w_pay], pay_dtype, v_dim)
         d_vals = (_quantize_decode(d_vals, scale, v_dtype, quantize) if quantize
-                  else d_vals).reshape(m, -1, v_dim)
-        d_cl = (meta - 1).reshape(m, -1)
-        d_key = (src_of_row * k + dec[..., w_pay + 1] - 1).reshape(m, -1)
+                  else d_vals).reshape(rows, -1, v_dim)
+        d_cl = (meta - 1).reshape(rows, -1)
+        d_key = (src_of_row * k + dec[..., w_pay + 1] - 1).reshape(rows, -1)
         del dec, meta
 
         own = o_vals[:, own_off:own_off + caps[c]]
@@ -981,7 +983,7 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
         del sv, scl, sok, order
         if chunks == 1:
             # As the uncoded sequential branch: the reduce output is the
-            # result (shape included — count yields (m, n, 1)).
+            # result (shape included — count yields (rows, n, 1)).
             acc, cnt_acc = out_c, cnt_c
         else:
             acc, cnt_acc = _merge_chunk(acc, cnt_acc, out_c, cnt_c, reduce_op)
@@ -1036,9 +1038,6 @@ class MapReduceJob:
         self.cfg = config
         self._measure_timings = _resolve_measure(config, backend)
         _validate_wire(config, self._measure_timings)
-        missing = _unported(config, backend)
-        if missing:
-            raise _not_ported(missing)
         if config.reduce_op not in REDUCE_OPS:
             raise ValueError(
                 f"unknown reduce_op {config.reduce_op!r}; use one of {REDUCE_OPS}")
@@ -1522,18 +1521,30 @@ class MapReduceJob:
     def _copy_to(self, dst: int, sends, events, chunk: int):
         """The chunk "copy" of slot ``dst``: bucket ``[src, dst]`` of every
         sender, in sender order, after each sender's spill event."""
+        return tuple(t.flatten(1, 2) for t in self._exchange_to(
+            dst, [send[chunk] for send in sends], events))
+
+    def _exchange_to(self, dst: int, parts, events):
+        """What slot ``dst`` receives in an all-to-all: for each tensor of
+        the senders' ``parts`` (``(1, m, ...)`` each, row ``dst`` addressed
+        to it), row ``dst`` of every sender in sender order, ``(1, m,
+        ...)``, after each sender's event."""
         stream = self.streams[dst] if self.streams is not None else None
         dev = self.devices[dst]
-        parts = ([], [], [])
-        for src, send in enumerate(sends):
-            if stream is not None and src != dst:
-                stream.wait_event(events[src])
-            for k, t in enumerate(send[chunk]):
-                piece = t[0, dst]
+        if stream is not None:
+            for src in range(len(parts)):
+                if src != dst:
+                    stream.wait_event(events[src])
+        out = []
+        for k in range(len(parts[0])):
+            pieces = []
+            for src, sent in enumerate(parts):
+                piece = sent[k][0, dst]
                 if stream is not None and src != dst:
                     piece.record_stream(stream)
-                parts[k].append(piece.to(dev))
-        return tuple(torch.cat(p)[None] for p in parts)
+                pieces.append(piece.to(dev))
+            out.append(torch.stack(pieces)[None])
+        return tuple(out)
 
     def _drive_sharded(self, bodies):
         """Run one phase-B body per slot in lockstep: each slot's program
@@ -1567,6 +1578,14 @@ class MapReduceJob:
                 for j, msg in enumerate(msgs):
                     with self._on_slot(j):
                         replies.append(self._copy_to(j, sends, events, msg[1]))
+            elif kind in ("replicas", "packets"):
+                parts = [msg[1] if kind == "replicas" else (msg[1],) for msg in msgs]
+                marks = [self._mark(j) for j in range(m)]
+                replies = []
+                for j in range(m):
+                    with self._on_slot(j):
+                        got = self._exchange_to(j, parts, marks)
+                    replies.append(got if kind == "replicas" else got[0])
             else:   # pmax
                 replies = self._scatter(
                     self._gather([msg[1].reshape(1) for msg in msgs]).amax())
@@ -1983,19 +2002,21 @@ class MapReduceJob:
         one a slot.
         """
         static = self._static(planned, caps)
-        if planned.waves.replication > 1:
-            if self.backend == "sharded":
-                raise _not_ported([("shuffle_replication=2 on backend='sharded'",
-                                    _SHARDED_CODED_ITEM)])
-            return _phase_b_coded(intermediate, *self._plan_tensors(planned, self.device),
-                                  static)
+        coded = planned.waves.replication > 1
+        if coded and stamp_through is not None:
+            raise ValueError(
+                "a coded plan cannot run with measured timings — the coded"
+                " decode is not stamp-instrumented; set measure_timings=False")
         bodies = []
         for j, (inter, (slots, dev)) in enumerate(zip(self._as_groups(intermediate),
                                                       self._groups())):
             with self._on_slot(j):
-                me = torch.as_tensor(slots, device=dev)
-                bodies.append(_phase_b_body(inter, *self._plan_tensors(planned, dev), static,
-                                            me, stamp_through))
+                plan = self._plan_tensors(planned, dev)
+                if coded:
+                    bodies.append(_phase_b_coded(inter, *plan, static, slots))
+                else:
+                    me = torch.as_tensor(slots, device=dev)
+                    bodies.append(_phase_b_body(inter, *plan, static, me, stamp_through))
         if self.backend == "stacked":
             return _drive_stacked(bodies[0])
         return self._drive_sharded(bodies)

@@ -1,13 +1,15 @@
 // XOR of 32-bit word slabs for Hopper (sm_90a): the coded shuffle's packet
 // encode and decode. Two instances:
 //
-//   encode: x[s, d, q, :] = pair_ok(s, d, q) ? slab[s, d, q, :] ^ slab[s, q, d, :] : 0
-//           pair_ok(s, d, q) = d != q and d != s and q != s
+//   encode: x[r, d, q, :] = pair_ok(s, d, q) ? slab[r, d, q, :] ^ slab[r, q, d, :] : 0
+//           s = first + r, pair_ok(s, d, q) = d != q and d != s and q != s
 //   flat:   out[i] = a[i] ^ b[i],   i in [0, n)
 //
-// The encode's slab is the stacked (m, m, m, cap2, W) spill of one chunk:
-// block (s, d, q) holds the cap2 * W words that sender s's records with
-// partner d send to destination q. Its packet for the unordered pair {d, q}
+// The encode's slab is the (R, m, m, cap2, W) spill of one chunk of R
+// senders first .. first + R - 1: all m of them stacked (R = m, first = 0),
+// or one slot's own share (R = 1, first = the slot). Block (r, d, q) holds
+// the cap2 * W words that sender first + r's records with partner d send
+// to destination q. Its packet for the unordered pair {d, q}
 // is the XOR of its two blocks (s, d, q) and (s, q, d), written to both;
 // blocks with no packet (d == q, or a pair that includes s) are zeros. The
 // flat instance is the decode (packet ^ rebuilt slab) and takes any two
@@ -80,16 +82,17 @@ xor_flat_kernel(const Word* __restrict__ a, const Word* __restrict__ b,
   }
 }
 
-// One item of the encode: sender s = blockIdx.y / (m (m + 1) / 2), the
-// unordered pair d <= q of the rest of blockIdx.y; this CTA's tile of the
-// block_words Words of blocks (s, d, q) and (s, q, d).
+// One item of the encode: slab row r = blockIdx.y / (m (m + 1) / 2), whose
+// sender is first + r, the unordered pair d <= q of the rest of blockIdx.y;
+// this CTA's tile of the block_words Words of blocks (r, d, q) and (r, q, d).
 template <typename Word>
 __global__ void __launch_bounds__(kThreads)
-xor_encode_kernel(const Word* __restrict__ slab, Word* __restrict__ x, int m,
+xor_encode_kernel(const Word* __restrict__ slab, Word* __restrict__ x, int m, int first,
                   long long block_words) {
   const int pairs = m * (m + 1) / 2;
-  const int s = blockIdx.y / pairs;
-  int t = blockIdx.y - s * pairs;
+  const int r = blockIdx.y / pairs;
+  const int s = first + r;
+  int t = blockIdx.y - r * pairs;
   int d = 0;
   while (t >= m - d) {          // row d of the upper triangle holds q = d .. m-1
     t -= m - d;
@@ -98,8 +101,8 @@ xor_encode_kernel(const Word* __restrict__ slab, Word* __restrict__ x, int m,
   const int q = d + t;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= block_words) return;
-  const long long dq = ((static_cast<long long>(s) * m + d) * m + q) * block_words + i;
-  const long long qd = ((static_cast<long long>(s) * m + q) * m + d) * block_words + i;
+  const long long dq = ((static_cast<long long>(r) * m + d) * m + q) * block_words + i;
+  const long long qd = ((static_cast<long long>(r) * m + q) * m + d) * block_words + i;
   if (d == q || d == s || q == s) {
     x[dq] = zero_word<Word>();
     if (d != q) x[qd] = zero_word<Word>();
@@ -144,12 +147,15 @@ extern "C" int xor_words_i32(const void* a, const void* b, void* out, long long 
 }
 
 // Launches the packet encode of one chunk on `stream`: slab and x are
-// (m, m, m, block_words) int32 words, x allocated by the caller; every word
-// of x is written. Returns the cudaError_t of the launch (0 on success).
-extern "C" int xor_encode_packets_i32(const void* slab, void* x, int m, long long block_words,
-                                      void* stream) {
-  if (m <= 0 || block_words <= 0) return cudaErrorInvalidValue;
-  const long long items = static_cast<long long>(m) * m * (m + 1) / 2;
+// (senders, m, m, block_words) int32 words of senders first .. first +
+// senders - 1, x allocated by the caller; every word of x is written.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int xor_encode_packets_i32(const void* slab, void* x, int senders, int m, int first,
+                                      long long block_words, void* stream) {
+  if (m <= 0 || senders <= 0 || first < 0 || first + senders > m || block_words <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long items = static_cast<long long>(senders) * m * (m + 1) / 2;
   if (items > 65535) return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(slab) | reinterpret_cast<uintptr_t>(x)) & 3) {
     return cudaErrorMisalignedAddress;
@@ -160,12 +166,12 @@ extern "C" int xor_encode_packets_i32(const void* slab, void* x, int m, long lon
     const dim3 grid(static_cast<unsigned>((words + kThreads - 1) / kThreads),
                     static_cast<unsigned>(items));
     xor_encode_kernel<int4><<<grid, kThreads, 0, st>>>(static_cast<const int4*>(slab),
-                                                       static_cast<int4*>(x), m, words);
+                                                       static_cast<int4*>(x), m, first, words);
   } else {
     const dim3 grid(static_cast<unsigned>((block_words + kThreads - 1) / kThreads),
                     static_cast<unsigned>(items));
     xor_encode_kernel<int><<<grid, kThreads, 0, st>>>(static_cast<const int*>(slab),
-                                                      static_cast<int*>(x), m, block_words);
+                                                      static_cast<int*>(x), m, first, block_words);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,35 +68,41 @@ def xor_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def encode_packets(slab: torch.Tensor) -> torch.Tensor:
-    """The coded packets of one chunk: ``x[s, d, q] = slab[s, d, q] ^ slab[s,
-    q, d]`` where ``d != q`` and neither is ``s``, else 0.
+def encode_packets(slab: torch.Tensor, first_sender: int = 0) -> torch.Tensor:
+    """The coded packets of one chunk: ``x[r, d, q] = slab[r, d, q] ^ slab[r,
+    q, d]`` where ``d != q`` and neither is the sender ``s = first_sender +
+    r``, else 0.
 
-    ``slab`` is the ``(m, m, m, cap, W)`` int32/uint32 spill (sender,
-    partner, destination, row, word). CUDA slabs (contiguous) launch the
-    kernel's encode instance once (counted in ``launches``); it reads each
-    packet's two blocks once and writes no swapped copy.
+    ``slab`` is the ``(R, m, m, cap, W)`` int32/uint32 spill (sender,
+    partner, destination, row, word) of senders ``first_sender ..
+    first_sender + R - 1``: every slot stacked (``R = m``, ``first_sender =
+    0``) or one slot's own share (``R = 1``). CUDA slabs (contiguous) launch
+    the kernel's encode instance once (counted in ``launches``); it reads
+    each packet's two blocks once and writes no swapped copy.
     """
+    if slab.dim() != 5 or slab.shape[1] != slab.shape[2]:
+        raise ValueError(f"encode_packets needs an (R, m, m, cap, W) slab, got"
+                         f" {tuple(slab.shape)}")
+    senders, m = slab.shape[0], slab.shape[1]
+    if not (0 <= first_sender and first_sender + senders <= m):
+        raise ValueError(f"senders {first_sender}..{first_sender + senders - 1} are not"
+                         f" slots of an m={m} mesh")
     if slab.device.type == "cpu":
-        return encode_packets_ref(slab)
+        return encode_packets_ref(slab, first_sender)
     if slab.device.type != "cuda":
         raise ValueError(f"encode_packets needs a CUDA (or CPU) slab, got {slab.device}")
-    if slab.dim() != 5 or not slab.shape[0] == slab.shape[1] == slab.shape[2]:
-        raise ValueError(f"encode_packets needs an (m, m, m, cap, W) slab, got"
-                         f" {tuple(slab.shape)}")
     if slab.dtype not in _WORD_DTYPES:
         raise TypeError(f"encode_packets needs int32 or uint32 words, got {slab.dtype}")
-    m = slab.shape[0]
-    if m * m * (m + 1) // 2 > 65535:
-        raise ValueError(f"encode_packets takes at most 50 slots (the kernel's grid has"
-                         f" one row a sender and pair, at most 65535), got m={m}")
+    if senders * m * (m + 1) // 2 > 65535:
+        raise ValueError(f"encode_packets takes at most 65535 (sender, pair) items (the"
+                         f" kernel's grid has one row each), got {senders} senders of m={m}")
     if not slab.is_contiguous():
         raise ValueError("encode_packets needs a contiguous slab")
     out = torch.empty_like(slab)
     if slab.numel() == 0:
         return out
     with torch.cuda.device(slab.device):
-        encode_packets_cuda(slab, out)
+        encode_packets_cuda(slab, out, first_sender)
     _count("encode")
     return out
 

@@ -16,8 +16,8 @@ def _entries():
     flat, encode = lib.xor_words_i32, lib.xor_encode_packets_i32
     flat.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_longlong, ctypes.c_void_p]
-    encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p]
+    encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     flat.restype = encode.restype = ctypes.c_int
     return flat, encode
 
@@ -34,15 +34,17 @@ def xor_words_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
         raise RuntimeError(f"xor_words kernel launch failed: cudaError {rc}")
 
 
-def encode_packets_cuda(slab: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the encode instance over an ``(m, m, m, ...)`` word slab into
-    ``out`` of its shape (every word written).
+def encode_packets_cuda(slab: torch.Tensor, out: torch.Tensor, first_sender: int) -> None:
+    """Launch the encode instance over an ``(R, m, m, ...)`` word slab of
+    senders ``first_sender .. first_sender + R - 1`` into ``out`` of its
+    shape (every word written).
 
     Shapes, types, device and contiguity are the caller's to check
     (``ops.encode_packets``). Raises if the launch is refused.
     """
-    m = slab.shape[0]
-    rc = _entries()[1](slab.data_ptr(), out.data_ptr(), m, slab.numel() // m ** 3,
+    senders, m = slab.shape[0], slab.shape[1]
+    rc = _entries()[1](slab.data_ptr(), out.data_ptr(), senders, m, first_sender,
+                       slab.numel() // (senders * m * m),
                        torch.cuda.current_stream(slab.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"xor_words encode kernel launch failed: cudaError {rc}")

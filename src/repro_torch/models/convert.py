@@ -49,27 +49,54 @@ def _load_norm(norm, tree: Mapping, name: str, index=None) -> None:
         _copy(norm.bias, pick(tree["bias"]), f"{name}.bias")
 
 
-def params_from_reference(values: Mapping, cfg: ModelConfig, device=None) -> DecoderModel:
+def _load_moe(moe, tree: Mapping, name: str, index: int) -> None:
+    """An MoE layer: the router, the stacked ``(E, ...)`` expert weights in
+    the reference's physical row order, and the shared experts."""
+    _copy(moe.router, tree["router"]["w"][index], f"{name}.router.w")
+    for part in ("up", "down", "gate"):
+        w = getattr(moe, part)
+        if w is None:
+            if part in tree:
+                raise ValueError(f"{name}: the reference is gated, the config not")
+            continue
+        _copy(w, tree[part]["w"][index], f"{name}.{part}.w")
+    if moe.shared is not None:
+        for part in ("up", "gate", "down"):
+            _load_linear(moe.shared[part], tree["shared"][part], f"{name}.shared.{part}",
+                         index)
+
+
+def _load_stack(layers, stack: Mapping, name: str) -> None:
+    for i, layer in enumerate(layers):
+        pre = f"{name}[{i}]"
+        _load_norm(layer.ln1, stack["ln1"], f"{pre}.ln1", i)
+        _load_norm(layer.ln2, stack["ln2"], f"{pre}.ln2", i)
+        for part in ("q", "k", "v", "o"):
+            _load_linear(getattr(layer.attn, part), stack["attn"][part],
+                         f"{pre}.attn.{part}", i)
+        if layer.moe is not None:
+            _load_moe(layer.moe, stack["moe"], f"{pre}.moe", i)
+            continue
+        for part in ("up", "down", "gate"):
+            lin = getattr(layer.mlp, part)
+            if lin is None:
+                if part in stack["mlp"]:
+                    raise ValueError(f"{pre}.mlp: the reference is gated, the config not")
+                continue
+            _load_linear(lin, stack["mlp"][part], f"{pre}.mlp.{part}", i)
+
+
+def params_from_reference(values: Mapping, cfg: ModelConfig, device=None,
+                          ep_slots: int = 1) -> DecoderModel:
     """The port's model of ``cfg`` on ``device`` (default: the current CUDA
-    device; without one this raises) holding the reference's values."""
-    model = DecoderModel(cfg, device=device)
+    device; without one this raises) holding the reference's values, MoE
+    layers over ``ep_slots`` stacked expert slots."""
+    model = DecoderModel(cfg, device=device, ep_slots=ep_slots)
     with torch.no_grad():
         _copy(model.embed.w, values["embed"]["w"], "embed.w")
         _load_norm(model.final_norm, values["final_norm"], "final_norm")
         _load_linear(model.lm_head, values["lm_head"], "lm_head")
-        stack = values["layers"]
-        for i, layer in enumerate(model.layers):
-            pre = f"layers[{i}]"
-            _load_norm(layer.ln1, stack["ln1"], f"{pre}.ln1", i)
-            _load_norm(layer.ln2, stack["ln2"], f"{pre}.ln2", i)
-            for part in ("q", "k", "v", "o"):
-                _load_linear(getattr(layer.attn, part), stack["attn"][part],
-                             f"{pre}.attn.{part}", i)
-            for part in ("up", "down", "gate"):
-                lin = getattr(layer.mlp, part)
-                if lin is None:
-                    if part in stack["mlp"]:
-                        raise ValueError(f"{pre}.mlp: the reference is gated, the config not")
-                    continue
-                _load_linear(lin, stack["mlp"][part], f"{pre}.mlp.{part}", i)
+        if len(model.dense_layers):
+            _load_stack(model.dense_layers, values["dense_layers"], "dense_layers")
+        _load_stack(model.layers, values["layers"], "layers")
     return model

@@ -80,6 +80,37 @@ def test_encode_plain_matches_reference_encode(m, cap, w, word):
         np.testing.assert_array_equal(got[me].numpy().view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_encode_of_a_sender_range_equals_those_rows_of_the_stacked_encode(m, rows):
+    """One slot's share of the spill (the sharded backend's slab) encodes
+    to its rows of the stacked encode, whichever senders it holds."""
+    rng = np.random.default_rng(m + rows)
+    slab = torch.from_numpy(_words(rng, (m, m, m, 6, 5), "int32"))
+    whole = cs_ops.encode_packets(slab)
+    for first in range(m - rows + 1):
+        part = cs_ops.encode_packets(slab[first:first + rows].contiguous(), first_sender=first)
+        assert torch.equal(part, whole[first:first + rows])
+    with pytest.raises(ValueError, match="senders"):
+        cs_ops.encode_packets(slab[:rows].contiguous(), first_sender=m - rows + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("first", [0, 1, 7])
+def test_encode_kernel_of_one_sender_matches_plain(m, first):
+    """The encode instance on a (1, m, m, cap, W) slab of sender ``first``
+    (the sharded backend's launch) against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    first = min(first, m - 1)
+    rng = np.random.default_rng(m * 10 + first)
+    slab = torch.from_numpy(_words(rng, (1, m, m, 79, 13), "int32")).cuda()
+    got = cs_ops.encode_packets(slab, first_sender=first)
+    torch.cuda.synchronize()
+    assert torch.equal(got, encode_packets_ref(slab, first))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [3, 8])
 @pytest.mark.parametrize("cap,w", [(1, 1), (78, 13), (79, 13), (256, 4), (257, 4),

@@ -31,7 +31,8 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.kernels.coded_shuffle.ops, "
         "repro_torch.kernels.fused_shuffle_reduce.ops, "
         "repro_torch.kernels.flash_attention.ops, repro_torch.kernels.moe_dispatch.ops, "
-        "repro_torch.nn.layers, repro_torch.nn.attention, repro_torch.models.model, "
+        "repro_torch.nn.layers, repro_torch.nn.attention, repro_torch.nn.moe, "
+        "repro_torch.core.balancer, repro_torch.models.model, "
         "repro_torch.models.convert, repro_torch.configs, repro_torch.serve.engine, "
         "repro_torch.launch.serve\n"
         "import repro_torch.configs as c\n"
@@ -89,16 +90,20 @@ def test_read_ticks_without_a_device_raises_without_cuda():
     ("shuffle_replication", 2, 14, "sharded"),
 ])
 def test_unported_settings_name_their_roadmap_item(field, value, item, backend):
-    cfg = MapReduceConfig(num_slots=2, num_clusters=4, **{field: value})
-    where = ({"device": "cpu"} if backend == "stacked"
-             else {"backend": "sharded", "devices": ["cpu"] * 2})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        MapReduceJob(lambda x: x, cfg, **where)
+    """The last MapReduce setting that named its ROADMAP item (the coded
+    shuffle on the sharded backend, item 14) is ported: the engine refuses
+    no setting as not ported, and this one runs as the reference's."""
+    from repro_torch.core import mapreduce as port_mr
+
+    assert not hasattr(port_mr, "_unported")
+    test_once_unported_settings_run_as_the_reference(field, value, item, backend)
 
 
 @pytest.mark.parametrize("field,value,item,backend", [
     ("checkpoint_waves", True, 7, "stacked"),
     ("checkpoint_waves", True, 7, "sharded"),
+    ("shuffle_replication", 2, 14, "stacked"),
+    ("shuffle_replication", 2, 14, "sharded"),
 ])
 def test_once_unported_settings_run_as_the_reference(field, value, item, backend):
     """Settings that named their ROADMAP item before it was ported now

@@ -103,6 +103,11 @@ _CONFIGS = {
     "sketch": dict(stats="sketch", sketch_width=64),
     "sketch-prefix": dict(stats="sketch", sketch_width=64, stream_prefix=0.25),
     "lpt-5-chunks": dict(scheduler="lpt", pipeline_chunks=5),
+    "coded": dict(shuffle_replication=2),
+    "coded-sequential": dict(shuffle_replication=2, pipelined=False),
+    "coded-max": dict(shuffle_replication=2, reduce_op="max"),
+    "coded-int8": dict(shuffle_replication=2, quantize_shuffle="int8"),
+    "coded-fp8": dict(shuffle_replication=2, quantize_shuffle="fp8"),
 }
 
 
@@ -133,6 +138,7 @@ def test_sharded_equals_stacked_and_reference_vmap(name):
         np.testing.assert_array_equal(b.counts, np.asarray(want.counts))
         assert b.overflow == want.overflow
         assert b.shuffle_bytes == want.shuffle_bytes
+        assert b.replication_bytes == want.replication_bytes
         assert b.quantize_exact == want.quantize_exact
         _assert_same_plan(sharded.last_plan, ref_plans[-1])
         _assert_same_plan(sharded.last_plan, stacked.last_plan)
@@ -280,11 +286,13 @@ _REFERENCE_M4 = textwrap.dedent('''
     assert len(jax.devices()) >= m, jax.devices()
     mesh = Mesh(np.asarray(jax.devices()[:m]), ("mr_slots",))
 
-    def batch(seed):
+    def batch(seed, peak=False):
         rng = np.random.default_rng(seed)
         keys = (rng.zipf(1.25, size=(m, k)) % 503).astype(np.int32)
         vals = rng.integers(-4, 8, size=(m, k, 2)).astype(np.float32)
         valid = rng.random((m, k)) >= 0.03
+        if peak:    # an int8 scale of exactly 1: the quantized pairs stay integers
+            vals[-1, 0, 0], valid[-1, 0] = 127.0, True
         return tuple(jnp.asarray(a) for a in (keys, vals, valid))
 
     saved = {}
@@ -301,6 +309,20 @@ _REFERENCE_M4 = textwrap.dedent('''
             if job.last_wave_timings is not None:
                 saved[f"{label}_timings_{seed}"] = job.last_wave_timings.seconds
                 saved[f"{label}_valid_{seed}"] = np.asarray(job.last_wave_timings.valid)
+    for label, extra in (("coded", dict(shuffle_replication=2)),
+                         ("coded-int8-sequential", dict(shuffle_replication=2,
+                                                        quantize_shuffle="int8",
+                                                        pipelined=False))):
+        job = MapReduceJob(lambda s: s, MapReduceConfig(
+            num_slots=m, num_clusters=n, scheduler="bss", pipeline_chunks=3,
+            use_kernels=True, **extra), backend="shard_map", mesh=mesh)
+        for seed in range(2):
+            res = job.run(batch(seed, peak="int8" in label))
+            saved[f"{label}_values_{seed}"] = np.asarray(res.values)
+            saved[f"{label}_counts_{seed}"] = np.asarray(res.counts)
+            saved[f"{label}_assignment_{seed}"] = np.asarray(res.schedule.assignment)
+            saved[f"{label}_bytes_{seed}"] = np.asarray(
+                [res.shuffle_bytes, res.replication_bytes, res.shuffle_pairs, res.overflow])
     errors = {}
     for label, extra in (("coded", dict(shuffle_replication=2, estimate_speeds=True)),
                          ("no-estimator", dict(measure_timings=True)),
@@ -330,11 +352,13 @@ def reference_m4(tmp_path_factory):
         return {key: data[key] for key in data.files}
 
 
-def _m4_batch(seed):
+def _m4_batch(seed, peak=False):
     rng = np.random.default_rng(seed)
     keys = (rng.zipf(1.25, size=(4, 512)) % 503).astype(np.int32)
     vals = rng.integers(-4, 8, size=(4, 512, 2)).astype(np.float32)
     valid = rng.random((4, 512)) >= 0.03
+    if peak:
+        vals[-1, 0, 0], valid[-1, 0] = 127.0, True
     return keys, vals, valid
 
 
@@ -360,6 +384,30 @@ def test_four_slot_sharded_equals_reference_shard_map(reference_m4, label):
             assert (got.seconds >= 0).all()
         else:
             assert port.last_wave_timings is None
+
+
+@pytest.mark.parametrize("label", ["coded", "coded-int8-sequential"])
+def test_four_slot_sharded_coded_equals_reference_shard_map(reference_m4, label):
+    """The coded shuffle on the sharded backend against the reference's
+    ``_phase_b_shard_coded`` under ``shard_map``, and against the stacked
+    coded run: values, counts, plans and wire bytes equal."""
+    extra = dict(shuffle_replication=2)
+    if label == "coded-int8-sequential":
+        extra.update(quantize_shuffle="int8", pipelined=False)
+    port = _sharded(4, 24, scheduler="bss", pipeline_chunks=3, **extra)
+    stacked = _stacked(4, 24, scheduler="bss", pipeline_chunks=3, **extra)
+    for seed in range(2):
+        batch = _m4_batch(seed, peak="int8" in label)
+        res = port.run(_torch(batch))
+        _assert_same_result(res, stacked.run(_torch(batch)))
+        np.testing.assert_array_equal(res.values, reference_m4[f"{label}_values_{seed}"])
+        np.testing.assert_array_equal(res.counts, reference_m4[f"{label}_counts_{seed}"])
+        np.testing.assert_array_equal(res.schedule.assignment,
+                                      reference_m4[f"{label}_assignment_{seed}"])
+        np.testing.assert_array_equal(
+            [res.shuffle_bytes, res.replication_bytes, res.shuffle_pairs, res.overflow],
+            reference_m4[f"{label}_bytes_{seed}"])
+        assert res.replication_bytes > 0
 
 
 def test_configuration_errors_fire_as_in_the_reference_at_four_slots(reference_m4):
@@ -466,6 +514,17 @@ def test_measured_slowdown_moves_load_off_the_slow_slot():
     job = _sharded(m, scheduler="bss", pipeline_chunks=3, estimate_speeds=True,
                    reuse=tsc.ReusePolicy(max_drift=0.8, max_speed_drift=0.25))
     ref = _stacked(m, scheduler="bss", pipeline_chunks=3)
+    observe = job._observe_measured
+
+    def steady(timings, planned):
+        # The CPU's host stamps swing with the machine's load. Every wave
+        # is billed one fixed time instead, so the injected slowdown alone
+        # tells the slots apart; the stamps and their shape stay real.
+        assert timings.valid and (timings.seconds >= 0).all()
+        timings.seconds = np.full_like(timings.seconds, 1e-3)
+        observe(timings, planned)
+
+    job._observe_measured = steady
     loads, reasons = [], []
     for seed in range(7):
         if seed == 3:
@@ -513,15 +572,31 @@ def test_fenced_fallback_refuses_the_quantized_wire():
 
 
 def test_sharded_coded_shuffle_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _sharded(4, shuffle_replication=2)
-    # A coded snapshot replayed on the sharded backend is refused alike.
+    """Once refused (ROADMAP item 14), now ported: the sharded coded run
+    equals the stacked one, and a coded snapshot replayed on the sharded
+    backend runs coded and equals the stacked job that planned it."""
     coded = _stacked(4, shuffle_replication=2, reuse=tsc.ReusePolicy())
-    coded.run(_torch(_batch(0, 4)))
+    first = coded.run(_torch(_batch(0, 4)))
+    _assert_same_result(_sharded(4, shuffle_replication=2).run(_torch(_batch(0, 4))), first)
     snap = json.loads(json.dumps(coded.schedule_cache.snapshot.to_json()))
     job = _sharded(4, reuse=tsc.ReusePolicy())
     job.load_snapshot(snap)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    replayed = job.run(_torch(_batch(0, 4)))
+    assert replayed.reused and job.last_plan.waves.replication == 2
+    _assert_same_result(replayed, first, plans=False)
+    assert replayed.replication_bytes == first.replication_bytes > 0
+    assert replayed.shuffle_bytes == first.shuffle_bytes
+
+
+def test_a_coded_snapshot_on_a_measured_job_is_refused():
+    """The coded decode carries no stamps, so a coded plan replayed on a
+    job that measures its waves raises instead of running unmeasured."""
+    coded = _stacked(4, shuffle_replication=2, reuse=tsc.ReusePolicy())
+    coded.run(_torch(_batch(0, 4)))
+    job = _sharded(4, estimate_speeds=True, reuse=tsc.ReusePolicy())
+    assert job._measure_timings
+    job.load_snapshot(json.loads(json.dumps(coded.schedule_cache.snapshot.to_json())))
+    with pytest.raises(ValueError, match="stamp"):
         job.run(_torch(_batch(0, 4)))
 
 
@@ -535,10 +610,20 @@ def test_sharded_constructor_refusals():
         tmr.MapReduceJob(_identity, cfg, device="cpu", devices=["cpu"] * 3)
     with pytest.raises(ValueError, match="unknown backend"):
         tmr.MapReduceJob(_identity, cfg, backend="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmr.MapReduceJob(_identity, tmr.MapReduceConfig(num_slots=3, num_clusters=8,
-                                                        shuffle_replication=2),
-                         backend="sharded", devices=["cpu"] * 3)
+    # The coded shuffle constructs on the sharded backend, refused only
+    # where the reference refuses it (one slot, the checkpointed walk, and
+    # measured clocks, which estimate_speeds turns on here).
+    job = tmr.MapReduceJob(_identity, tmr.MapReduceConfig(num_slots=3, num_clusters=8,
+                                                          shuffle_replication=2),
+                           backend="sharded", devices=["cpu"] * 3)
+    assert job.cfg.shuffle_replication == 2 and not job._measure_timings
+    for extra, match in ((dict(num_slots=1), "at least 2 slots"),
+                         (dict(checkpoint_waves=True), "checkpoint_waves"),
+                         (dict(estimate_speeds=True), "measured timings")):
+        with pytest.raises(ValueError, match=match):
+            _sharded(extra.pop("num_slots", 3), shuffle_replication=2, **extra)
+    synthetic = _sharded(3, shuffle_replication=2, estimate_speeds=True, measure_timings=False)
+    assert not synthetic._measure_timings
 
 
 def test_sharded_default_devices_need_cuda():
@@ -569,7 +654,8 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["sum", "sum-sequential", "max", "int8", "sketch-prefix"])
+@pytest.mark.parametrize("name", ["sum", "sum-sequential", "max", "int8", "sketch-prefix",
+                                  "coded", "coded-sequential", "coded-int8"])
 def test_cuda_sharded_equals_cuda_stacked(name):
     dev = _cuda()
     m, cfg = 6, _CONFIGS[name]
