@@ -115,24 +115,19 @@ class EngineConfig:
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *, device=None,
-                 ep_slots: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *, device=None):
         """``params``: the model (``models.model.init_model`` or
         ``models.convert.params_from_reference``), on ``device`` (default:
         the current CUDA device; without one this raises). An MoE model
-        holds its experts over ``ep_slots`` stacked expert slots (where the
-        reference's engine takes a mesh); ``None`` takes the model's, and
-        a count the model does not hold is refused. MoE layers run with
-        the default placement, as the reference's engine runs them."""
+        holds its experts over the stacked expert slots it was built with
+        (``init_model(ep_slots=)``, where the reference's engine takes a
+        mesh). MoE layers run with the default placement, as the
+        reference's engine runs them."""
         if cfg.ssm is not None or cfg.xlstm is not None:
             raise ValueError("state-based archs use the decode step directly")
         self.device = default_device(device, "Engine")
         if params.device != self.device:
             raise ValueError(f"the model is on {params.device}, the engine on {self.device}")
-        if ep_slots is not None and ep_slots != params.ep_slots:
-            raise ValueError(f"the model holds its experts over {params.ep_slots} slots,"
-                             f" not ep_slots={ep_slots}")
-        self.ep_slots = params.ep_slots
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         # Host-clock telemetry of the last run(): seconds of each admission's
         # prefill (ending in the first token's copy to the host) and of each

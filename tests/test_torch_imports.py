@@ -91,12 +91,26 @@ def test_read_ticks_without_a_device_raises_without_cuda():
 ])
 def test_unported_settings_name_their_roadmap_item(field, value, item, backend):
     """The last MapReduce setting that named its ROADMAP item (the coded
-    shuffle on the sharded backend, item 14) is ported: the engine refuses
-    no setting as not ported, and this one runs as the reference's."""
+    shuffle on the sharded backend, item 14) is ported; the test keeps its
+    name from when it checked the refusal. The engine refuses no setting as
+    not ported: every variant of this one constructs on ``backend``, and
+    what the reference refuses for it (one slot, checkpointed waves) raises
+    the reference's ``ValueError``. Its run against the reference is
+    ``test_once_unported_settings_run_as_the_reference``."""
     from repro_torch.core import mapreduce as port_mr
 
     assert not hasattr(port_mr, "_unported")
-    test_once_unported_settings_run_as_the_reference(field, value, item, backend)
+    where = ({"device": "cpu"} if backend == "stacked"
+             else {"backend": "sharded", "devices": ["cpu"] * 3})
+    for extra in ({}, {"pipelined": False}, {"reduce_op": "max"},
+                  {"quantize_shuffle": "int8"}, {"quantize_shuffle": "fp8"}):
+        job = MapReduceJob(lambda x: x, MapReduceConfig(num_slots=3, num_clusters=8,
+                                                        **{field: value}, **extra), **where)
+        assert getattr(job.cfg, field) == value
+    for extra in ({"num_slots": 1}, {"checkpoint_waves": True}):
+        cfg = {"num_slots": 3, "num_clusters": 8, field: value, **extra}
+        with pytest.raises(ValueError):
+            MapReduceJob(lambda x: x, MapReduceConfig(**cfg), **where)
 
 
 @pytest.mark.parametrize("field,value,item,backend", [

@@ -217,7 +217,8 @@ def test_cache_layout_equals_reference(arch):
 def test_unported_families_name_their_item(arch, item):
     """Each family the port does not run names its ROADMAP item; the MoE
     family (item 11, grok-1) is ported and its prefill logits equal the
-    reference's, while deepseek-v2's MoE layers wait for its MLA (item 12)."""
+    reference's (its case keeps the test's name from when it was refused),
+    while deepseek-v2's MoE layers wait for its MLA (item 12)."""
     if item == 11:
         import jax.numpy as jnp
 

@@ -446,12 +446,10 @@ def test_grok_smoke_engine_token_streams_equal_reference():
 
     want = RefEngine(cfg_ref, vals, RefConfig(**ecfg)).run(requests(RefRequest))
     eng = Engine(cfg, params_from_reference(values, cfg, "cpu"), EngineConfig(**ecfg),
-                 device="cpu", ep_slots=1)
+                 device="cpu")
     got = eng.run(requests(Request))
     assert [(r.rid, r.lane, r.output) for r in got] == \
         [(r.rid, r.lane, r.output) for r in want]
-    with pytest.raises(ValueError, match="ep_slots"):
-        Engine(cfg, eng.params, EngineConfig(**ecfg), device="cpu", ep_slots=2)
 
 
 def test_init_moe_draws_the_reference_scales():

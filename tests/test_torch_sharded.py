@@ -572,9 +572,10 @@ def test_fenced_fallback_refuses_the_quantized_wire():
 
 
 def test_sharded_coded_shuffle_is_not_ported():
-    """Once refused (ROADMAP item 14), now ported: the sharded coded run
-    equals the stacked one, and a coded snapshot replayed on the sharded
-    backend runs coded and equals the stacked job that planned it."""
+    """Once refused (ROADMAP item 14), now ported; the test keeps its name
+    from when it checked the refusal. The sharded coded run equals the
+    stacked one, and a coded snapshot replayed on the sharded backend runs
+    coded and equals the stacked job that planned it."""
     coded = _stacked(4, shuffle_replication=2, reuse=tsc.ReusePolicy())
     first = coded.run(_torch(_batch(0, 4)))
     _assert_same_result(_sharded(4, shuffle_replication=2).run(_torch(_batch(0, 4))), first)
