@@ -95,7 +95,11 @@ Then it frees the card and adds the serving side:
   S, at D = 20 and with T > S, tolerance 2e-5, and bf16 at D = 256), timed
   beside its plain version, its simt instance and
   ``scaled_dot_product_attention`` (device time from a burst behind a spin,
-  and CUDA events around one call);
+  and CUDA events around one call); and at the family paths' shapes, each
+  timed beside ``scaled_dot_product_attention``: MLA's prefill (8, 128, 128,
+  512, 512, 192) causal on the simt instance, whisper's encoder (8, 8, 8,
+  1500, 1500, 64) and cross-attention (8, 8, 8, 32, 1500, 64) non-causal and
+  qwen2-vl's (8, 28, 4, 512, 512, 128) causal on the wgmma instance;
 * kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64,
   160 and 1,024 Zipf-skewed destinations with 2% padding, ranks and counts
   equal to the plain version exactly (its own entry point: no engine path
@@ -129,8 +133,40 @@ Then it frees the card and adds the serving side:
   lanes with ``attn_impl="pallas"`` (every prefill layer through the flash
   kernel's wgmma instance), 20 decode steps under the profiler, and a
   2-layer float32 twin at full width served on the card and on the CPU
-  with the same weights, whose token streams must agree (or differ only at
-  a top-2 margin of at most 1e-3). Only the flash kernel runs on this path.
+  with the same weights, whose token streams must be equal. Only the flash
+  kernel runs on this path;
+* the whisper path: whisper-base (openai/whisper base) at full width and
+  depth (6 encoder and 6 decoder layers, d_model 512, 8 heads, 1500
+  frames, vocab 51865, bf16), ``Engine`` on 8 lanes with max_len 448
+  serving 16 requests of 4-32 prompt tokens with (lanes, 1500, 512) normal
+  frames as ``extra_embed``: kernel 9's wgmma instance in every encoder
+  layer (non-causal, 1500 x 1500), decoder layer and cross-attention
+  (prompt x 1500, non-causal) of every prefill; 20 decode steps under the
+  profiler; a float32 twin (2 + 2 layers) served on the card and the CPU
+  with equal token streams;
+* the VLM path: qwen2-vl-7b (hf:Qwen/Qwen2-VL-7B-Instruct) at full width
+  and depth (28 layers, 15.2 GB of bf16 weights), 256 patch embeddings and
+  M-RoPE sections (16, 24, 24): a prefill of 8 x (256 patches + 256 text
+  tokens) and 16 decode steps at n_patches + p + i held against the
+  train-mode forward of the whole stream (relative L2 within 5e-2; the
+  float32 twin's argmax tokens equal), then ``Engine`` with the patches as
+  ``extra_embed`` on 8 lanes, 16 requests (the reference's semantics:
+  decoding continues at the prompt's length), kernel 9's wgmma instance at
+  a GQA group of 7; 20 decode steps under the profiler; the twin on the
+  card and the CPU;
+* the MLA path: deepseek-v2-236b (hf:deepseek-ai/DeepSeek-V2) at full
+  width (d_model 5120, 128 heads, MLA 512 / 1536 / 128 + 64 / 128, 160
+  experts top-6 of d_ff 1536 with 2 shared, a first dense layer of d_ff
+  12288, vocab 102400, bf16), depth cut from 60 to 5 layers (1 dense + 4
+  MoE), its experts over 4 expert slots (40 a slot): a prefill of 8 Zipf
+  prompts of 512 tokens at the config's capacity factor (its overflow
+  recorded), then at the factor that lets an expert keep every token under
+  the default placement, the balancer's re-plan with the weights moved and
+  the OS4M placement (logits bit-equal, overflow 0, slot balance printed);
+  MLA's compressed cache beside the GQA cache it replaces; ``Engine`` on 4
+  lanes, 8 requests (absorbed decode), kernel 9's simt instance at D = 192
+  in every prefill layer; 20 decode steps under the profiler; a 2-layer
+  float32 twin on the card and the CPU with equal token streams.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
@@ -210,6 +246,25 @@ SERVE_LANES, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 1024, 16   # the serve path
 # float32 twin with 4 requests of 6 new tokens.
 MOE_LAYERS, MOE_EP_SLOTS, MOE_PROMPTS, MOE_PROMPT_LEN = 4, 4, 8, 512
 MOE_REQUESTS, MOE_LANES, MOE_TWIN_REQUESTS, MOE_TWIN_NEW = 8, 4, 4, 6
+# The whisper path: whisper-base at full width and depth on 8 lanes with
+# max_len 448 (Whisper's decoder context), 16 requests of 4-32 prompt tokens.
+WHISPER_LANES, WHISPER_MAX_LEN, WHISPER_REQUESTS, WHISPER_PROMPTS = 8, 448, 16, (4, 33)
+# The VLM path: qwen2-vl-7b at full width and depth; the model-level check
+# prefills 8 x (256 patches + 256 text tokens) and decodes 16 steps, held
+# against the train-mode forward of the whole stream within VLM_BF16_TOL
+# (relative L2 of the logits); then 16 requests on 8 lanes.
+VLM_BATCH, VLM_TEXT, VLM_DECODE, VLM_BF16_TOL = 8, 256, 16, 5e-2
+# The MLA path: deepseek-v2-236b cut to 5 layers (1 dense + 4 MoE), 4 expert
+# slots (40 experts a slot), a prefill of 8 Zipf prompts of 512 tokens, 8
+# requests on 4 lanes.
+MLA_LAYERS, MLA_EP_SLOTS, MLA_PROMPTS, MLA_PROMPT_LEN = 5, 4, 8, 512
+MLA_REQUESTS, MLA_LANES = 8, 4
+# The float32 twins of the family paths (2 layers, full width), card vs CPU:
+# lanes, requests of 16-32 prompt tokens, new tokens a request.
+TWIN_LANES, TWIN_REQUESTS, TWIN_NEW = 2, 4, 6
+
+# The paths that serve a model (each launches kernel 9 and no other kernel).
+ATTENTION_PATHS = ("serve", "moe", "whisper", "vlm", "mla")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core rate, dense
@@ -424,6 +479,16 @@ def ptxas_phase(build) -> dict:
           "the wgmma instance does not spill")
     check(all(v["registers"] * 384 >= 128 * 40 + 256 * 232 for v in wgmma.values()),
           "the wgmma instance enters with the registers its setmaxnreg split needs")
+    # MLA's prefill (bf16, D = 192) runs the simt instance compiled for any
+    # D (template argument 0), whose dynamic shared memory is the q tile,
+    # a key and a value tile in float32 and the probabilities.
+    generic = {k: v for k, v in out["flash_attention"].items()
+               if "flash_fwd" in k and "wgmma" not in k and "Li0E" in k}
+    check(len(generic) == 2, "ptxas reported the simt instance of any D (f32, bf16)")
+    smem_192 = (64 * 193 + 32 * 193 + 32 * 192 + 64 * 33) * 4
+    out["simt_any_d"] = {"kernels": generic, "dynamic_smem_bytes_d192": smem_192}
+    print(f"flash simt instance of any D: {generic}; at D = 192 (MLA's prefill) "
+          f"{smem_192} bytes of dynamic shared memory a CTA", flush=True)
     sass = "".join(sass_functions(build, "flash_attention").values())
     out["hgmma_in_sass"] = sass.count("HGMMA")
     check(out["hgmma_in_sass"] > 0, "the flash library's SASS holds HGMMA")
@@ -1718,7 +1783,11 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
     longest admission (B = 1, T = S = ``moe_prompt_len``), at a ragged T
     and at its placement prefills (B = 8, T = S = 512). The simt instance: f32
     with T < S, f32 at the smollm twin's D = 20, f32 with T > S, bf16 at D =
-    256. Each case checks that it went through the instance
+    256. The family paths' shapes: MLA's prefill (D = 192, simt), whisper's
+    encoder (T = S = 1500) and cross-attention (T = 32, S = 1500), both
+    non-causal at D = 64, and qwen2-vl's GQA group of 7 (wgmma), each
+    timed beside SDPA (device time from a burst behind a spin) under
+    ``res["family"]``. Each case checks that it went through the instance
     ``fa_ops.design`` names.
 
     Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
@@ -1753,8 +1822,16 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
              "f32_t_lt_s": (2, 8, 2, 100, 300, 128, f32, True),
              "f32_d20": (2, 3, 1, 50, 50, 20, f32, True),
              "f32_t_gt_s": (2, 4, 2, 70, 30, 64, f32, True),
-             "bf16_d256": (1, 2, 2, 130, 130, 256, bf16, True)}
-    res = {"cases": {}}
+             "bf16_d256": (1, 2, 2, 130, 130, 256, bf16, True),
+             "mla_prefill": (MLA_PROMPTS, 128, 128, MLA_PROMPT_LEN, MLA_PROMPT_LEN, 192, bf16,
+                             True),
+             "whisper_encoder": (WHISPER_LANES, 8, 8, 1500, 1500, 64, bf16, False),
+             "whisper_cross": (WHISPER_LANES, 8, 8, 32, 1500, 64, bf16, False),
+             "vlm_prefill": (VLM_BATCH, 28, 4, 2 * VLM_TEXT, 2 * VLM_TEXT, 128, bf16, True)}
+    # The shapes the family paths give the kernel, each timed beside SDPA.
+    family_design = {"mla_prefill": "simt", "whisper_encoder": "wgmma",
+                     "whisper_cross": "wgmma", "vlm_prefill": "wgmma"}
+    res = {"cases": {}, "family": {}}
     for name, (b, hq, hkv, t, s, d, dtype, causal) in cases.items():
         q = torch.randn(b, hq, t, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dtype)
@@ -1774,23 +1851,38 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
               f"{(b, hq, hkv, t, s, d, causal)}: {err:.3g}")
         if name.startswith("moe"):
             check(design == "wgmma", f"flash case {name} is a case of the wgmma instance")
+        if name in family_design:
+            check(design == family_design[name],
+                  f"flash case {name} is a case of the {family_design[name]} instance")
         if t > s and causal:
             check(bool(torch.all(got[:, :, :t - s] == 0)), "rows that see no key give exact 0")
         res["cases"][name] = {"shape": [b, hq, hkv, t, s, d], "dtype": str(dtype),
                               "causal": causal, "design": design, "max_abs_err": err,
                               "tol": tol}
-        if name != "serve":
+        if name != "serve" and name not in family_design:
             continue
-        flops = 4 * b * hq * d * (t * s - t * (t - 1) / 2)
+        flops = 4 * b * hq * d * attention_pairs(t, s, causal)
         nbytes = (2 * b * hq * t * d + 2 * b * hkv * s * d) * 2
         bound, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
 
         def kernel():
-            return fa_ops.flash_attention(q, k, v, causal=True)
+            return fa_ops.flash_attention(q, k, v, causal=causal)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        if name != "serve":
+            check(float((library().float() - want.float()).abs().max()) <= 3e-2,
+                  f"scaled_dot_product_attention yardstick == plain within 3e-2 at {name}")
+            ms, host_ms = device_ms(kernel, launches=10 if design == "simt" else 50)
+            library_ms, _ = device_ms(library, launches=50)
+            res["family"][name] = dict(
+                res["cases"][name], flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by,
+                ms=ms, host_ms=host_ms, library_ms=library_ms, tflops=flops / ms / 1e9,
+                plain_ms=cuda_ms(lambda: flash_ref(q, k, v, causal=causal), reps=3,
+                                 warmup=1))
+            continue
 
         def simt():
             fa_cuda(q, k, v, torch.empty_like(q), True, d ** -0.5, "simt")
@@ -1807,6 +1899,16 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
             plain_ms=cuda_ms(lambda: flash_ref(q, k, v, causal=True), reps=5, warmup=1),
             simt_ms=cuda_ms(simt, reps=5, warmup=1), tflops=flops / ms / 1e9)
     return res
+
+
+def attention_pairs(t: int, s: int, causal: bool) -> float:
+    """(query, key) pairs a query row sees, summed over the T rows: all T S
+    without a mask, else row i (at key position S - T + i) sees
+    min(S, S - T + i + 1) keys, none when that is below 1."""
+    if not causal:
+        return float(t * s)
+    seen = np.clip(np.arange(s - t + 1, s + 1), 0, s)
+    return float(seen.sum())
 
 
 def dispatch_phase(md_ops, dispatch_ref, dev, t=DISPATCH_T, e=DISPATCH_E) -> dict:
@@ -1839,17 +1941,18 @@ def dispatch_phase(md_ops, dispatch_ref, dev, t=DISPATCH_T, e=DISPATCH_E) -> dic
             "library_ms": None, "bound_ms": b, "bound_by": by}
 
 
-def serve_requests(vocab: int, seed: int, count: int = SERVE_REQUESTS):
+def serve_requests(vocab: int, seed: int, count: int = SERVE_REQUESTS, plen=(128, 513)):
     """The serve path's requests, drawn with numpy from ``seed``: prompts of
-    128-512 tokens, decode budgets clip(zipf(1.5) * 4, 4, 64)."""
+    ``plen`` tokens (default 128-512), decode budgets clip(zipf(1.5) * 4, 4,
+    64)."""
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(seed)
     out = []
     for i in range(count):
-        plen = int(rng.integers(128, 513))
+        plen_i = int(rng.integers(*plen))
         budget = int(np.clip(rng.zipf(1.5) * 4, 4, 64))
-        out.append(Request(rid=i, prompt=rng.integers(3, vocab, plen).astype(np.int32),
+        out.append(Request(rid=i, prompt=rng.integers(3, vocab, plen_i).astype(np.int32),
                            max_new=budget))
     return out
 
@@ -1878,7 +1981,7 @@ def serve_path(counters, fa_ops, args, dev) -> tuple:
 
     from repro_torch.configs import get_config
     from repro_torch.core import scheduler as sched_lib
-    from repro_torch.models.model import init_cache, init_model
+    from repro_torch.models.model import init_model
     from repro_torch.serve.engine import Engine, EngineConfig
 
     cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
@@ -1938,22 +2041,10 @@ def serve_path(counters, fa_ops, args, dev) -> tuple:
 
     # Where a decode step's time goes: 20 lock-step steps at the lanes'
     # depths of a prompt of median length, under the profiler.
-    cache = init_cache(cfg, SERVE_LANES, SERVE_MAX_LEN, dtype=torch.float32, device=dev)
-    pos = np.full(SERVE_LANES, int(np.median(rec["prompt_lens"])), np.int64)
-    cur = np.full((SERVE_LANES, 1), 7, np.int32)
-
-    def steps20():
-        nonlocal cache
-        with torch.inference_mode():
-            for i in range(20):
-                cache, nxt = eng._decode(model, cache, torch.as_tensor(cur, device=dev),
-                                         torch.as_tensor(pos + i, device=dev))
-                nxt.cpu()
-
-    with torch.inference_mode():
-        eng._decode(model, cache, torch.as_tensor(cur, device=dev), torch.as_tensor(pos, device=dev))
-        rec["profile_20_decode_steps"] = profile_run("profile 20 decode steps", steps20)
-    del cache, eng, model, done
+    rec["profile_20_decode_steps"] = decode_profile(
+        "serve", eng, model, cfg, SERVE_LANES, SERVE_MAX_LEN,
+        int(np.median(rec["prompt_lens"])), dev)
+    del eng, model, done
     torch.cuda.empty_cache()
 
     # The 2-layer float32 twin: flash kernel against materialised scores.
@@ -2025,7 +2116,7 @@ def slot_loads(counts: np.ndarray, placements: np.ndarray, slots: int) -> np.nda
                      for c, p in zip(counts, placements)])
 
 
-def moe_path(counters, fa_ops, args, dev) -> tuple:
+def moe_path(counters, fa_ops, args, dev, smi) -> tuple:
     """grok-1-314b at full width, depth cut to MOE_LAYERS, bf16 weights from
     seed ``args.seed``, MOE_EP_SLOTS expert slots stacked on the card:
     a Zipf prefill under the default placement, the OS4M expert balancer's
@@ -2034,14 +2125,14 @@ def moe_path(counters, fa_ops, args, dev) -> tuple:
     then ``Engine`` serving
     MOE_REQUESTS requests on MOE_LANES lanes with attn_impl="pallas", 20
     decode steps under the profiler, and a 2-layer float32 twin served on
-    the card and on the CPU with the same weights (equal token streams, or a
-    divergence at a top-2 margin of at most 1e-3). Returns ``(record,
-    launches)`` over the whole path (counts set to 0 just before it)."""
+    the card and on the CPU with the same weights (equal token streams).
+    Returns ``(record, launches)`` over the whole path (counts set to 0 just
+    before it)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core import balancer as bal_lib
-    from repro_torch.models.model import DecoderModel, default_placements, forward, init_model
+    from repro_torch.models.model import default_placements, forward, init_model
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     full = get_config("grok-1-314b")
@@ -2141,77 +2232,25 @@ def moe_path(counters, fa_ops, args, dev) -> tuple:
         bal_lib.permute_expert_weights(layer.moe, np.arange(moe.num_experts), prev_perm=perm)
 
     # ---- 3: the engine on MOE_LANES lanes, as the serve path holds Llama-3-8B.
-    ecfg = EngineConfig(lanes=MOE_LANES, max_len=SERVE_MAX_LEN, scheduler="os4m")
-    eng = Engine(cfg, model, ecfg, device=dev)
+    eng = Engine(cfg, model, EngineConfig(lanes=MOE_LANES, max_len=SERVE_MAX_LEN,
+                                          scheduler="os4m"), device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, MOE_REQUESTS)
-    budgets = {r.rid: r.max_new for r in reqs}
-    flash0 = dict(fa_ops.launches_by_design)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    served = sorted(done, key=lambda r: r.rid)
-    check([r.rid for r in served] == list(range(len(reqs))), "moe serve: every request served")
-    check(all(1 <= len(r.output) <= budgets[r.rid] for r in served),
-          "moe serve: every output within its decode budget")
-    design = {k: fa_ops.launches_by_design[k] - flash0[k] for k in flash0}
-    check(design == {"wgmma": MOE_LAYERS * len(reqs), "simt": 0},
-          f"moe serve: every prefill layer went through kernel 9's wgmma instance ({design})")
-    tokens_out = sum(len(r.output) for r in served)
-    steps = np.asarray(eng.step_seconds[1:]) * 1e3
-    prefill_ms = np.asarray(eng.prefill_seconds) * 1e3
-    rec["serve"] = {
-        "requests": len(reqs), "lanes": MOE_LANES, "max_len": SERVE_MAX_LEN,
-        "prompt_lens": [int(r.prompt.shape[0]) for r in reqs],
-        "out_lens": [len(r.output) for r in served], "wall_s": wall, "tokens": tokens_out,
-        "tokens_per_s": tokens_out / wall, "prefill_ms": prefill_ms.tolist(),
-        "prefill_ms_median": float(np.median(prefill_ms)),
-        "decode_steps": len(eng.step_seconds), "decode_ms_median": float(np.median(steps)),
-        "decode_ms_p90": float(np.percentile(steps, 90)),
-        "balance_ratio": eng.last_balance_ratio, "finish_ratio": eng.last_finish_ratio,
-        "flash_launches_by_design": design, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    sv = rec["serve"]
-    print(f"moe serve: {len(served)} requests, {tokens_out} tokens in {wall:.2f} s "
-          f"({sv['tokens_per_s']:.1f} tok/s) | prefill median {sv['prefill_ms_median']:.1f} ms "
-          f"an admission | decode {sv['decode_steps']} steps, median "
-          f"{sv['decode_ms_median']:.2f} ms, p90 {sv['decode_ms_p90']:.2f} ms | flash kernel "
-          f"{design} | peak {sv['peak_gb']:.1f} GB", flush=True)
-
-    # 20 lock-step decode steps under the profiler: the device's idle share.
-    from repro_torch.models.model import init_cache
-
-    cache = init_cache(cfg, MOE_LANES, SERVE_MAX_LEN, dtype=torch.float32, device=dev)
-    pos = np.full(MOE_LANES, int(np.median(sv["prompt_lens"])), np.int64)
-    cur = np.full((MOE_LANES, 1), 7, np.int32)
-
-    def steps20():
-        nonlocal cache
-        with torch.inference_mode():
-            for i in range(20):
-                cache, nxt = eng._decode(model, cache, torch.as_tensor(cur, device=dev),
-                                         torch.as_tensor(pos + i, device=dev))
-                nxt.cpu()
-
-    with torch.inference_mode():
-        eng._decode(model, cache, torch.as_tensor(cur, device=dev), torch.as_tensor(pos, device=dev))
-        prof = profile_run("moe profile 20 decode steps", steps20)
+    rec["serve"] = family_serve("moe serve", eng, reqs, None, fa_ops, smi, MOE_LANES)
+    check(rec["serve"]["flash_launches_by_design"] == {"wgmma": MOE_LAYERS * len(reqs),
+                                                       "simt": 0},
+          f"moe serve: every prefill layer went through kernel 9's wgmma instance "
+          f"({rec['serve']['flash_launches_by_design']})")
+    prof = decode_profile("moe", eng, model, cfg, MOE_LANES, SERVE_MAX_LEN,
+                          int(np.median(rec["serve"]["prompt_lens"])), dev)
     rec["serve"]["profile_20_decode_steps"] = prof
-    rec["serve"]["idle_share"] = (1 - prof["device_ms"] / prof["wall_ms"]
-                                  if prof["device_ms"] > 0 else None)
-    print(f"moe serve: device idle share over 20 decode steps "
-          f"{rec['serve']['idle_share']}", flush=True)
-    del cache, eng, model, done, served
+    rec["serve"]["idle_share"] = prof["idle_share"]
+    del eng, model
     torch.cuda.empty_cache()
 
     # ---- 4: the 2-layer float32 twin, on the card and on the CPU with the
     # same weights (drawn on the card, copied to the host).
     twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
     gpu_model = init_model(twin, seed=args.seed, device=dev, ep_slots=MOE_EP_SLOTS)
-    cpu_model = DecoderModel(twin, device="cpu", ep_slots=MOE_EP_SLOTS)
-    with torch.no_grad():
-        for dst, src in zip(cpu_model.parameters(), gpu_model.parameters()):
-            dst.copy_(src)
     rng = np.random.default_rng(args.seed + 1)
     prompts = [(rng.zipf(1.3, int(rng.integers(16, 33))) % twin.vocab).astype(np.int32)
                for _ in range(MOE_TWIN_REQUESTS)]
@@ -2219,36 +2258,495 @@ def moe_path(counters, fa_ops, args, dev) -> tuple:
     def twin_reqs():
         return [Request(rid=i, prompt=p, max_new=MOE_TWIN_NEW) for i, p in enumerate(prompts)]
 
-    twin_ecfg = EngineConfig(lanes=MOE_LANES, max_len=64, scheduler="os4m", eos=-1)
-    streams, twin_s = {}, {}
-    for where, mdl in (("cuda", gpu_model), ("cpu", cpu_model)):
-        t = time.perf_counter()
-        eng = Engine(twin, mdl, twin_ecfg, device=mdl.device)
-        streams[where] = {r.rid: r.output for r in eng.run(twin_reqs())}
-        twin_s[where] = time.perf_counter() - t
-    diverged = []
-    for rid, a in streams["cuda"].items():
-        b = streams["cpu"][rid]
-        if a != b:
-            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-            margin = top2_margin(gpu_model, twin, list(prompts[rid]) + a[:j], dev)
-            diverged.append({"rid": rid, "step": j, "top2_margin": margin})
-    for d in diverged:
-        check(d["top2_margin"] <= 1e-3, f"moe f32 twin: request {d['rid']} diverges at step "
-              f"{d['step']} with a top-2 margin of {d['top2_margin']:.3g} (a real disagreement)")
-    rec["f32_twin"] = {"n_layers": 2, "requests": MOE_TWIN_REQUESTS, "max_new": MOE_TWIN_NEW,
-                       "streams_equal": not diverged, "diverged": diverged,
-                       "tokens": sum(len(o) for o in streams["cuda"].values()),
-                       "seconds": twin_s}
-    print(f"moe f32 twin (2 layers, full width, {MOE_TWIN_REQUESTS} requests): card vs CPU token "
-          f"streams {'equal' if not diverged else 'differ: ' + str(diverged)} (card "
-          f"{twin_s['cuda']:.1f} s, CPU {twin_s['cpu']:.1f} s)", flush=True)
+    rec["f32_twin"] = twin_streams(
+        "moe", twin, gpu_model, twin_reqs,
+        EngineConfig(lanes=MOE_LANES, max_len=64, scheduler="os4m", eos=-1),
+        ep_slots=MOE_EP_SLOTS)
     launches = read_launches(counters)
     rec["launches"] = launches
     # Over the whole path: the prefills of steps 1-2 and the engine's
     # (wgmma), the twin's on the card (simt).
     rec["launches_by_design"] = dict(fa_ops.launches_by_design)
-    del gpu_model, cpu_model, eng
+    del gpu_model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def family_serve(label, eng, reqs, extra, fa_ops, smi, plan_lanes) -> dict:
+    """``eng.run(reqs, extra_embed=extra)`` on the card, timed, with its
+    checks: every request served within its budget, the lane plan the host
+    scheduler's; returns the record (flash launches by instance included)."""
+    from repro_torch.core import scheduler as sched_lib
+
+    budgets = {r.rid: r.max_new for r in reqs}
+    want_lanes = sched_lib.schedule_bss(
+        np.asarray([r.load for r in reqs], np.float64), plan_lanes).assignment
+    flash0 = dict(fa_ops.launches_by_design)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs, extra_embed=extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = sorted(done, key=lambda r: r.rid)
+    check([r.rid for r in served] == list(range(len(reqs))), f"{label}: every request served")
+    check(all(1 <= len(r.output) <= budgets[r.rid] for r in served),
+          f"{label}: every output within its decode budget")
+    check([r.lane for r in reqs] == [int(a) for a in want_lanes],
+          f"{label}: the lane plan == the host scheduler's plan for the same loads")
+    design = {k: fa_ops.launches_by_design[k] - flash0[k] for k in flash0}
+    tokens = sum(len(r.output) for r in served)
+    steps = np.asarray(eng.step_seconds[1:]) * 1e3
+    prefill = np.asarray(eng.prefill_seconds) * 1e3
+    rec = {"requests": len(reqs), "lanes": eng.ecfg.lanes, "max_len": eng.ecfg.max_len,
+           "prompt_lens": [int(r.prompt.shape[0]) for r in reqs],
+           "out_lens": [len(r.output) for r in served], "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "prefill_ms": prefill.tolist(),
+           "prefill_ms_median": float(np.median(prefill)),
+           "decode_steps": len(eng.step_seconds), "decode_ms_median": float(np.median(steps)),
+           "decode_ms_p90": float(np.percentile(steps, 90)),
+           "balance_ratio": eng.last_balance_ratio, "finish_ratio": eng.last_finish_ratio,
+           "flash_launches_by_design": design,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{label}: {len(served)} requests, {tokens} tokens in {wall:.2f} s "
+          f"({rec['tokens_per_s']:.1f} tok/s) | prefill median {rec['prefill_ms_median']:.1f} ms "
+          f"an admission | decode {rec['decode_steps']} steps, median "
+          f"{rec['decode_ms_median']:.2f} ms, p90 {rec['decode_ms_p90']:.2f} ms | flash kernel "
+          f"{design} | peak {rec['peak_gb']:.1f} GB | {smi}", flush=True)
+    return rec
+
+
+def decode_profile(label, eng, model, cfg, lanes, max_len, depth, dev) -> dict:
+    """20 lock-step decode steps of every lane at ``depth`` under the
+    profiler (after one untimed step), on a zeroed float32 cache; the
+    record's ``idle_share`` is 1 - device busy / wall."""
+    from repro_torch.models.model import init_cache
+
+    cache = init_cache(cfg, lanes, max_len, dtype=torch.float32, device=dev)
+    pos = np.full(lanes, depth, np.int64)
+    cur = torch.full((lanes, 1), 7, dtype=torch.int32, device=dev)
+
+    def steps20():
+        nonlocal cache
+        with torch.inference_mode():
+            for i in range(20):
+                cache, nxt = eng._decode(model, cache, cur, torch.as_tensor(pos + i, device=dev))
+                nxt.cpu()
+
+    with torch.inference_mode():
+        eng._decode(model, cache, cur, torch.as_tensor(pos, device=dev))
+        prof = profile_run(f"{label} profile 20 decode steps", steps20)
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] > 0 else None
+    print(f"{label}: device idle share over 20 decode steps {prof['idle_share']}", flush=True)
+    return prof
+
+
+def twin_streams(label, twin, gpu_model, requests, ecfg, extra=None, ep_slots=1) -> dict:
+    """A float32 twin served by ``Engine`` on the card and on the CPU with the
+    same weights (drawn on the card, copied to the host) and inputs: the
+    token streams must be equal."""
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serve.engine import Engine
+
+    cpu_model = DecoderModel(twin, device="cpu", ep_slots=ep_slots)
+    with torch.no_grad():
+        for dst, src in zip(cpu_model.parameters(), gpu_model.parameters()):
+            dst.copy_(src)
+    streams, seconds = {}, {}
+    for where, mdl in (("cuda", gpu_model), ("cpu", cpu_model)):
+        t = time.perf_counter()
+        eng = Engine(twin, mdl, ecfg, device=mdl.device)
+        x = None if extra is None else extra.to(mdl.device)
+        streams[where] = {r.rid: r.output for r in eng.run(requests(), extra_embed=x)}
+        seconds[where] = time.perf_counter() - t
+    equal = streams["cuda"] == streams["cpu"]
+    print(f"{label} f32 twin ({twin.n_layers} layers, full width, {len(streams['cuda'])} "
+          f"requests): card vs CPU token streams {'equal' if equal else 'differ'} (card "
+          f"{seconds['cuda']:.1f} s, CPU {seconds['cpu']:.1f} s)", flush=True)
+    check(equal, f"{label} f32 twin: card and CPU token streams equal ({streams})")
+    del cpu_model
+    return {"n_layers": twin.n_layers, "requests": len(streams["cuda"]), "streams_equal": equal,
+            "tokens": sum(len(o) for o in streams["cuda"].values()), "seconds": seconds,
+            "streams": {str(k): v for k, v in streams["cuda"].items()}}
+
+
+def twin_requests(vocab: int, seed: int, count: int = TWIN_REQUESTS):
+    """The twins' requests: prompts of 16-32 tokens, TWIN_NEW new tokens."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(3, vocab, int(rng.integers(16, 33))).astype(np.int32)
+               for _ in range(count)]
+    return lambda: [Request(rid=i, prompt=p, max_new=TWIN_NEW) for i, p in enumerate(prompts)]
+
+
+def weights_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def whisper_path(counters, fa_ops, args, dev, smi) -> tuple:
+    """whisper-base at full width and depth (openai/whisper base: 6 encoder
+    and 6 decoder layers, d_model 512, 8 heads, 1500 frames, vocab 51865),
+    bf16 weights from seed ``args.seed``, attn_impl="pallas": ``Engine`` on
+    WHISPER_LANES lanes with max_len 448 serving WHISPER_REQUESTS requests
+    with (lanes, 1500, 512) normal frames from the seed; every prefill runs
+    kernel 9 in each encoder layer (non-causal, 1500 x 1500), each decoder
+    layer and each cross-attention (T = prompt, S = 1500, non-causal), all
+    on the wgmma instance; 20 decode steps under the profiler; a float32
+    twin (2 encoder + 2 decoder layers) served on the card and the CPU.
+    Returns ``(record, launches)`` over the whole path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_config("whisper-base"), attn_impl="pallas")
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    frames = torch.randn(WHISPER_LANES, cfg.enc_len, cfg.d_model, generator=gen,
+                         device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    rec = {"config": "whisper-base", "source": "openai/whisper base (arXiv:2212.04356)",
+           "n_enc_layers": cfg.n_enc_layers, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "enc_len": cfg.enc_len, "vocab": cfg.vocab,
+           "weights_gb": weights_gb(model), "init_s": time.perf_counter() - t0}
+    print(f"whisper path: whisper-base, {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.enc_len} frames: {rec['weights_gb']:.3f} GB of bf16 weights",
+          flush=True)
+    ecfg = EngineConfig(lanes=WHISPER_LANES, max_len=WHISPER_MAX_LEN, scheduler="os4m")
+    eng = Engine(cfg, model, ecfg, device=dev)
+    reqs = serve_requests(cfg.vocab, args.seed, WHISPER_REQUESTS, plen=WHISPER_PROMPTS)
+    rec["serve"] = family_serve("whisper serve", eng, reqs, frames, fa_ops, smi, WHISPER_LANES)
+    per_admission = cfg.n_enc_layers + 2 * cfg.n_layers
+    check(rec["serve"]["flash_launches_by_design"]
+          == {"wgmma": per_admission * len(reqs), "simt": 0},
+          f"whisper serve: kernel 9's wgmma instance ran in every encoder, decoder and cross "
+          f"layer of every prefill ({per_admission} x {len(reqs)})")
+    rec["serve"]["profile_20_decode_steps"] = decode_profile(
+        "whisper", eng, model, cfg, WHISPER_LANES, WHISPER_MAX_LEN,
+        int(np.median(rec["serve"]["prompt_lens"])), dev)
+    del eng, model, frames
+    torch.cuda.empty_cache()
+
+    twin = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    gpu_model = init_model(twin, seed=args.seed, device=dev)
+    twin_frames = torch.randn(TWIN_LANES, cfg.enc_len, cfg.d_model, generator=gen, device=dev)
+    rec["f32_twin"] = twin_streams(
+        "whisper", twin, gpu_model, twin_requests(twin.vocab, args.seed),
+        EngineConfig(lanes=TWIN_LANES, max_len=64, scheduler="os4m", eos=-1), twin_frames)
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    rec["launches_by_design"] = dict(fa_ops.launches_by_design)
+    del gpu_model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def vlm_path(counters, fa_ops, args, dev, smi) -> tuple:
+    """qwen2-vl-7b at full width and depth (hf:Qwen/Qwen2-VL-7B-Instruct: 28
+    layers, d_model 3584, 28 heads over 4 KV heads, M-RoPE sections (16, 24,
+    24), 256 patches on a 16 x 16 grid), bf16 weights from seed
+    ``args.seed``, attn_impl="pallas". Model level: a prefill of VLM_BATCH x
+    (256 patches + VLM_TEXT tokens) with a float32 cache, then VLM_DECODE
+    greedy decode steps at n_patches + p + i, whose logits (and the
+    prefill's last) are held against the train-mode forward of the whole
+    stream within VLM_BF16_TOL; the same on the float32 twin with equal
+    argmax tokens. Then ``Engine`` with the patches as ``extra_embed`` on 8
+    lanes, 16 requests (the reference's semantics: decoding continues at
+    the prompt's length), kernel 9's wgmma instance at a GQA group of 7 in
+    every prefill layer; 20 decode steps under the profiler; the float32
+    twin served on the card and the CPU. Returns ``(record, launches)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_cache, init_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), attn_impl="pallas")
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    rec = {"config": "qwen2-vl-7b", "source": "hf:Qwen/Qwen2-VL-7B-Instruct",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv": cfg.n_kv, "n_patches": cfg.n_patches,
+           "mrope_sections": list(cfg.mrope_sections), "vocab": cfg.vocab,
+           "weights_gb": weights_gb(model), "init_s": time.perf_counter() - t0}
+    print(f"vlm path: qwen2-vl-7b, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.n_patches} patches: "
+          f"{rec['weights_gb']:.2f} GB of bf16 weights in {rec['init_s']:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+
+    def patches(batch, dtype):
+        # Embedding-sized rows: normals times d^-0.5, as the token table's.
+        x = torch.randn(batch, cfg.n_patches, cfg.d_model, generator=gen, device=dev)
+        return (x * cfg.d_model ** -0.5).to(dtype)
+
+    def decode_vs_full(mdl, c, extra, text):
+        """Prefill, VLM_DECODE greedy steps at n_patches + p + i, and the
+        train-mode forward of the whole stream: (step logits, full logits
+        at the same positions, prefill ms, decode ms)."""
+        b, p = text.shape
+        with torch.inference_mode():
+            cache = init_cache(c, b, c.n_patches + p + VLM_DECODE, dtype=torch.float32,
+                               device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = forward(mdl, c, tokens=text, extra_embed=extra, mode="prefill", cache=cache)
+            nxt = out.logits[:, -1].argmax(-1)
+            nxt.cpu()
+            pre_ms = (time.perf_counter() - t) * 1e3
+            steps, toks, dec_ms = [out.logits[:, -1].float()], [], []
+            cache = out.cache
+            for i in range(VLM_DECODE):
+                toks.append(nxt)
+                t = time.perf_counter()
+                out = forward(mdl, c, tokens=nxt[:, None], mode="decode", cache=cache,
+                              cache_pos=c.n_patches + p + i)
+                nxt = out.logits[:, -1].argmax(-1)
+                nxt.cpu()
+                dec_ms.append((time.perf_counter() - t) * 1e3)
+                steps.append(out.logits[:, -1].float())
+            stream = torch.cat([text, torch.stack(toks, dim=1)], dim=1)
+            full = forward(mdl, c, tokens=stream, extra_embed=extra).logits.float()
+            return torch.stack(steps, dim=1), full[:, c.n_patches + p - 1:], pre_ms, dec_ms
+
+    rng = np.random.default_rng(args.seed + 3)
+    text = torch.as_tensor(rng.integers(3, cfg.vocab, (VLM_BATCH, VLM_TEXT)), device=dev)
+    steps, full, pre_ms, dec_ms = decode_vs_full(model, cfg, patches(VLM_BATCH, torch.bfloat16),
+                                                 text)
+    rel = float(torch.linalg.vector_norm(steps - full) / torch.linalg.vector_norm(full))
+    top1 = float((steps.argmax(-1) == full.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(steps).all()) and rel <= VLM_BF16_TOL,
+          f"vlm: prefill + decode at n_patches + p + i == the full forward within "
+          f"{VLM_BF16_TOL} (relative L2 {rel:.4g})")
+    rec["model_level"] = {"batch": VLM_BATCH, "text": VLM_TEXT, "decode_steps": VLM_DECODE,
+                          "rel_l2": rel, "tol": VLM_BF16_TOL, "top1_agree": top1,
+                          "logit_max_abs": float(full.abs().max()),
+                          "max_abs_diff": float((steps - full).abs().max()),
+                          "prefill_ms": pre_ms, "decode_ms": dec_ms,
+                          "decode_ms_median": float(np.median(dec_ms[1:]))}
+    print(f"vlm model level: prefill {VLM_BATCH} x ({cfg.n_patches} + {VLM_TEXT}) {pre_ms:.1f} "
+          f"ms, {VLM_DECODE} decode steps median {rec['model_level']['decode_ms_median']:.2f} "
+          f"ms | vs the full forward: relative L2 {rel:.4g} (tol {VLM_BF16_TOL}), max |diff| "
+          f"{rec['model_level']['max_abs_diff']:.4g} of max |logit| "
+          f"{rec['model_level']['logit_max_abs']:.4g}, top-1 agree {top1:.3f}", flush=True)
+    del steps, full
+
+    ecfg = EngineConfig(lanes=SERVE_LANES, max_len=SERVE_MAX_LEN, scheduler="os4m")
+    eng = Engine(cfg, model, ecfg, device=dev)
+    reqs = serve_requests(cfg.vocab, args.seed, SERVE_REQUESTS)
+    rec["serve"] = family_serve("vlm serve", eng, reqs, patches(SERVE_LANES, torch.bfloat16),
+                                fa_ops, smi, SERVE_LANES)
+    check(rec["serve"]["flash_launches_by_design"] == {"wgmma": cfg.n_layers * len(reqs),
+                                                       "simt": 0},
+          f"vlm serve: kernel 9's wgmma instance ran in every prefill layer "
+          f"({cfg.n_layers} x {len(reqs)})")
+    rec["serve"]["profile_20_decode_steps"] = decode_profile(
+        "vlm", eng, model, cfg, SERVE_LANES, SERVE_MAX_LEN,
+        int(np.median(rec["serve"]["prompt_lens"])), dev)
+    del eng, model
+    torch.cuda.empty_cache()
+
+    twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    gpu_model = init_model(twin, seed=args.seed, device=dev)
+    steps, full, _, _ = decode_vs_full(gpu_model, twin, patches(TWIN_LANES, torch.float32),
+                                       text[:TWIN_LANES, :32])
+    agree = bool(torch.equal(steps.argmax(-1), full.argmax(-1)))
+    check(agree, "vlm f32 twin: decode argmax tokens == the full forward's")
+    rec["model_level"]["f32_twin_argmax_equal"] = agree
+    rec["model_level"]["f32_twin_max_abs_diff"] = float((steps - full).abs().max())
+    print(f"vlm f32 twin: decode at n_patches + p + i vs the full forward: argmax equal, max "
+          f"|diff| {rec['model_level']['f32_twin_max_abs_diff']:.3g}", flush=True)
+    del steps, full
+    rec["f32_twin"] = twin_streams(
+        "vlm", twin, gpu_model, twin_requests(twin.vocab, args.seed),
+        EngineConfig(lanes=TWIN_LANES, max_len=cfg.n_patches + 64, scheduler="os4m", eos=-1),
+        patches(TWIN_LANES, torch.float32))
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    rec["launches_by_design"] = dict(fa_ops.launches_by_design)
+    del gpu_model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
+    """deepseek-v2-236b (hf:deepseek-ai/DeepSeek-V2) at full width (d_model
+    5120, 128 heads, MLA kv_lora 512 / q_lora 1536 / qk 128 + 64 / v 128, 160
+    experts top-6 of d_ff 1536 with 2 shared, first layer dense of d_ff
+    12288, vocab 102400), depth cut to MLA_LAYERS, bf16 weights from seed
+    ``args.seed``, experts over MLA_EP_SLOTS stacked slots. A prefill of 8
+    Zipf(1.3) prompts of 512 tokens at the config's capacity factor
+    (overflow recorded), then the placement pair at a capacity factor that
+    lets every expert keep every token: the default placement, the OS4M
+    balancer's re-plan (BSS with cardinality 40) with the weights moved,
+    the OS4M placement (logits ``torch.equal``, overflow 0 in both). Then
+    ``Engine`` on MLA_LANES lanes (MLA's compressed cache, absorbed decode),
+    kernel 9's simt instance at D = 192 in every prefill layer; 20 decode
+    steps under the profiler; a 2-layer float32 twin on the card and the
+    CPU. Returns ``(record, launches)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import balancer as bal_lib
+    from repro_torch.models.model import default_placements, forward, init_cache, init_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    full_cfg = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full_cfg, n_layers=MLA_LAYERS, attn_impl="pallas")
+    moe, mla = cfg.moe, cfg.mla
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev, ep_slots=MLA_EP_SLOTS)
+    torch.cuda.synchronize()
+    n_moe = MLA_LAYERS - cfg.first_k_dense
+    per_slot = moe.num_experts // MLA_EP_SLOTS
+    rec = {"config": "deepseek-v2-236b", "source": "hf:deepseek-ai/DeepSeek-V2",
+           "reduced": {"n_layers": [full_cfg.n_layers, MLA_LAYERS]}, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "mla": dataclasses.asdict(mla),
+           "experts": moe.num_experts, "top_k": moe.top_k, "d_ff": moe.d_ff,
+           "shared_experts": moe.shared_experts, "first_dense_ff": cfg.first_dense_ff,
+           "vocab": cfg.vocab, "ep_slots": MLA_EP_SLOTS, "weights_gb": weights_gb(model),
+           "init_s": time.perf_counter() - t0}
+    print(f"mla path: deepseek-v2-236b, {MLA_LAYERS} of {full_cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA {mla.kv_lora}/{mla.q_lora}/"
+          f"{mla.qk_nope}+{mla.qk_rope}/{mla.v_dim}, {moe.num_experts} experts top-{moe.top_k} "
+          f"over {MLA_EP_SLOTS} slots: {rec['weights_gb']:.2f} GB of bf16 weights in "
+          f"{rec['init_s']:.1f} s", flush=True)
+
+    # ---- 1-2: Zipf prefills. The send buckets are dropless (each holds its
+    # slot's every assignment). An expert keeps at most capacity_factor x
+    # assignments / experts-a-slot rows; at n_local / top_k it keeps every
+    # token (an expert gets at most one assignment a token).
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.as_tensor((rng.zipf(1.3, (MLA_PROMPTS, MLA_PROMPT_LEN)) % cfg.vocab)
+                             .astype(np.int64), device=dev)
+    n_tok = MLA_PROMPTS * MLA_PROMPT_LEN
+    capacity = MLA_PROMPTS * (MLA_PROMPT_LEN // MLA_EP_SLOTS) * moe.top_k
+    dropless_cf = per_slot / moe.top_k
+
+    def set_capacity_factor(cf):
+        for layer in model.layers:
+            layer.moe.args = dataclasses.replace(layer.moe.args, capacity_factor=cf)
+
+    def prefill(placements, reps=3):
+        times, out = [], None
+        with torch.inference_mode():
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = forward(model, cfg, tokens=tokens, mode="prefill",
+                              placements=placements, moe_capacity=capacity)
+                out.logits.float().sum().item()
+                times.append((time.perf_counter() - t) * 1e3)
+        return out, times
+
+    flash0 = dict(fa_ops.launches_by_design)
+    at_config, config_ms = prefill(None, reps=1)
+    overflow_config = int(at_config.stats["overflow"])
+    del at_config
+    set_capacity_factor(dropless_cf)
+    base_place = default_placements(cfg, MLA_EP_SLOTS, device=dev)
+    before, before_ms = prefill(None)
+    counts = before.stats["expert_counts"].cpu().numpy()
+    check(int(before.stats["overflow"]) == 0, "mla path: no overflow under the default placement")
+    check(np.all(counts.sum(axis=1) == n_tok * moe.top_k),
+          "mla path: every token routed to top-k experts in every MoE layer")
+    balancer = bal_lib.ExpertBalancer(moe.num_experts, MLA_EP_SLOTS, n_moe, interval=1, ema=0.0)
+    balancer.observe(counts)
+    t = time.perf_counter()
+    placements, perms, reports = balancer.replan()
+    plan_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    for layer, perm in zip(model.layers, perms):
+        bal_lib.permute_expert_weights(layer.moe, perm)
+    torch.cuda.synchronize()
+    permute_ms = (time.perf_counter() - t) * 1e3
+    after, after_ms = prefill(torch.as_tensor(placements, device=dev))
+    check(int(after.stats["overflow"]) == 0, "mla path: no overflow under the OS4M placement")
+    check(torch.equal(after.stats["expert_counts"], before.stats["expert_counts"]),
+          "mla path: the re-placed experts see the same routing")
+    check(bool(torch.isfinite(before.logits).all())
+          and torch.equal(after.logits, before.logits),
+          "mla path: logits after the re-plan bit-equal to the default placement's")
+    prefill_design = {k: fa_ops.launches_by_design[k] - flash0[k] for k in flash0}
+    check(prefill_design == {"wgmma": 0, "simt": 7 * MLA_LAYERS},
+          f"mla path: every prefill layer ran kernel 9's simt instance at D = "
+          f"{mla.qk_nope + mla.qk_rope} ({prefill_design})")
+    load_before = slot_loads(counts, base_place.cpu().numpy(), MLA_EP_SLOTS)
+    load_after = slot_loads(counts, placements, MLA_EP_SLOTS)
+    ratio = lambda loads: (loads.max(axis=1) / loads.mean(axis=1)).tolist()   # noqa: E731
+    rec["balance"] = {
+        "expert_counts": counts.tolist(), "hottest_expert_share": (counts.max(1) / n_tok).tolist(),
+        "slot_loads_before": load_before.tolist(), "slot_loads_after": load_after.tolist(),
+        "balance_before": ratio(load_before), "balance_after": ratio(load_after),
+        "reports": [dataclasses.asdict(r) for r in reports], "replan_ms": plan_ms,
+        "permute_ms": permute_ms, "prefill_ms_config_cf": config_ms,
+        "overflow_config_cf": overflow_config, "config_capacity_factor": moe.capacity_factor,
+        "dropless_capacity_factor": dropless_cf, "prefill_ms_before": before_ms,
+        "prefill_ms_after": after_ms, "capacity": capacity, "tokens": n_tok,
+        "flash_launches_by_design": prefill_design}
+    for i in range(n_moe):
+        print(f"mla path MoE layer {i}: hottest expert {int(counts[i].max())} of {n_tok} | slot "
+              f"loads {load_before[i].astype(int).tolist()} -> "
+              f"{load_after[i].astype(int).tolist()} | balance ratio "
+              f"{ratio(load_before)[i]:.4f} -> {ratio(load_after)[i]:.4f} "
+              f"({reports[i].moved_experts} experts moved)", flush=True)
+    print(f"mla path: prefill {MLA_PROMPTS} x {MLA_PROMPT_LEN} tokens, send capacity {capacity}: "
+          f"capacity factor {moe.capacity_factor} (the config's) {config_ms[0]:.1f} ms with "
+          f"overflow {overflow_config}; factor {dropless_cf:g} (every token kept) "
+          f"{np.median(before_ms):.1f} ms (default placement), {np.median(after_ms):.1f} ms "
+          f"(OS4M placement), overflow 0 and 0, logits bit-equal | re-plan {plan_ms:.2f} ms, "
+          f"weight move {permute_ms:.1f} ms", flush=True)
+    del before, after
+    for layer, perm in zip(model.layers, perms):
+        bal_lib.permute_expert_weights(layer.moe, np.arange(moe.num_experts), prev_perm=perm)
+    set_capacity_factor(moe.capacity_factor)
+
+    # ---- 3: the engine, MLA's compressed cache beside the GQA cache that
+    # 128 heads of 128 + 128 would need at the same lanes and length.
+    ecfg = EngineConfig(lanes=MLA_LANES, max_len=SERVE_MAX_LEN, scheduler="os4m")
+    cache_bytes = sum(a.numel() * 4 for part in init_cache(
+        cfg, MLA_LANES, SERVE_MAX_LEN, torch.float32, device="meta").values()
+        for a in part["self"].values())
+    gqa_bytes = MLA_LAYERS * MLA_LANES * SERVE_MAX_LEN * cfg.n_heads * (mla.qk_nope + mla.v_dim) * 4
+    rec["cache"] = {"mla_bytes": cache_bytes, "gqa_bytes": gqa_bytes,
+                    "ratio": gqa_bytes / cache_bytes, "dtype": "float32",
+                    "lanes": MLA_LANES, "max_len": SERVE_MAX_LEN, "layers": MLA_LAYERS}
+    print(f"mla cache (float32, {MLA_LAYERS} layers, {MLA_LANES} lanes x {SERVE_MAX_LEN}): "
+          f"{cache_bytes / 1e6:.1f} MB (c_kv {mla.kv_lora} + k_pe {mla.qk_rope} a token) against "
+          f"{gqa_bytes / 1e6:.1f} MB for {cfg.n_heads} heads of {mla.qk_nope} + {mla.v_dim} "
+          f"({rec['cache']['ratio']:.1f}x)", flush=True)
+    eng = Engine(cfg, model, ecfg, device=dev)
+    reqs = serve_requests(cfg.vocab, args.seed, MLA_REQUESTS)
+    rec["serve"] = family_serve("mla serve", eng, reqs, None, fa_ops, smi, MLA_LANES)
+    check(rec["serve"]["flash_launches_by_design"] == {"wgmma": 0,
+                                                       "simt": MLA_LAYERS * len(reqs)},
+          f"mla serve: kernel 9's simt instance ran in every prefill layer "
+          f"({MLA_LAYERS} x {len(reqs)})")
+    rec["serve"]["profile_20_decode_steps"] = decode_profile(
+        "mla", eng, model, cfg, MLA_LANES, SERVE_MAX_LEN,
+        int(np.median(rec["serve"]["prompt_lens"])), dev)
+    del eng, model
+    torch.cuda.empty_cache()
+
+    twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    gpu_model = init_model(twin, seed=args.seed, device=dev, ep_slots=MLA_EP_SLOTS)
+    rec["f32_twin"] = twin_streams(
+        "mla", twin, gpu_model, twin_requests(twin.vocab, args.seed),
+        EngineConfig(lanes=MLA_LANES, max_len=64, scheduler="os4m", eos=-1),
+        ep_slots=MLA_EP_SLOTS)
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    rec["launches_by_design"] = dict(fa_ops.launches_by_design)
+    del gpu_model
     torch.cuda.empty_cache()
     return rec, launches
 
@@ -2736,6 +3234,12 @@ def main(argv=None) -> int:
           f"| plain {flash['plain_ms']:.4f} ms | simt instance on the same bf16 inputs "
           f"{flash['simt_ms']:.4f} ms | bound {flash['bound_ms']:.4f} ms ({flash['bound_by']})",
           flush=True)
+    for name, c in flash["family"].items():
+        print(f"kernel flash_attention {name} {tuple(c['shape'])} bf16 causal={c['causal']} "
+              f"({c['design']} instance): err {c['max_abs_err']:.3g} | device (burst): kernel "
+              f"{c['ms']:.4f} ms ({c['tflops']:.1f} TFLOP/s), scaled_dot_product_attention "
+              f"{c['library_ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     record["flash_attention"] = flash
     # At the path's E = 64, and at the largest MoE configuration's 160
     # experts and the wrapper's limit of 1,024 destinations.
@@ -2754,7 +3258,14 @@ def main(argv=None) -> int:
     record["serve_path"], launches["serve"] = serve_path(counters, fa_ops, args, dev)
     record["launcher"] = launcher_run()
     # ---- The MoE path: grok-1-314b at full width, 4 layers, 4 expert slots.
-    record["moe_path"], launches["moe"] = moe_path(counters, fa_ops, args, dev)
+    record["moe_path"], launches["moe"] = moe_path(counters, fa_ops, args, dev, smi)
+    # ---- The attention families, each after the card is freed: whisper-base,
+    # qwen2-vl-7b and deepseek-v2-236b's MLA.
+    print(f"card freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
+    record["whisper_path"], launches["whisper"] = whisper_path(counters, fa_ops, args, dev, smi)
+    record["vlm_path"], launches["vlm"] = vlm_path(counters, fa_ops, args, dev, smi)
+    record["mla_path"], launches["mla"] = mla_path(counters, fa_ops, args, dev, smi)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).
@@ -2868,20 +3379,27 @@ def main(argv=None) -> int:
          "ms": st["ms"], "event_ms": st["event_ms"], "plain_ms": st["plain_ms"],
          "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
          "library_ms": st["library_ms"], "library_event_ms": st["library_event_ms"]},
-        # Launched once a layer in every prefill of the serve path (n_layers x
-        # admissions), all through the wgmma instance; its times are at the
-        # longest prefill's shape, device time a call from a burst behind a
-        # spin. The library call is scaled_dot_product_attention (GQA, causal).
+        # Launched in every attention of every prefill of the serve, MoE and
+        # family paths (launches_by_path), bf16 through the wgmma instance
+        # but MLA's D = 192 through the simt one; its times are at the serve
+        # path's longest prefill, device time a call from a burst behind a
+        # spin, and family_cases holds the family paths' shapes; its error is
+        # the largest over every case of its phase. The library call is
+        # scaled_dot_product_attention (GQA, causal).
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:111",
          "launches": total_launches("flash_attention"),
          "launches_by_design": {
-             k: record["serve_path"]["launches_by_design"][k]
-             + record["moe_path"]["launches_by_design"][k] for k in ("wgmma", "simt")},
-         "moe_launches": launches["moe"]["flash_attention"],
-         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
-         "event_ms": flash["event_ms"], "plain_ms": flash["plain_ms"],
+             k: sum(record[f"{p}_path"]["launches_by_design"][k] for p in ATTENTION_PATHS)
+             for k in ("wgmma", "simt")},
+         "launches_by_path": {p: launches[p]["flash_attention"] for p in ATTENTION_PATHS},
+         "family_cases": {
+             name: {key: c[key] for key in ("shape", "design", "causal", "max_abs_err", "ms",
+                                            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+             for name, c in flash["family"].items()},
+         "max_abs_err": max(c["max_abs_err"] for c in flash["cases"].values()),
+         "ms": flash["ms"], "event_ms": flash["event_ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"], "library_event_ms": flash["library_event_ms"]},
         # No engine or model path launches it, in the reference either: its
@@ -2905,14 +3423,14 @@ def main(argv=None) -> int:
           and launches["sketch"]["sketch_hist"] > 0 and launches["coded"]["xor_words"] > 0
           and launches["measured"]["read_ticks"] > 0
           and launches["measured"]["stamp_through"] > 0
-          and launches["serve"]["flash_attention"] > 0
-          and launches["moe"]["flash_attention"] > 0,
+          and all(launches[p]["flash_attention"] > 0 for p in ATTENTION_PATHS),
           "every kernel of an engine path was launched on it")
-    check(all(launches[p]["flash_attention"] == 0 for p in launches if p not in ("serve", "moe")),
-          "only the serve and MoE paths launched the flash kernel")
-    check(all(launches[p][k] == 0 for p in ("serve", "moe") for k in counters
+    check(all(launches[p]["flash_attention"] == 0 for p in launches if p not in ATTENTION_PATHS),
+          "only the serve, MoE and family paths launched the flash kernel")
+    check(all(launches[p][k] == 0 for p in ATTENTION_PATHS for k in counters
               if k != "flash_attention"),
-          "the serve and MoE paths launched only the flash kernel (kernel 8 stays off them)")
+          "the serve, MoE and family paths launched only the flash kernel (kernel 8 stays "
+          "off them)")
     check(all(launches[p]["xor_words"] == 0 for p in launches if p != "coded"),
           "no uncoded path launched xor_words")
     check(all(launches[p][k] == 0 for p in launches if p != "measured"

@@ -4,7 +4,10 @@ Two modes:
 
 * default — the continuous-batching engine (OS4M lane scheduling) on
   synthetic requests with the arch's smoke twin; reports lane balance and
-  throughput for os4m vs the hash baseline.
+  throughput for os4m vs the hash baseline. As in the reference's
+  launcher no patches or frames are built: qwen2-vl-7b serves text only,
+  and whisper-base fails in its first prefill (``AttributeError``: no
+  frames), as the reference's does.
 * ``--steady-state N`` — the MapReduce serving loop: ONE persistent
   :class:`~repro_torch.core.mapreduce.MapReduceJob` with a
   :class:`~repro_torch.core.schedule_cache.ReusePolicy` runs N batches of a

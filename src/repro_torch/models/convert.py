@@ -2,8 +2,11 @@
 
 The input is the reference's value tree (``repro.nn.layers.split(
 repro.models.model.init_model(key, cfg))[0]``) with every leaf as a numpy
-array, in nested dicts, the layer stack's leaves carrying a leading layer
-axis under ``values["layers"]``. Linear weights are ``(d_in, d_out)`` on
+array, in nested dicts, the layer stacks' leaves carrying a leading layer
+axis: ``values["layers"]`` (and ``"dense_layers"``), or whisper's
+``values["enc"]`` and ``values["dec"]``. Attention is GQA (q, k, v, o with
+biases when the config has them) or MLA (its nine parameters); whisper's
+decoder layers add ``ln_x`` and ``xattn``. Linear weights are ``(d_in, d_out)`` on
 both sides, so every leaf copies as it is. numpy has no bfloat16: pass
 float32 arrays (a bf16 reference leaf cast to float32 is exact); they are
 cast to ``cfg.param_dtype`` here. Only numpy goes in, never a JAX object.
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import DecoderModel
+from repro_torch.nn.attention import MLA
 
 __all__ = ["params_from_reference"]
 
@@ -66,14 +70,30 @@ def _load_moe(moe, tree: Mapping, name: str, index: int) -> None:
                          index)
 
 
+_MLA_LINEARS = ("q_down", "q_up", "kv_down", "k_pe", "k_up", "v_up", "o")
+_MLA_NORMS = ("q_norm", "kv_norm")
+
+
+def _load_attention(attn, tree: Mapping, name: str, index: int) -> None:
+    if isinstance(attn, MLA):
+        for part in _MLA_LINEARS:
+            _load_linear(getattr(attn, part), tree[part], f"{name}.{part}", index)
+        for part in _MLA_NORMS:
+            _load_norm(getattr(attn, part), tree[part], f"{name}.{part}", index)
+        return
+    for part in ("q", "k", "v", "o"):
+        _load_linear(getattr(attn, part), tree[part], f"{name}.{part}", index)
+
+
 def _load_stack(layers, stack: Mapping, name: str) -> None:
     for i, layer in enumerate(layers):
         pre = f"{name}[{i}]"
         _load_norm(layer.ln1, stack["ln1"], f"{pre}.ln1", i)
         _load_norm(layer.ln2, stack["ln2"], f"{pre}.ln2", i)
-        for part in ("q", "k", "v", "o"):
-            _load_linear(getattr(layer.attn, part), stack["attn"][part],
-                         f"{pre}.attn.{part}", i)
+        _load_attention(layer.attn, stack["attn"], f"{pre}.attn", i)
+        if layer.xattn is not None:
+            _load_norm(layer.ln_x, stack["ln_x"], f"{pre}.ln_x", i)
+            _load_attention(layer.xattn, stack["xattn"], f"{pre}.xattn", i)
         if layer.moe is not None:
             _load_moe(layer.moe, stack["moe"], f"{pre}.moe", i)
             continue
@@ -96,6 +116,11 @@ def params_from_reference(values: Mapping, cfg: ModelConfig, device=None,
         _copy(model.embed.w, values["embed"]["w"], "embed.w")
         _load_norm(model.final_norm, values["final_norm"], "final_norm")
         _load_linear(model.lm_head, values["lm_head"], "lm_head")
+        if cfg.enc_dec:
+            _load_stack(model.enc_layers, values["enc"], "enc")
+            _load_norm(model.enc_norm, values["enc_norm"], "enc_norm")
+            _load_stack(model.layers, values["dec"], "dec")
+            return model
         if len(model.dense_layers):
             _load_stack(model.dense_layers, values["dense_layers"], "dense_layers")
         _load_stack(model.layers, values["layers"], "layers")

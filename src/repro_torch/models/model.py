@@ -1,20 +1,31 @@
 """The decoder of the port: init, forward (train / prefill / decode), and
 the KV cache.
 
-The reference's ``repro.models.model`` for ``family="dense"`` and
-``"moe"``: a stack of pre-norm decoder layers (self-attention + gated or
-plain MLP, or an MoE layer) over an embedding, a final norm and an untied
-LM head; an MoE config's ``first_k_dense`` dense layers come first. The
-reference's ``lax.scan`` over stacked layer weights becomes a loop over
-an ``nn.ModuleList``; its cache keeps the reference's layout, ``(layers,
-batch, len, n_kv, head_dim)`` per key and value, because the serving
-engine splices lanes on batch axis 1. The reference's mesh model axis,
-over which MoE layers shard their experts, is ``ep_slots`` expert slots
-stacked on the one device (:mod:`repro_torch.nn.moe`).
+The reference's ``repro.models.model`` for the families its serving
+engine serves:
 
-Every other family and feature of the reference (MLA, SSM, xLSTM,
-encoder-decoder, vision patches, M-RoPE) raises ``NotImplementedError``
-naming its ROADMAP item.
+* ``dense`` / ``moe`` / ``vlm``: a stack of pre-norm decoder layers
+  (self-attention, GQA or DeepSeek-V2's MLA, + gated or plain MLP, or an
+  MoE layer) over an embedding, a final norm and an untied LM head; an MoE
+  config's ``first_k_dense`` dense layers come first; a vlm config
+  prepends its patch embeddings (``extra_embed``) to the text and rotates
+  by M-RoPE;
+* whisper (``enc_dec``): an encoder stack over the frame embeddings
+  (``extra_embed``), non-causal, with sinusoidal positions, then decoder
+  layers that add cross-attention over each layer's projection of the
+  encoder output.
+
+The reference's ``lax.scan`` over stacked layer weights becomes a loop
+over an ``nn.ModuleList``; its cache keeps the reference's layout, ``(layers,
+batch, len, n_kv, head_dim)`` per key and value (MLA: ``(layers, batch,
+len, kv_lora)`` and ``(..., qk_rope)``; whisper adds the cross keys and
+values as a tuple), because the serving engine splices lanes on batch
+axis 1. The reference's mesh model axis, over which MoE layers shard their
+experts, is ``ep_slots`` expert slots stacked on the one device
+(:mod:`repro_torch.nn.moe`).
+
+The state-based families (SSM, xLSTM) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from repro_torch.device import default_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
-from repro_torch.nn.attention import Attention
+from repro_torch.nn.attention import MLA, Attention
 
 __all__ = ["DecoderModel", "ForwardOut", "init_model", "forward", "init_cache",
            "check_supported", "dtype_of", "default_placements", "moe_capacity_for_shape"]
@@ -45,18 +56,12 @@ def dtype_of(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    for field, value in (("mla", cfg.mla), ("ssm", cfg.ssm), ("xlstm", cfg.xlstm)):
+    for field, value in (("ssm", cfg.ssm), ("xlstm", cfg.xlstm)):
         if value is not None:
             missing.append((f"{field}=...", 12))
-    if cfg.enc_dec:
-        missing.append(("enc_dec=True (the whisper family)", 12))
-    if cfg.n_patches:
-        missing.append(("n_patches > 0 (the vlm family)", 12))
-    if cfg.abs_pos:
-        missing.append(("abs_pos=True (sinusoidal positions)", 12))
-    if cfg.rope_kind not in ("rope", "none"):
+    if cfg.rope_kind not in ("rope", "mrope", "none"):
         missing.append((f"rope_kind={cfg.rope_kind!r}", 12))
-    if cfg.family not in ("dense", "moe") and not missing:
+    if cfg.family not in ("dense", "moe", "vlm", "audio") and not missing:
         missing.append((f"family={cfg.family!r}", 12))
     if missing:
         what = "; ".join(f"{name} (ROADMAP item {item})" for name, item in missing)
@@ -93,40 +98,64 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm self-attention + MLP (or MoE), each with a residual."""
+    """Pre-norm self-attention (GQA or MLA), optional cross-attention, and
+    an MLP (or MoE), each with a residual."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device, moe_layer: bool = False,
-                 d_ff_override: int = 0, ep_slots: int = 1):
+                 cross: bool = False, d_ff_override: int = 0, ep_slots: int = 1):
         super().__init__()
         hd = cfg.resolved_head_dim()
-        self.ln1 = L.make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
-        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, hd, bias=cfg.qkv_bias,
-                              dtype=dtype, device=device)
-        self.ln2 = L.make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.ln1 = L.make_norm(cfg.norm, cfg.d_model, **kw)
+        if cfg.mla is not None:
+            m = cfg.mla
+            self.attn = MLA(cfg.d_model, cfg.n_heads, kv_lora=m.kv_lora, q_lora=m.q_lora,
+                            qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_dim=m.v_dim, **kw)
+        else:
+            self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, hd, bias=cfg.qkv_bias,
+                                  **kw)
+        self.ln_x = self.xattn = None
+        if cross:
+            self.ln_x = L.make_norm(cfg.norm, cfg.d_model, **kw)
+            self.xattn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, hd, bias=cfg.qkv_bias,
+                                   **kw)
+        self.ln2 = L.make_norm(cfg.norm, cfg.d_model, **kw)
         self.mlp = self.moe = None
         if moe_layer:
-            self.moe = M.MoE(cfg.moe, ep_slots, dtype=dtype, device=device)
+            self.moe = M.MoE(cfg.moe, ep_slots, **kw)
         else:
             self.mlp = MLP(cfg.d_model, d_ff_override or cfg.d_ff, gated=cfg.gated_mlp,
-                           act=cfg.act, dtype=dtype, device=device)
+                           act=cfg.act, **kw)
 
     def reset(self, gen: torch.Generator) -> None:
         self.ln1.reset()
         self.attn.reset(gen)
+        if self.xattn is not None:
+            self.ln_x.reset()
+            self.xattn.reset(gen)
         self.ln2.reset()
         (self.moe or self.mlp).reset(gen)
 
     def forward(self, x, cfg: ModelConfig, *, positions, cache=None, cache_pos=None,
-                placement=None, moe_capacity=None):
+                enc_kv=None, causal_self: bool = True, placement=None, moe_capacity=None):
         """Returns ``(x, new_cache, stats)``; ``cache`` is ``{"self": {"k",
-        "v"}}``, ``stats`` an MoE layer's (else empty). ``cfg`` picks the
-        attention path (``attn_impl`` and its blocks)."""
-        attn_out, new_cache = self.attn(
-            self.ln1(x), positions=positions, rope_kind=cfg.rope_kind,
-            rope_theta=cfg.rope_theta, causal=True,
-            cache=cache["self"] if cache else None, cache_pos=cache_pos,
-            impl=cfg.attn_impl, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+        "v"}}`` (MLA: ``{"c_kv", "k_pe"}``), ``enc_kv`` the cross-attention's
+        ``(k, v)`` of this layer, ``stats`` an MoE layer's (else empty).
+        ``cfg`` picks the attention path (``attn_impl`` and its blocks)."""
+        common = dict(positions=positions, rope_theta=cfg.rope_theta, causal=causal_self,
+                      cache=cache["self"] if cache else None, cache_pos=cache_pos,
+                      impl=cfg.attn_impl, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+        if isinstance(self.attn, MLA):
+            attn_out, new_cache = self.attn(self.ln1(x), **common)
+        else:
+            attn_out, new_cache = self.attn(self.ln1(x), rope_kind=cfg.rope_kind,
+                                            mrope_sections=cfg.mrope_sections, **common)
         x = x + attn_out
+        if enc_kv is not None:
+            xo, _ = self.xattn(self.ln_x(x), positions=None, rope_kind="none", causal=False,
+                               kv_override=enc_kv, impl=cfg.attn_impl,
+                               block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+            x = x + xo
         stats = {}
         if self.moe is not None:
             y, stats = self.moe(self.ln2(x), placement=placement, capacity=moe_capacity)
@@ -142,7 +171,9 @@ def _n_dense(cfg: ModelConfig) -> int:
 
 class DecoderModel(nn.Module):
     """Embedding, ``first_k_dense`` dense layers (MoE configs), the
-    ``layers`` stack (MoE layers for an MoE config), final norm, LM head."""
+    ``layers`` stack (MoE layers for an MoE config; whisper's decoder
+    layers, with cross-attention, after its ``enc_layers`` and
+    ``enc_norm``), final norm, LM head."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, ep_slots: int = 1):
         """Uninitialised weights on ``device`` (default: the current CUDA
@@ -152,17 +183,20 @@ class DecoderModel(nn.Module):
         check_supported(cfg)
         device = default_device(device, "DecoderModel")
         dtype = dtype_of(cfg.param_dtype)
+        kw = dict(dtype=dtype, device=device)
         self.ep_slots = ep_slots
-        self.embed = L.Embedding(cfg.vocab, cfg.d_model, dtype=dtype, device=device)
-        self.final_norm = L.make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
-        self.lm_head = L.Linear(cfg.d_model, cfg.vocab, dtype=dtype, device=device)
+        self.embed = L.Embedding(cfg.vocab, cfg.d_model, **kw)
+        self.final_norm = L.make_norm(cfg.norm, cfg.d_model, **kw)
+        self.lm_head = L.Linear(cfg.d_model, cfg.vocab, **kw)
         n_dense = _n_dense(cfg)
         self.dense_layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype=dtype, device=device, d_ff_override=cfg.first_dense_ff)
-            for _ in range(n_dense))
+            DecoderLayer(cfg, d_ff_override=cfg.first_dense_ff, **kw) for _ in range(n_dense))
+        self.enc_layers = nn.ModuleList(
+            DecoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers if cfg.enc_dec else 0))
+        self.enc_norm = L.make_norm(cfg.norm, cfg.d_model, **kw) if cfg.enc_dec else None
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, dtype=dtype, device=device, moe_layer=cfg.moe is not None,
-                         ep_slots=ep_slots)
+            DecoderLayer(cfg, moe_layer=cfg.moe is not None, cross=cfg.enc_dec,
+                         ep_slots=ep_slots, **kw)
             for _ in range(cfg.n_layers - n_dense))
 
     @property
@@ -190,8 +224,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     model.embed.reset(generator)
     model.final_norm.reset()
     model.lm_head.reset(generator)
-    for layer in (*model.dense_layers, *model.layers):
+    for layer in (*model.dense_layers, *model.enc_layers, *model.layers):
         layer.reset(generator)
+    if model.enc_norm is not None:
+        model.enc_norm.reset()
     return model
 
 
@@ -242,33 +278,57 @@ class ForwardOut:
     stats: Optional[dict] = None
 
 
-def _positions(b: int, t: int, start=0, device=None) -> torch.Tensor:
-    """(B, T) position ids. ``start`` may be a scalar or a per-lane (B,)
-    vector (continuous batching)."""
+def _positions(cfg: ModelConfig, b: int, t: int, start=0, device=None) -> torch.Tensor:
+    """(B, T) position ids, or (B, T, 3) for M-RoPE. ``start`` may be a
+    scalar or a per-lane (B,) vector (continuous batching).
+
+    M-RoPE (the vlm family): stream position ``idx < n_patches`` is a patch
+    at grid ``(0, idx // patch_grid, idx % patch_grid)``; text continues
+    from ``idx - n_patches + 1`` in all three."""
     start = torch.as_tensor(start, device=device)
     steps = torch.arange(t, device=device)
     if start.dim() > 0:
         base = start.long()[:, None] + steps            # (B, t)
     else:
         base = start.long() + steps                     # (t,)
-    return base.expand(b, t)
+    if cfg.rope_kind != "mrope":
+        return base.expand(b, t)
+    npch, g = cfg.n_patches, cfg.patch_grid
+    is_text = base >= npch
+    text = base - npch + 1
+    p3 = torch.stack([torch.where(is_text, text, 0), torch.where(is_text, text, base // g),
+                      torch.where(is_text, text, base % g)], dim=-1)
+    return p3.expand(b, t, 3)
 
 
-def _embed_inputs(model: DecoderModel, cfg: ModelConfig, tokens) -> torch.Tensor:
-    return model.embed(tokens).to(dtype_of(cfg.compute_dtype))
+def _embed_inputs(model: DecoderModel, cfg: ModelConfig, tokens, extra_embed=None
+                  ) -> torch.Tensor:
+    """Token embeddings in the compute type; a vlm config's patch embeddings
+    ``extra_embed`` (B, P, d) in front; sinusoidal positions with
+    ``abs_pos``."""
+    x = model.embed(tokens).to(dtype_of(cfg.compute_dtype))
+    if cfg.n_patches and extra_embed is not None:
+        x = torch.cat([torch.as_tensor(extra_embed, device=x.device).to(x.dtype), x], dim=1)
+    if cfg.abs_pos:
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+    return x
 
 
 def _lm_head(model: DecoderModel, cfg: ModelConfig, x) -> torch.Tensor:
     return model.lm_head(model.final_norm(x)).to(dtype_of(cfg.logit_dtype))
 
 
-def forward(model: DecoderModel, cfg: ModelConfig, *, tokens, mode: str = "train",
-            cache=None, cache_pos=None, placements=None,
+def forward(model: DecoderModel, cfg: ModelConfig, *, tokens, extra_embed=None,
+            mode: str = "train", cache=None, cache_pos=None, placements=None,
             moe_capacity: Optional[int] = None) -> ForwardOut:
     """Logits of ``tokens (B, T)``, with a ``cache`` the new cache, and
     ``stats``: ``aux_loss``, and for an MoE config ``expert_counts``
-    ``(L_moe, E)`` and the summed ``overflow`` (device tensors).
+    ``(L_moe, E)`` and the summed ``overflow`` (device tensors); whisper's
+    ``stats`` is None, as the reference's.
 
+    ``extra_embed``: a vlm config's patch embeddings (B, n_patches, d),
+    put in front of the text (not while decoding), or whisper's frame
+    embeddings (B, enc_len, d), which its train and prefill modes need.
     ``mode="prefill"`` with a cache writes the prompt's keys and values at
     positions ``0..T-1`` of a copy of the cache (the caller's cache is left
     as it was, as the reference's functional update leaves it);
@@ -281,8 +341,10 @@ def forward(model: DecoderModel, cfg: ModelConfig, *, tokens, mode: str = "train
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     check_supported(cfg)
-    return _forward_decoder(model, cfg, tokens, mode, cache, cache_pos, placements,
-                            moe_capacity)
+    if cfg.enc_dec:
+        return _forward_whisper(model, cfg, tokens, extra_embed, mode, cache, cache_pos)
+    return _forward_decoder(model, cfg, tokens, extra_embed, mode, cache, cache_pos,
+                            placements, moe_capacity)
 
 
 def _stack_cache(part: Optional[dict], mode: str) -> Optional[dict]:
@@ -291,30 +353,33 @@ def _stack_cache(part: Optional[dict], mode: str) -> Optional[dict]:
         return None
     kv = part["self"]
     if mode != "decode":
-        kv = {"k": kv["k"].clone(), "v": kv["v"].clone()}
+        kv = {name: a.clone() for name, a in kv.items()}
     return {"self": kv}
 
 
 def _run_stack(layers, part, x, cfg, positions, cache_pos, placements=None,
-               moe_capacity=None):
-    """Run a layer stack over ``x``; the MoE layers' stats, one a layer."""
+               moe_capacity=None, enc_kv=None, causal_self=True):
+    """Run a layer stack over ``x``; the MoE layers' stats, one a layer.
+    ``enc_kv``: the stacked cross ``(k, v)``, each (layers, B, S, n_kv, hd)."""
     stats = []
     for i, layer in enumerate(layers):
         lcache = None if part is None else {
-            "self": {"k": part["self"]["k"][i], "v": part["self"]["v"][i]}}
+            "self": {name: a[i] for name, a in part["self"].items()}}
         x, _, st = layer(x, cfg, positions=positions, cache=lcache, cache_pos=cache_pos,
+                         enc_kv=None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i]),
+                         causal_self=causal_self,
                          placement=None if placements is None else placements[i],
                          moe_capacity=moe_capacity)
         stats.append(st)
     return x, stats
 
 
-def _forward_decoder(model, cfg, tokens, mode, cache, cache_pos, placements,
+def _forward_decoder(model, cfg, tokens, extra_embed, mode, cache, cache_pos, placements,
                      moe_capacity) -> ForwardOut:
-    x = _embed_inputs(model, cfg, tokens)
+    x = _embed_inputs(model, cfg, tokens, extra_embed if mode != "decode" else None)
     b, t, _ = x.shape
     start = cache_pos if mode == "decode" else 0
-    positions = _positions(b, t, start=start, device=x.device)
+    positions = _positions(cfg, b, t, start=start, device=x.device)
     is_moe = cfg.moe is not None
     if is_moe and placements is None:
         placements = default_placements(cfg, model.ep_slots, device=x.device)
@@ -338,6 +403,49 @@ def _forward_decoder(model, cfg, tokens, mode, cache, cache_pos, placements,
     return ForwardOut(logits=logits, cache=new_cache, stats=stats)
 
 
+def _forward_whisper(model, cfg, tokens, frames, mode, cache, cache_pos) -> ForwardOut:
+    """The reference's ``_forward_whisper``: the encoder over ``frames``
+    (train, prefill) or the cross keys and values of ``cache["cross"]``
+    (decode), then the decoder with sinusoidal positions (gathered at
+    ``cache_pos`` from a ``max_len`` table when decoding)."""
+    hd = cfg.resolved_head_dim()
+    dtype = dtype_of(cfg.compute_dtype)
+    dev = model.device
+    if mode == "decode":
+        enc_kv = cache["cross"]                          # (L, B, S_enc, kv, hd) x2
+    else:
+        if frames is None:
+            # The reference fails here too (None has no ``astype``).
+            raise AttributeError(
+                f"{cfg.name}: {mode} needs the frame embeddings (extra_embed of shape "
+                f"(B, {cfg.enc_len}, {cfg.d_model}))")
+        enc = torch.as_tensor(frames, device=dev).to(dtype)
+        enc = enc + L.sinusoidal_positions(enc.shape[1], cfg.d_model, device=dev).to(dtype)
+        enc, _ = _run_stack(model.enc_layers, None, enc, cfg, None, None, causal_self=False)
+        enc_out = model.enc_norm(enc)
+        b, s = enc_out.shape[:2]
+        enc_kv = tuple(
+            torch.stack([getattr(layer.xattn, name)(enc_out).reshape(b, s, cfg.n_kv, hd)
+                         for layer in model.layers])
+            for name in ("k", "v"))
+
+    x = model.embed(tokens).to(dtype)
+    b, t, _ = x.shape
+    if mode == "decode":
+        max_len = int(cache["dec"]["self"]["k"].shape[2])
+        pos = torch.as_tensor(cache_pos, device=dev)
+        steps = torch.arange(t, device=dev)
+        idx = pos.long()[:, None] + steps if pos.dim() > 0 else pos.long() + steps
+        x = x + L.sinusoidal_positions(max_len, cfg.d_model, device=dev)[idx].to(dtype)
+    else:
+        x = x + L.sinusoidal_positions(t, cfg.d_model, device=dev).to(dtype)
+    part = None if cache is None else _stack_cache(cache["dec"], mode)
+    x, _ = _run_stack(model.layers, part, x, cfg, None, cache_pos, enc_kv=enc_kv)
+    logits = _lm_head(model, cfg, x)
+    new_cache = None if cache is None else {"dec": part, "cross": enc_kv}
+    return ForwardOut(logits=logits, cache=new_cache, stats=None)
+
+
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
@@ -345,19 +453,36 @@ def _forward_decoder(model, cfg, tokens, mode, cache, cache_pos, placements,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """Zeroed cache for ``batch`` sequences of up to ``max_len`` tokens:
-    ``{"layers": {"self": {"k", "v"}}}``, each ``(layers, batch, max_len,
-    n_kv, head_dim)``, and for an MoE config with leading dense layers a
-    ``"dense"`` part of theirs, on ``device`` (default: the current CUDA
-    device; without one this raises)."""
+    """Zeroed cache for ``batch`` sequences of up to ``max_len`` tokens, in
+    the reference's layout, on ``device`` (default: the current CUDA device;
+    without one this raises):
+
+    * GQA: ``{"layers": {"self": {"k", "v"}}}``, each ``(layers, batch,
+      max_len, n_kv, head_dim)``, and for an MoE config with leading dense
+      layers a ``"dense"`` part of theirs;
+    * MLA: the same parts of ``{"self": {"c_kv" (layers, batch, max_len,
+      kv_lora), "k_pe" (..., qk_rope)}}``;
+    * whisper: ``{"dec": {"self": {"k", "v"}}, "cross": (k, v)}``, the cross
+      pair ``(layers, batch, enc_len, n_kv, head_dim)`` each.
+    """
     check_supported(cfg)
     device = default_device(device, "init_cache")
+    hd = cfg.resolved_head_dim()
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     def kv(layers: int) -> dict:
-        shape = (layers, batch, max_len, cfg.n_kv, cfg.resolved_head_dim())
-        return {"self": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                         "v": torch.zeros(shape, dtype=dtype, device=device)}}
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"self": {"c_kv": zeros(layers, batch, max_len, m.kv_lora),
+                             "k_pe": zeros(layers, batch, max_len, m.qk_rope)}}
+        return {"self": {"k": zeros(layers, batch, max_len, cfg.n_kv, hd),
+                         "v": zeros(layers, batch, max_len, cfg.n_kv, hd)}}
 
+    if cfg.enc_dec:
+        cross = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv, hd)
+        return {"dec": kv(cfg.n_layers), "cross": (zeros(*cross), zeros(*cross))}
     n_dense = _n_dense(cfg)
     out = {"layers": kv(cfg.n_layers - n_dense)}
     if n_dense:

@@ -9,8 +9,8 @@ is ``(vocab, d)``. Weights are made empty here and filled by
 they carry no gradient: training is not ported yet (ROADMAP item 12).
 
 Norms compute in float32 and cast back to the input's type, as the
-reference does; RoPE rotates split halves (``_rotate``), not interleaved
-pairs.
+reference does; RoPE and M-RoPE rotate split halves (``_rotate``), not
+interleaved pairs; the sinusoidal table is float32.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from torch import nn
 
 __all__ = [
     "Linear", "Embedding", "RMSNorm", "LayerNorm", "make_norm",
-    "rope_freqs", "apply_rope", "ACTIVATIONS",
+    "rope_freqs", "apply_rope", "apply_mrope", "sinusoidal_positions", "ACTIVATIONS",
 ]
 
 
@@ -140,6 +140,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     if x.dim() == positions.dim() + 2:                    # head axis present
         cos, sin = cos[..., None, :], sin[..., None, :]
     return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections,
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.
+
+    ``positions_3d``: (..., T, 3), the temporal, height and width position
+    of each token (all three equal the text position for text);
+    ``sections`` says how many of the D/2 frequency slots read each of the
+    three (e.g. (16, 24, 24) at head dim 128).
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to D/2 = {d // 2}")
+    inv = rope_freqs(d, theta, device=x.device)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.as_tensor(sections, device=x.device))
+    index = sec_id.expand(positions_3d.shape[:-1] + (d // 2,))
+    pos = torch.gather(positions_3d.float(), -1, index)   # (..., T, D/2)
+    ang = pos * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if x.dim() == positions_3d.dim() + 1:                  # (..., T, H, D)
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings, (length, d) float32."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 ACTIVATIONS = {

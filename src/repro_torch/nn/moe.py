@@ -327,10 +327,13 @@ def _moe_shard_body(module: MoE, x, placement, *, capacity: int, n_local: int,
     gathered = x[bucket_tok] * (bucket_slot < n_local)[..., None].to(x.dtype)
     y, run_overflow = _expert_bucket_run(gathered, bucket_slot, n_local,
                                          _slot_weights(module, is_ep), args)
-    out = torch.zeros((s * n, d), dtype=y.dtype, device=dev)
-    out.index_add_(0, (me * n + bucket_tok).reshape(-1),
-                   (y * bucket_w[..., None].to(y.dtype)).reshape(-1, d))
-    out = out.view(s, n, d).sum(dim=0)            # the psum over the slots
+    # Each bucket row is one assignment (token, k) of its slot: write it at
+    # that index, then sum over the slots (the psum) and the token's k
+    # assignments in a fixed order, so the bits depend neither on the
+    # placement nor on the order of atomic adds.
+    out = torch.zeros((s, n * k, d), dtype=y.dtype, device=dev)
+    out[me, sel] = y * bucket_w[..., None].to(y.dtype)
+    out = out.sum(dim=0).view(n, k, d).sum(dim=1)
     return out, {"counts": counts, "aux_loss": aux, "overflow": overflow + run_overflow}
 
 
@@ -384,7 +387,9 @@ def _moe_a2a_shard_body(module: MoE, x, placement, *, send_cap: int, n_local: in
     send_slot = bucketize(torch.where(ok, slot_of[flat_e].gather(1, order), n_local),
                           n_local)
     send_w = bucketize(torch.where(ok, flat_w.gather(1, order), 0.0), 0.0)
-    local_tok = bucketize(torch.where(ok, tok_o, n), n)
+    # The assignment (token * k + its rank among the token's k) each row
+    # carries; n * k for the padding.
+    assign = bucketize(torch.where(ok, order, n * k), n * k)
     weights = _slot_weights(module, True)
 
     def copy_slab(s0: int, z: int):
@@ -405,7 +410,11 @@ def _moe_a2a_shard_body(module: MoE, x, placement, *, send_cap: int, n_local: in
         y[rows, rorder] = y_sorted
         return y, ovf, carry + slab_counts
 
-    out = torch.zeros((m * (n + 1), d), dtype=x.dtype, device=dev)
+    # One row an assignment of each slot's tokens (and one for the padding):
+    # every returned expert output lands at its own row, and a token's k
+    # outputs are summed in rank order at the end, so the bits depend
+    # neither on the placement nor on the order of atomic adds.
+    out = torch.zeros((m, n * k + 1, d), dtype=x.dtype, device=dev)
     run_overflow = torch.zeros((), dtype=torch.int64, device=dev)
     carry = torch.zeros((m, n_local), dtype=torch.int64, device=dev)
     recv = copy_slab(*chunk_slabs[0])
@@ -417,9 +426,9 @@ def _moe_a2a_shard_body(module: MoE, x, placement, *, send_cap: int, n_local: in
         run_overflow = run_overflow + ovf
         y_back = y.reshape(m, m, z, d).transpose(0, 1).reshape(m, m * z, d)
         yw = y_back * send_w[:, :, s0:s0 + z].reshape(m, -1, 1).to(y.dtype)
-        out.index_add_(0, (rows * (n + 1) + local_tok[:, :, s0:s0 + z].reshape(m, -1))
-                       .reshape(-1), yw.reshape(-1, d).to(out.dtype))
-    out = out.view(m, n + 1, d)[:, :-1].reshape(m, b, tl, d).transpose(0, 1)
+        out[rows, assign[:, :, s0:s0 + z].reshape(m, -1)] = yw.to(out.dtype)
+    out = out[:, :-1].view(m, n, k, d).sum(dim=2)
+    out = out.reshape(m, b, tl, d).transpose(0, 1)
     return (out.reshape(b, t, d),
             {"counts": counts, "aux_loss": aux, "overflow": overflow + run_overflow})
 

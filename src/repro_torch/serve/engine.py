@@ -26,8 +26,14 @@ place, and a prefill, which runs the prompt on every lane as the
 reference's does, works on a copy of which one lane is spliced back. The
 engine runs on one device, CUDA unless the caller names another.
 
-Scope: the dense decoder family (``models.model``); the other families
-are not ported yet.
+Scope: attention-family caches (batch axis 1 by construction —
+dense/moe/vlm/whisper, MLA's compressed cache included). ``run(requests,
+extra_embed=...)`` hands a vlm config's patch embeddings or whisper's
+frame embeddings, ``(lanes, P, d)``, to every prefill, as the reference's
+engine does; decoding continues at the prompt's length (the reference's
+``pos[lane] = p``, which for a vlm stream of ``n_patches + p`` tokens
+lies inside the patch block). SSM/hybrid serving uses the state-based
+decode directly (examples/), and is not ported.
 """
 
 from __future__ import annotations
@@ -475,23 +481,32 @@ class Engine:
     @staticmethod
     def _merge_lane(cache, new_cache, lane: int):
         """Splice one lane's rows (batch axis 1) from new_cache into cache,
-        in place; returns cache."""
+        in place (dicts and tuples walked, as the reference's tree map);
+        returns cache."""
         if isinstance(cache, dict):
             for key in cache:
                 Engine._merge_lane(cache[key], new_cache[key], lane)
+        elif isinstance(cache, tuple):
+            for old, new in zip(cache, new_cache, strict=True):
+                Engine._merge_lane(old, new, lane)
         else:
             cache[:, lane] = new_cache[:, lane]
         return cache
 
     # -- serving -------------------------------------------------------------
 
-    def run(self, requests: List[Request]) -> List[Request]:
+    def run(self, requests: List[Request], extra_embed=None) -> List[Request]:
+        """Serve ``requests``; ``extra_embed`` (a tensor or numpy array of
+        ``(lanes, P, d)``: a vlm config's patches, whisper's frames) goes
+        to every prefill."""
         with torch.inference_mode():
-            return self._run(requests)
+            return self._run(requests, extra_embed)
 
-    def _run(self, requests: List[Request]) -> List[Request]:
+    def _run(self, requests: List[Request], extra_embed) -> List[Request]:
         ecfg = self.ecfg
         dev = self.device
+        if extra_embed is not None:
+            extra_embed = torch.as_tensor(extra_embed, device=dev)
         queues = self.plan(requests)
         cache = init_cache(self.cfg, ecfg.lanes, ecfg.max_len, dtype=torch.float32,
                            device=dev)
@@ -527,7 +542,8 @@ class Engine:
             p = r.prompt.shape[0]
             toks = torch.as_tensor(np.asarray(r.prompt, np.int32)[None, :],
                                    device=dev).expand(ecfg.lanes, p)
-            out = forward(self.params, self.cfg, tokens=toks, mode="prefill", cache=cache)
+            out = forward(self.params, self.cfg, tokens=toks, extra_embed=extra_embed,
+                          mode="prefill", cache=cache)
             cache = self._merge_lane(cache, out.cache, lane)
             first = int(torch.argmax(out.logits[0, -1]))
             del out

@@ -1,11 +1,12 @@
-"""The port's configurations and dense decoder against the reference's.
+"""The port's configurations and decoder against the reference's.
 
 Configurations: each of the ten architectures, full and smoke, equal to the
 reference's field by field. Model: the reference's random parameters
 (``init_model`` with a JAX key, as numpy float32) loaded into the port by
 ``params_from_reference``, then the same numpy tokens through both
 ``forward``s: prefill logits, and per-lane decode logits against the
-prefilled cache, for each ``attn_impl``, in float32.
+prefilled cache, for each ``attn_impl``, in float32 (the dense configs;
+``test_torch_moe.py`` and ``test_torch_families.py`` hold the others).
 
 Tolerance 1e-4 absolute on logits of magnitude ~5 (float32 through two
 layers; the two frameworks sum in other orders, observed ~3e-6).
@@ -198,28 +199,40 @@ def test_init_model_uses_the_reference_scales():
     assert bf.embed.w.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["deepseek-v2-236b", "whisper-base", "qwen2-vl-7b"])
 def test_cache_layout_equals_reference(arch):
+    """Every leaf of the cache (MLA's compressed ``c_kv`` / ``k_pe``,
+    whisper's ``dec`` part and ``cross`` tuple) has the reference's path and
+    shape, zeros of the asked type (float32 and bfloat16)."""
+    import jax
     import jax.numpy as jnp
 
     from repro import configs as ref_configs
     from repro.models.model import init_cache as ref_cache
 
-    ref = ref_cache(ref_configs.get_smoke(arch), 3, 20, jnp.float32)
-    port = init_cache(port_configs.get_smoke(arch), 3, 20, torch.float32, device="cpu")
-    for kv in ("k", "v"):
-        assert tuple(port["layers"]["self"][kv].shape) == ref["layers"]["self"][kv].shape
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        ref = ref_cache(ref_configs.get_smoke(arch), 3, 20, jdtype)
+        port = init_cache(port_configs.get_smoke(arch), 3, 20, dtype, device="cpu")
+        want = jax.tree_util.tree_flatten_with_path(ref)[0]
+        got = jax.tree_util.tree_flatten_with_path(
+            port, is_leaf=lambda a: isinstance(a, torch.Tensor))[0]
+        assert [(jax.tree_util.keystr(p), tuple(a.shape)) for p, a in got] == \
+            [(jax.tree_util.keystr(p), a.shape) for p, a in want]
+        assert all(a.dtype == dtype and not torch.any(a) for _, a in got)
 
 
 @pytest.mark.parametrize("arch,item", [
     ("grok-1-314b", 11), ("deepseek-v2-236b", 12), ("zamba2-2.7b", 12),
     ("xlstm-1.3b", 12), ("whisper-base", 12), ("qwen2-vl-7b", 12)])
 def test_unported_families_name_their_item(arch, item):
-    """Each family the port does not run names its ROADMAP item; the MoE
-    family (item 11, grok-1) is ported and its prefill logits equal the
-    reference's (its case keeps the test's name from when it was refused),
-    while deepseek-v2's MoE layers wait for its MLA (item 12)."""
-    if item == 11:
+    """Each family the port does not run names its ROADMAP item: zamba2 and
+    xlstm (the state-based half of item 12). The test keeps its name and
+    its six cases from when more families were refused: the MoE family
+    (item 11, grok-1) and the attention families of item 12 (deepseek-v2's
+    MLA, whisper's encoder-decoder, qwen2-vl's M-RoPE and patches) are
+    ported, and their cases hold the prefill logits (and grok-1's and
+    deepseek-v2's expert counts) equal to the reference's."""
+    if arch in ("grok-1-314b", "deepseek-v2-236b", "whisper-base", "qwen2-vl-7b"):
         import jax.numpy as jnp
 
         from repro import configs as ref_configs
@@ -229,13 +242,21 @@ def test_unported_families_name_their_item(arch, item):
         jvals, values = _ref_values(cfg_ref)
         cfg = port_configs.get_smoke(arch)
         model = params_from_reference(values, cfg, device="cpu")
-        toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 9)).astype(np.int32)
-        want = ref_forward(jvals, cfg_ref, tokens=jnp.asarray(toks), mode="prefill")
-        got = forward(model, cfg, tokens=torch.from_numpy(toks), mode="prefill")
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+        extra = None
+        if cfg.n_patches or cfg.enc_dec:
+            rows = cfg.n_patches or cfg.enc_len
+            extra = rng.standard_normal((2, rows, cfg.d_model)).astype(np.float32)
+        want = ref_forward(jvals, cfg_ref, tokens=jnp.asarray(toks), mode="prefill",
+                           extra_embed=None if extra is None else jnp.asarray(extra))
+        got = forward(model, cfg, tokens=torch.from_numpy(toks), mode="prefill",
+                      extra_embed=extra)
         np.testing.assert_allclose(got.logits.numpy(), np.asarray(want.logits),
                                    atol=LOGIT_ATOL, rtol=0)
-        np.testing.assert_array_equal(got.stats["expert_counts"].numpy(),
-                                      np.asarray(want.stats["expert_counts"]))
+        if cfg.moe is not None:
+            np.testing.assert_array_equal(got.stats["expert_counts"].numpy(),
+                                          np.asarray(want.stats["expert_counts"]))
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         init_model(port_configs.get_smoke(arch), device="cpu")
