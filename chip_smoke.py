@@ -243,23 +243,25 @@ SERVE_LANES, SERVE_MAX_LEN, SERVE_REQUESTS = 8, 1024, 16   # the serve path
 # The MoE path: grok-1-314b cut to 4 layers (42.6 GB of bf16 weights), 4
 # expert slots stacked on the card (2 experts a slot), a prefill of 8 Zipf
 # prompts of 512 tokens, 8 requests served on 4 lanes, and a 2-layer
-# float32 twin with 4 requests of 6 new tokens.
+# float32 twin (TWIN_REQUESTS of Zipf prompts).
 MOE_LAYERS, MOE_EP_SLOTS, MOE_PROMPTS, MOE_PROMPT_LEN = 4, 4, 8, 512
-MOE_REQUESTS, MOE_LANES, MOE_TWIN_REQUESTS, MOE_TWIN_NEW = 8, 4, 4, 6
+MOE_REQUESTS, MOE_LANES = 8, 4
 # The whisper path: whisper-base at full width and depth on 8 lanes with
 # max_len 448 (Whisper's decoder context), 16 requests of 4-32 prompt tokens.
 WHISPER_LANES, WHISPER_MAX_LEN, WHISPER_REQUESTS, WHISPER_PROMPTS = 8, 448, 16, (4, 33)
 # The VLM path: qwen2-vl-7b at full width and depth; the model-level check
 # prefills 8 x (256 patches + 256 text tokens) and decodes 16 steps, held
 # against the train-mode forward of the whole stream within VLM_BF16_TOL
-# (relative L2 of the logits); then 16 requests on 8 lanes.
-VLM_BATCH, VLM_TEXT, VLM_DECODE, VLM_BF16_TOL = 8, 256, 16, 5e-2
+# (relative L2 of the logits), and on the float32 twin within VLM_F32_TOL
+# (max |diff| of the logits); then 16 requests on 8 lanes.
+VLM_BATCH, VLM_TEXT, VLM_DECODE, VLM_BF16_TOL, VLM_F32_TOL = 8, 256, 16, 5e-2, 1e-3
 # The MLA path: deepseek-v2-236b cut to 5 layers (1 dense + 4 MoE), 4 expert
 # slots (40 experts a slot), a prefill of 8 Zipf prompts of 512 tokens, 8
 # requests on 4 lanes.
 MLA_LAYERS, MLA_EP_SLOTS, MLA_PROMPTS, MLA_PROMPT_LEN = 5, 4, 8, 512
 MLA_REQUESTS, MLA_LANES = 8, 4
-# The float32 twins of the family paths (2 layers, full width), card vs CPU:
+# The float32 twins of the MoE and family paths (2 layers, full width), card
+# vs CPU:
 # lanes, requests of 16-32 prompt tokens, new tokens a request.
 TWIN_LANES, TWIN_REQUESTS, TWIN_NEW = 2, 4, 6
 
@@ -1773,22 +1775,28 @@ def profile_run(label, fn, job=None) -> dict:
             "phases": None if job is None else job.last_phase_ms, "top": top[:12]}
 
 
-def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> dict:
+def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
     """Kernel 9 against its plain version, at the serve path's prefill shape
     (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D = 128,
-    bf16) and at more shapes of both instances. The wgmma instance (bf16,
-    D = 64 or 128): ragged T < S, T > S (rows that see no key give exact
-    0), GQA groups 1, 4 and 8, D = 64, non-causal, and grok-1's head layout
-    on the MoE path (Hq = 48, Hkv = 8: a GQA group of 6) at its engine's
-    longest admission (B = 1, T = S = ``moe_prompt_len``), at a ragged T
-    and at its placement prefills (B = 8, T = S = 512). The simt instance: f32
-    with T < S, f32 at the smollm twin's D = 20, f32 with T > S, bf16 at D =
-    256. The family paths' shapes: MLA's prefill (D = 192, simt), whisper's
-    encoder (T = S = 1500) and cross-attention (T = 32, S = 1500), both
-    non-causal at D = 64, and qwen2-vl's GQA group of 7 (wgmma), each
-    timed beside SDPA (device time from a burst behind a spin) under
-    ``res["family"]``. Each case checks that it went through the instance
-    ``fa_ops.design`` names.
+    bf16) and at more shapes of both instances. ``admit[path]`` is the
+    (shortest, longest) prompt of the path's engine (:func:`admission_lens`).
+    The wgmma instance (bf16, D = 64 or 128): ragged T < S, T > S (rows
+    that see no key give exact 0), GQA groups 1, 4 and 8, D = 64,
+    non-causal, and grok-1's head layout on the MoE path (Hq = 48, Hkv = 8:
+    a GQA group of 6) at its engine's longest admission (B = 1), at a
+    ragged T and at its placement prefills (B = 8, T = S = 512). The simt
+    instance: f32 with T < S, f32 at the smollm twin's D = 20, f32 with
+    T > S, bf16 at D = 256. The family paths' shapes, each on the instance
+    its path runs: MLA's placement prefill (D = 192, simt), whisper's
+    encoder (T = S = 1500) and cross-attention (T = the longest prompt,
+    S = 1500), both non-causal at D = 64, and qwen2-vl's GQA group of 7
+    (wgmma), each timed beside SDPA (device time from a burst behind a
+    spin) under ``res["family"]``; and the engines' shortest and longest
+    admissions of each family: qwen2-vl at B = 8 lanes, T = S = 256
+    patches + the prompt; MLA at B = 4 lanes, D = 192 (simt); whisper's
+    causal decoder self-attention (T = S = the prompt) and its
+    cross-attention at the shortest prompt (T < 32 against S = 1500). Each
+    case checks that it went through the instance ``fa_ops.design`` names.
 
     Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
     the two sum in other orders). At the serve shape the kernel and
@@ -1805,7 +1813,10 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
           "float32 products of the plain version run in full float32")
     gen = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = {"serve": (8, 32, 8, prompt_len, prompt_len, 128, bf16, True),
+    (_, serve_len), (_, moe_len) = admit["serve"], admit["moe"]
+    (vlm_min, vlm_max), (mla_min, mla_max) = admit["vlm"], admit["mla"]
+    wh_min, wh_max = admit["whisper"]
+    cases = {"serve": (8, 32, 8, serve_len, serve_len, 128, bf16, True),
              "bf16_t1_s300": (2, 8, 2, 1, 300, 128, bf16, True),
              "bf16_t65_s300": (2, 8, 2, 65, 300, 128, bf16, True),
              "bf16_t130_s300": (2, 8, 2, 130, 300, 128, bf16, True),
@@ -1815,7 +1826,7 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
              "bf16_d64": (2, 8, 2, 256, 256, 64, bf16, True),
              "bf16_d64_t_gt_s": (2, 8, 2, 70, 30, 64, bf16, True),
              "bf16_noncausal": (2, 4, 2, 130, 700, 128, bf16, False),
-             "moe_engine": (1, 48, 8, moe_prompt_len, moe_prompt_len, 128, bf16, True),
+             "moe_engine": (1, 48, 8, moe_len, moe_len, 128, bf16, True),
              "moe_ragged": (1, 48, 8, 201, 201, 128, bf16, True),
              "moe_prefill": (MOE_PROMPTS, 48, 8, MOE_PROMPT_LEN, MOE_PROMPT_LEN, 128, bf16,
                              True),
@@ -1826,11 +1837,23 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
              "mla_prefill": (MLA_PROMPTS, 128, 128, MLA_PROMPT_LEN, MLA_PROMPT_LEN, 192, bf16,
                              True),
              "whisper_encoder": (WHISPER_LANES, 8, 8, 1500, 1500, 64, bf16, False),
-             "whisper_cross": (WHISPER_LANES, 8, 8, 32, 1500, 64, bf16, False),
-             "vlm_prefill": (VLM_BATCH, 28, 4, 2 * VLM_TEXT, 2 * VLM_TEXT, 128, bf16, True)}
-    # The shapes the family paths give the kernel, each timed beside SDPA.
+             "whisper_cross": (WHISPER_LANES, 8, 8, wh_max, 1500, 64, bf16, False),
+             "vlm_prefill": (VLM_BATCH, 28, 4, 2 * VLM_TEXT, 2 * VLM_TEXT, 128, bf16, True),
+             "vlm_engine": (SERVE_LANES, 28, 4, vlm_max, vlm_max, 128, bf16, True),
+             "vlm_engine_short": (SERVE_LANES, 28, 4, vlm_min, vlm_min, 128, bf16, True),
+             "mla_engine": (MLA_LANES, 128, 128, mla_max, mla_max, 192, bf16, True),
+             "mla_engine_short": (MLA_LANES, 128, 128, mla_min, mla_min, 192, bf16, True),
+             "whisper_decoder": (WHISPER_LANES, 8, 8, wh_max, wh_max, 64, bf16, True),
+             "whisper_decoder_short": (WHISPER_LANES, 8, 8, wh_min, wh_min, 64, bf16, True),
+             "whisper_cross_short": (WHISPER_LANES, 8, 8, wh_min, 1500, 64, bf16, False)}
+    # The shapes the family paths give the kernel and the instance each path
+    # runs; ``timed`` are timed beside SDPA.
     family_design = {"mla_prefill": "simt", "whisper_encoder": "wgmma",
-                     "whisper_cross": "wgmma", "vlm_prefill": "wgmma"}
+                     "whisper_cross": "wgmma", "vlm_prefill": "wgmma", "vlm_engine": "wgmma",
+                     "vlm_engine_short": "wgmma", "mla_engine": "simt",
+                     "mla_engine_short": "simt", "whisper_decoder": "wgmma",
+                     "whisper_decoder_short": "wgmma", "whisper_cross_short": "wgmma"}
+    timed = ("serve", "mla_prefill", "whisper_encoder", "whisper_cross", "vlm_prefill")
     res = {"cases": {}, "family": {}}
     for name, (b, hq, hkv, t, s, d, dtype, causal) in cases.items():
         q = torch.randn(b, hq, t, d, generator=gen, device=dev).to(dtype)
@@ -1859,7 +1882,7 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, prompt_len, moe_prompt_len, dev) -> 
         res["cases"][name] = {"shape": [b, hq, hkv, t, s, d], "dtype": str(dtype),
                               "causal": causal, "design": design, "max_abs_err": err,
                               "tol": tol}
-        if name != "serve" and name not in family_design:
+        if name not in timed:
             continue
         flops = 4 * b * hq * d * attention_pairs(t, s, causal)
         nbytes = (2 * b * hq * t * d + 2 * b * hkv * s * d) * 2
@@ -1957,6 +1980,15 @@ def serve_requests(vocab: int, seed: int, count: int = SERVE_REQUESTS, plen=(128
     return out
 
 
+def admission_lens(arch: str, seed: int, count: int, plen=(128, 513)) -> tuple:
+    """(shortest, longest) prompt of the ``count`` requests a path's engine
+    admits (:func:`serve_requests` at the arch's vocabulary)."""
+    from repro_torch.configs import get_config
+
+    lens = [r.prompt.shape[0] for r in serve_requests(get_config(arch).vocab, seed, count, plen)]
+    return min(lens), max(lens)
+
+
 def top2_margin(model, cfg, tokens, dev) -> float:
     """Top-2 logit margin of the next token after ``tokens`` (one sequence,
     no cache)."""
@@ -2041,9 +2073,7 @@ def serve_path(counters, fa_ops, args, dev) -> tuple:
 
     # Where a decode step's time goes: 20 lock-step steps at the lanes'
     # depths of a prompt of median length, under the profiler.
-    rec["profile_20_decode_steps"] = decode_profile(
-        "serve", eng, model, cfg, SERVE_LANES, SERVE_MAX_LEN,
-        int(np.median(rec["prompt_lens"])), dev)
+    rec["profile_20_decode_steps"] = decode_profile("serve", eng, int(np.median(rec["prompt_lens"])))
     del eng, model, done
     torch.cuda.empty_cache()
 
@@ -2133,7 +2163,7 @@ def moe_path(counters, fa_ops, args, dev, smi) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core import balancer as bal_lib
     from repro_torch.models.model import default_placements, forward, init_model
-    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.engine import Engine, EngineConfig
 
     full = get_config("grok-1-314b")
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS, attn_impl="pallas")
@@ -2235,13 +2265,12 @@ def moe_path(counters, fa_ops, args, dev, smi) -> tuple:
     eng = Engine(cfg, model, EngineConfig(lanes=MOE_LANES, max_len=SERVE_MAX_LEN,
                                           scheduler="os4m"), device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, MOE_REQUESTS)
-    rec["serve"] = family_serve("moe serve", eng, reqs, None, fa_ops, smi, MOE_LANES)
+    rec["serve"] = family_serve("moe serve", eng, reqs, None, fa_ops, smi)
     check(rec["serve"]["flash_launches_by_design"] == {"wgmma": MOE_LAYERS * len(reqs),
                                                        "simt": 0},
           f"moe serve: every prefill layer went through kernel 9's wgmma instance "
           f"({rec['serve']['flash_launches_by_design']})")
-    prof = decode_profile("moe", eng, model, cfg, MOE_LANES, SERVE_MAX_LEN,
-                          int(np.median(rec["serve"]["prompt_lens"])), dev)
+    prof = decode_profile("moe", eng, int(np.median(rec["serve"]["prompt_lens"])))
     rec["serve"]["profile_20_decode_steps"] = prof
     rec["serve"]["idle_share"] = prof["idle_share"]
     del eng, model
@@ -2251,15 +2280,8 @@ def moe_path(counters, fa_ops, args, dev, smi) -> tuple:
     # same weights (drawn on the card, copied to the host).
     twin = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
     gpu_model = init_model(twin, seed=args.seed, device=dev, ep_slots=MOE_EP_SLOTS)
-    rng = np.random.default_rng(args.seed + 1)
-    prompts = [(rng.zipf(1.3, int(rng.integers(16, 33))) % twin.vocab).astype(np.int32)
-               for _ in range(MOE_TWIN_REQUESTS)]
-
-    def twin_reqs():
-        return [Request(rid=i, prompt=p, max_new=MOE_TWIN_NEW) for i, p in enumerate(prompts)]
-
     rec["f32_twin"] = twin_streams(
-        "moe", twin, gpu_model, twin_reqs,
+        "moe", twin, gpu_model, twin_requests(twin.vocab, args.seed, zipf=True),
         EngineConfig(lanes=MOE_LANES, max_len=64, scheduler="os4m", eos=-1),
         ep_slots=MOE_EP_SLOTS)
     launches = read_launches(counters)
@@ -2272,7 +2294,7 @@ def moe_path(counters, fa_ops, args, dev, smi) -> tuple:
     return rec, launches
 
 
-def family_serve(label, eng, reqs, extra, fa_ops, smi, plan_lanes) -> dict:
+def family_serve(label, eng, reqs, extra, fa_ops, smi) -> dict:
     """``eng.run(reqs, extra_embed=extra)`` on the card, timed, with its
     checks: every request served within its budget, the lane plan the host
     scheduler's; returns the record (flash launches by instance included)."""
@@ -2280,7 +2302,7 @@ def family_serve(label, eng, reqs, extra, fa_ops, smi, plan_lanes) -> dict:
 
     budgets = {r.rid: r.max_new for r in reqs}
     want_lanes = sched_lib.schedule_bss(
-        np.asarray([r.load for r in reqs], np.float64), plan_lanes).assignment
+        np.asarray([r.load for r in reqs], np.float64), eng.ecfg.lanes).assignment
     flash0 = dict(fa_ops.launches_by_design)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2315,13 +2337,14 @@ def family_serve(label, eng, reqs, extra, fa_ops, smi, plan_lanes) -> dict:
     return rec
 
 
-def decode_profile(label, eng, model, cfg, lanes, max_len, depth, dev) -> dict:
-    """20 lock-step decode steps of every lane at ``depth`` under the
-    profiler (after one untimed step), on a zeroed float32 cache; the
+def decode_profile(label, eng, depth) -> dict:
+    """20 lock-step decode steps of every lane of ``eng`` at ``depth`` under
+    the profiler (after one untimed step), on a zeroed float32 cache; the
     record's ``idle_share`` is 1 - device busy / wall."""
     from repro_torch.models.model import init_cache
 
-    cache = init_cache(cfg, lanes, max_len, dtype=torch.float32, device=dev)
+    model, lanes, dev = eng.params, eng.ecfg.lanes, eng.device
+    cache = init_cache(eng.cfg, lanes, eng.ecfg.max_len, dtype=torch.float32, device=dev)
     pos = np.full(lanes, depth, np.int64)
     cur = torch.full((lanes, 1), 7, dtype=torch.int32, device=dev)
 
@@ -2369,13 +2392,20 @@ def twin_streams(label, twin, gpu_model, requests, ecfg, extra=None, ep_slots=1)
             "streams": {str(k): v for k, v in streams["cuda"].items()}}
 
 
-def twin_requests(vocab: int, seed: int, count: int = TWIN_REQUESTS):
-    """The twins' requests: prompts of 16-32 tokens, TWIN_NEW new tokens."""
+def twin_requests(vocab: int, seed: int, zipf: bool = False):
+    """The twins' TWIN_REQUESTS requests: prompts of 16-32 tokens, uniform
+    over the vocabulary or (``zipf``) Zipf(1.3) as the MoE paths' prefills,
+    TWIN_NEW new tokens."""
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(seed + 1)
-    prompts = [rng.integers(3, vocab, int(rng.integers(16, 33))).astype(np.int32)
-               for _ in range(count)]
+    if zipf:
+        def draw(n):
+            return rng.zipf(1.3, n) % vocab
+    else:
+        def draw(n):
+            return rng.integers(3, vocab, n)
+    prompts = [draw(int(rng.integers(16, 33))).astype(np.int32) for _ in range(TWIN_REQUESTS)]
     return lambda: [Request(rid=i, prompt=p, max_new=TWIN_NEW) for i, p in enumerate(prompts)]
 
 
@@ -2419,15 +2449,14 @@ def whisper_path(counters, fa_ops, args, dev, smi) -> tuple:
     ecfg = EngineConfig(lanes=WHISPER_LANES, max_len=WHISPER_MAX_LEN, scheduler="os4m")
     eng = Engine(cfg, model, ecfg, device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, WHISPER_REQUESTS, plen=WHISPER_PROMPTS)
-    rec["serve"] = family_serve("whisper serve", eng, reqs, frames, fa_ops, smi, WHISPER_LANES)
+    rec["serve"] = family_serve("whisper serve", eng, reqs, frames, fa_ops, smi)
     per_admission = cfg.n_enc_layers + 2 * cfg.n_layers
     check(rec["serve"]["flash_launches_by_design"]
           == {"wgmma": per_admission * len(reqs), "simt": 0},
           f"whisper serve: kernel 9's wgmma instance ran in every encoder, decoder and cross "
           f"layer of every prefill ({per_admission} x {len(reqs)})")
     rec["serve"]["profile_20_decode_steps"] = decode_profile(
-        "whisper", eng, model, cfg, WHISPER_LANES, WHISPER_MAX_LEN,
-        int(np.median(rec["serve"]["prompt_lens"])), dev)
+        "whisper", eng, int(np.median(rec["serve"]["prompt_lens"])))
     del eng, model, frames
     torch.cuda.empty_cache()
 
@@ -2454,8 +2483,8 @@ def vlm_path(counters, fa_ops, args, dev, smi) -> tuple:
     (256 patches + VLM_TEXT tokens) with a float32 cache, then VLM_DECODE
     greedy decode steps at n_patches + p + i, whose logits (and the
     prefill's last) are held against the train-mode forward of the whole
-    stream within VLM_BF16_TOL; the same on the float32 twin with equal
-    argmax tokens. Then ``Engine`` with the patches as ``extra_embed`` on 8
+    stream within VLM_BF16_TOL; the same on the float32 twin within
+    VLM_F32_TOL and with equal argmax tokens. Then ``Engine`` with the patches as ``extra_embed`` on 8
     lanes, 16 requests (the reference's semantics: decoding continues at
     the prompt's length), kernel 9's wgmma instance at a GQA group of 7 in
     every prefill layer; 20 decode steps under the profiler; the float32
@@ -2542,14 +2571,13 @@ def vlm_path(counters, fa_ops, args, dev, smi) -> tuple:
     eng = Engine(cfg, model, ecfg, device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, SERVE_REQUESTS)
     rec["serve"] = family_serve("vlm serve", eng, reqs, patches(SERVE_LANES, torch.bfloat16),
-                                fa_ops, smi, SERVE_LANES)
+                                fa_ops, smi)
     check(rec["serve"]["flash_launches_by_design"] == {"wgmma": cfg.n_layers * len(reqs),
                                                        "simt": 0},
           f"vlm serve: kernel 9's wgmma instance ran in every prefill layer "
           f"({cfg.n_layers} x {len(reqs)})")
     rec["serve"]["profile_20_decode_steps"] = decode_profile(
-        "vlm", eng, model, cfg, SERVE_LANES, SERVE_MAX_LEN,
-        int(np.median(rec["serve"]["prompt_lens"])), dev)
+        "vlm", eng, int(np.median(rec["serve"]["prompt_lens"])))
     del eng, model
     torch.cuda.empty_cache()
 
@@ -2558,11 +2586,15 @@ def vlm_path(counters, fa_ops, args, dev, smi) -> tuple:
     steps, full, _, _ = decode_vs_full(gpu_model, twin, patches(TWIN_LANES, torch.float32),
                                        text[:TWIN_LANES, :32])
     agree = bool(torch.equal(steps.argmax(-1), full.argmax(-1)))
+    f32_diff = float((steps - full).abs().max())
     check(agree, "vlm f32 twin: decode argmax tokens == the full forward's")
-    rec["model_level"]["f32_twin_argmax_equal"] = agree
-    rec["model_level"]["f32_twin_max_abs_diff"] = float((steps - full).abs().max())
+    check(f32_diff <= VLM_F32_TOL,
+          f"vlm f32 twin: decode logits == the full forward's within {VLM_F32_TOL} "
+          f"(max |diff| {f32_diff:.3g})")
+    rec["model_level"].update(f32_twin_argmax_equal=agree, f32_twin_max_abs_diff=f32_diff,
+                              f32_tol=VLM_F32_TOL)
     print(f"vlm f32 twin: decode at n_patches + p + i vs the full forward: argmax equal, max "
-          f"|diff| {rec['model_level']['f32_twin_max_abs_diff']:.3g}", flush=True)
+          f"|diff| {f32_diff:.3g} (tol {VLM_F32_TOL})", flush=True)
     del steps, full
     rec["f32_twin"] = twin_streams(
         "vlm", twin, gpu_model, twin_requests(twin.vocab, args.seed),
@@ -2726,14 +2758,13 @@ def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
           f"({rec['cache']['ratio']:.1f}x)", flush=True)
     eng = Engine(cfg, model, ecfg, device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, MLA_REQUESTS)
-    rec["serve"] = family_serve("mla serve", eng, reqs, None, fa_ops, smi, MLA_LANES)
+    rec["serve"] = family_serve("mla serve", eng, reqs, None, fa_ops, smi)
     check(rec["serve"]["flash_launches_by_design"] == {"wgmma": 0,
                                                        "simt": MLA_LAYERS * len(reqs)},
           f"mla serve: kernel 9's simt instance ran in every prefill layer "
           f"({MLA_LAYERS} x {len(reqs)})")
     rec["serve"]["profile_20_decode_steps"] = decode_profile(
-        "mla", eng, model, cfg, MLA_LANES, SERVE_MAX_LEN,
-        int(np.median(rec["serve"]["prompt_lens"])), dev)
+        "mla", eng, int(np.median(rec["serve"]["prompt_lens"])))
     del eng, model
     torch.cuda.empty_cache()
 
@@ -3218,12 +3249,15 @@ def main(argv=None) -> int:
 
     # ---- Kernel phase 9: flash attention at the serve path's prefill shape
     # (its longest prompt) and four more; kernel phase 8: dispatch ranks.
-    vocab = get_config("llama3-8b").vocab
-    prompt_len = max(r.prompt.shape[0] for r in serve_requests(vocab, args.seed))
-    moe_prompt_len = max(r.prompt.shape[0] for r in serve_requests(
-        get_config("grok-1-314b").vocab, args.seed, MOE_REQUESTS))
-    flash = flash_phase(fa_ops, flash_attention_ref, flash_attention_cuda, prompt_len,
-                        moe_prompt_len, dev)
+    n_patches = get_config("qwen2-vl-7b").n_patches
+    admit = {"serve": admission_lens("llama3-8b", args.seed, SERVE_REQUESTS),
+             "moe": admission_lens("grok-1-314b", args.seed, MOE_REQUESTS),
+             "vlm": tuple(n_patches + p for p in admission_lens("qwen2-vl-7b", args.seed,
+                                                                SERVE_REQUESTS)),
+             "mla": admission_lens("deepseek-v2-236b", args.seed, MLA_REQUESTS),
+             "whisper": admission_lens("whisper-base", args.seed, WHISPER_REQUESTS,
+                                       WHISPER_PROMPTS)}
+    flash = flash_phase(fa_ops, flash_attention_ref, flash_attention_cuda, admit, dev)
     print(f"kernel flash_attention {tuple(flash['shape'])} bf16 causal (the serve path's "
           f"longest prefill, {flash['design']} instance): err {flash['max_abs_err']:.3g} "
           "(others: " + ", ".join(f"{k} [{c['design']}] {c['max_abs_err']:.3g}"

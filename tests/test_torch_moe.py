@@ -263,6 +263,35 @@ def test_moe_respects_balanced_placement():
         torch.testing.assert_close(PM.moe(module, x)[0], y0, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("strategy", ["a2a", "broadcast"])
+@pytest.mark.parametrize("ep_slots", [1, 4])
+def test_top6_combine_is_bit_stable(device, strategy, ep_slots):
+    """At top-6 (deepseek-v2's routing) a token's six expert outputs are
+    summed in a fixed order: two runs on the same tokens give the same bits,
+    and so does the balancer's placement with its permuted weights (a
+    relabeling). An add whose order follows the bucket rows (the placement)
+    or the atomics' timing would differ in the last bits."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = PM.MoEArgs(num_experts=16, top_k=6, d_model=64, d_ff=48, shared_experts=1,
+                      capacity_factor=16.0, strategy=strategy)
+    module = PM.init_moe(args, ep_slots, seed=0, device="cpu").to(device)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 32, 64))
+                         .astype(np.float32)).to(device)
+    dropless = 4 * 32 * args.top_k
+    y0, st0 = PM.moe(module, x, capacity=dropless)
+    y1, _ = PM.moe(module, x, capacity=dropless)
+    assert int(st0["overflow"]) == 0
+    assert torch.equal(y1, y0)
+    placement, perm = PM.balanced_placement(args, ep_slots, st0["counts"].cpu().numpy())
+    pb.permute_expert_weights(module, perm)
+    y2, st2 = PM.moe(module, x, placement=placement, capacity=dropless)
+    assert int(st2["overflow"]) == 0
+    assert torch.equal(st2["counts"], st0["counts"])
+    assert torch.equal(y2, y0)
+
+
 def test_capacity_and_placement_helpers():
     args = PM.MoEArgs(num_experts=8, top_k=2, d_model=16, d_ff=32)
     assert PM.capacity_for(args, 64, 4) == 48                  # 32 · 1.25 + 1, to 8
