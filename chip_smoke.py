@@ -168,6 +168,49 @@ Then it frees the card and adds the serving side:
   in every prefill layer; 20 decode steps under the profiler; a 2-layer
   float32 twin on the card and the CPU with equal token streams.
 
+Last, the training path (``repro_torch.train``), which launches none of
+the nine kernels (kernel 9 has no backward; training attends with the
+blocked path and its own backward):
+
+* dense: smollm-360m (hf:HuggingFaceTB/SmolLM) at full width and depth
+  (32 layers, d_model 960, 15 / 5 heads, d_ff 2560, vocab 49152), bf16
+  weights, float32 AdamW moments, remat, 20 steps of 8 x 1024 tokens of
+  the synthetic corpus packed by the OS4M scheduler, a checkpoint at step
+  10 (keep 1, in a temporary directory): every loss finite, step 20's
+  below step 1's, the step time (steps 2-9), tokens/s and peak memory;
+  steps 11-20 run under deterministic algorithms, and a fresh ``Trainer``
+  resumed from step 10 repeats them with losses bit-equal (within 1e-3
+  with the ops named if any has no deterministic CUDA path), the
+  checkpoint's bf16 weights bit-equal, and a step that raises once at
+  step 15 is restored from step 10 and retried with the reference's step
+  counting (its steps 11-14 repeat the first run's likewise); the resumed
+  trainer then runs steps 21-30 under the profiler without deterministic
+  algorithms (idle share);
+* the launcher: ``python -m repro_torch.launch.train --arch smollm-360m
+  --full --steps 20 --batch 8 --seq 1024`` as a subprocess (the
+  reference's log lines, a final checkpoint), then ``--resume``;
+* MoE: deepseek-v2-236b at full width, depth cut from 60 to 2 layers (1
+  dense + 1 MoE, 5.36 G parameters), experts over 4 slots (40 a slot),
+  bf16 weights and bf16 moments (the reference's knob for this config),
+  whether two backward passes give the same gradient bits (without and
+  with deterministic algorithms), then 30 steps of 4 x 512 Zipf(1.3)
+  tokens at the config's capacity factor (overflow recorded) with the
+  balancer re-planning every 10 steps: at each re-plan a probe batch,
+  without grad at a capacity that keeps every token, gives logits
+  bit-equal before and after the weight move; balance ratios, per-slot
+  loads, re-plan and weight-move ms, step time, peak memory, idle share
+  (steps 21-29 under the profiler);
+* float32 twins trained on the card and on the CPU from the same weights
+  and batches (TF32 off): smollm-360m at full width and 2 layers, 5
+  steps of 2 x 128, and deepseek-v2's smoke twin at 4 expert slots, 10
+  steps with a re-plan every 5: losses and grad norms within 1e-4
+  relative, final parameters within TWIN_PARAM_ATOL, placements equal (a
+  differing one is reported with the router's top-k margin and fails the
+  run above 1e-4); each step's gradients are logged on both sides to show
+  where the parameters differ most, and two card runs of the dense twin
+  with a known fault (TF32 matmuls, bf16 compute) must differ from the CPU
+  by more than TWIN_PARAM_ATOL.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
 non-zero.
@@ -197,9 +240,11 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -208,6 +253,9 @@ from pathlib import Path
 # CUDA reads it when it creates the context: set before torch touches
 # the device.
 os.environ.setdefault("CUDA_DEVICE_MAX_CONNECTIONS", "32")
+# cuBLAS's workspace for deterministic algorithms (the training path's
+# resume check runs under them); read when the first handle is made.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -264,6 +312,24 @@ MLA_REQUESTS, MLA_LANES = 8, 4
 # vs CPU:
 # lanes, requests of 16-32 prompt tokens, new tokens a request.
 TWIN_LANES, TWIN_REQUESTS, TWIN_NEW = 2, 4, 6
+
+# The training path: smollm-360m at full width and depth, 20 steps of 8 x
+# 1024 packed tokens, a checkpoint at step 10 (resume and failure checks);
+# deepseek-v2-236b at full width cut to 2 layers (1 dense + 1 MoE), 4 expert
+# slots, 30 steps of 4 x 512 Zipf(1.3) tokens, a re-plan every 10 steps,
+# steps 21-29 under the profiler. The float32 twins' final parameters, card
+# vs CPU, within TWIN_PARAM_ATOL: the geometric middle between the sound
+# dense twin's largest reading on the H100 (7.23e-5 to 7.73e-5) and the
+# smallest of a card run with a known fault (TF32 matmuls 3.46e-3, bf16
+# compute 4.22e-3), which the script runs as controls. The sound runs'
+# largest differences sit on embedding elements whose gradient, times the
+# clip scale (0.03-0.1), is at most a few times AdamW's eps at the one step
+# that reaches them, where card and CPU sum it 25-100% apart (and in 364-380
+# of 570 M element-steps to opposite signs, each below 6.3e-8 in magnitude).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_LR = 20, 8, 1024, 10, 1e-3
+MOE_TRAIN_LAYERS, MOE_TRAIN_SLOTS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4, 4, 512
+MOE_TRAIN_STEPS, MOE_REPLAN, MOE_PROFILE_FROM, MOE_PROFILE_TO = 30, 10, 20, 29
+TWIN_PARAM_ATOL = 5e-4
 
 # The paths that serve a model (each launches kernel 9 and no other kernel).
 ATTENTION_PATHS = ("serve", "moe", "whisper", "vlm", "mla")
@@ -1746,22 +1812,29 @@ def wave_timer_phase(wt_ops, wt_ref, copy_split, launch_floor, ids_shape, dev) -
 
 
 def profile_run(label, fn, job=None) -> dict:
-    """One ``fn()`` under the profiler: its wall time, the device's busy time
-    (the union of kernel and copy intervals) and the top device operations."""
+    """One ``fn()`` under the profiler, tracing the device alone: its wall
+    time, the device's busy time (the union of kernel and copy intervals)
+    and the top device operations, read from the raw trace events (a
+    training step issues tens of thousands of kernels, whose parsed trace
+    takes longer to build than the steps take to run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = torch.autograd.DeviceType.CUDA
-    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages() if e.device_type == on_device),
-                 key=lambda r: -r[1])
+    raw = [(e.name(), e.start_ns(), e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type() == on_device]
+    by_name = {}
+    for name, _, ns in raw:
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ns / 1e6, count + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    spans = [(start, start + ns) for _, start, ns in raw]
     device_ms, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in prof.events() if e.device_type == on_device):
-        device_ms += max(0.0, hi - max(lo, end)) / 1e3
+    for lo, hi in sorted(spans):
+        device_ms += max(0.0, hi - max(lo, end)) / 1e6
         end = max(end, hi)
     if device_ms > 0:
         print(f"{label}: run {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
@@ -2782,6 +2855,665 @@ def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+
+def train_batches(cfg, seed: int, count: int, batch: int, seq: int, zipf_alpha: float = 1.2):
+    """``count`` batches of the synthetic corpus (Zipf tokens in lognormal
+    documents) packed into rows by the OS4M scheduler, as numpy."""
+    from repro_torch.data.synthetic import CorpusConfig, token_batches
+
+    it = token_batches(CorpusConfig(vocab=cfg.vocab, zipf_alpha=zipf_alpha), seed=seed,
+                       batch=batch, seq_len=seq)
+    return [next(it) for _ in range(count)]
+
+
+def packing_stats(cfg, seed: int, batch: int, seq: int) -> dict:
+    """PackingStats of the first batch's documents under os4m, lpt and hash."""
+    from repro_torch.data import packing
+    from repro_torch.data.synthetic import CorpusConfig, documents
+
+    corpus = CorpusConfig(vocab=cfg.vocab)
+    docs, total = [], 0
+    while total < 1.3 * batch * seq:
+        block = documents(corpus, seed, len(docs), 64)
+        docs.extend(block)
+        total += sum(d.shape[0] for d in block)
+    return {name: dataclasses.asdict(packing.pack_documents(docs, batch, seq,
+                                                            scheduler=name)[1])
+            for name in ("os4m", "lpt", "hash")}
+
+
+def run_steps(trainer, batches) -> list:
+    """One ``trainer.run`` a batch; the wall time of each (ms, synchronized:
+    the loop reads every metric back)."""
+    times = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run(iter([b]), 1)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def link_copy(src: Path, dst: Path) -> None:
+    """A checkpoint directory copied as hard links (it is never written in
+    place: a save writes a new directory)."""
+    shutil.copytree(src, dst, copy_function=os.link)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16).to(a.device))
+    return torch.equal(a, b.to(a.device))
+
+
+class NondeterminismLog:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` while
+    open; the names of the operations that warned they have no
+    deterministic CUDA implementation."""
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings(record=True)
+        self.records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self._fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = self._fill
+        self._catch.__exit__(*exc)
+        self.ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                           for w in self.records
+                           if "deterministic" in str(w.message)})
+        return False
+
+
+def dense_train_leg(args, dev, smi, tmp: Path) -> dict:
+    """smollm-360m at full width and depth: TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ packed tokens with a checkpoint at step
+    TRAIN_CKPT_EVERY (steps 1-10 timed, 11-20 under deterministic
+    algorithms); a fresh trainer resumed from that checkpoint repeats steps
+    11-20 (losses bit-equal under deterministic algorithms), the
+    checkpoint's bf16 tensors bit-equal to the live ones, and the failure
+    path (a step that raises once at step 15, restored from step 10 and
+    retried). The resumed trainer then runs 10 more steps (21-30, on the
+    batches of steps 11-20 again) under the profiler, without deterministic
+    algorithms, as the timed steps run: the idle share."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Shape
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optim import OptConfig
+
+    cfg = get_config("smollm-360m")
+    shape = Shape("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=5, decay_steps=TRAIN_STEPS)
+    tcfg = dict(ckpt_every=TRAIN_CKPT_EVERY, keep=1, log_every=1, seed=args.seed)
+    batches = train_batches(cfg, args.seed, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"config": "smollm-360m", "source": "hf:HuggingFaceTB/SmolLM", "reduced": {},
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+           "param_dtype": cfg.param_dtype, "moment_dtype": opt.moment_dtype,
+           "packing": packing_stats(cfg, args.seed, TRAIN_BATCH, TRAIN_SEQ)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    phase_s, last = {}, [t0]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+
+    ta = Trainer(cfg, shape, device=dev, opt_cfg=opt,
+                 tcfg=TrainerConfig(ckpt_dir=str(tmp / "a"), **tcfg))
+    rec["params"] = sum(p.numel() for p in ta.params.values())
+    rec["init_s"] = time.perf_counter() - t0
+    mark("init")
+    first = run_steps(ta, batches[:TRAIN_CKPT_EVERY])
+    mark("steps_1_10")
+    check(ckpt_latest(tmp / "a") == TRAIN_CKPT_EVERY, "train: a checkpoint at step 10")
+    name10 = f"step_{TRAIN_CKPT_EVERY:08d}"
+    link_copy(tmp / "a" / name10, tmp / "b" / name10)
+    link_copy(tmp / "a" / name10, tmp / "c" / name10)
+    at10 = {name: p.detach().clone() for name, p in ta.params.items()}
+    m10 = {name: m.clone() for name, m in ta.opt_state["m"].items()}
+    ta.tcfg.ckpt_every = 10 ** 9                  # no save at step 20
+    # Steps 11-20, the resumed run and the failure path under deterministic
+    # algorithms (steps 1-10, timed, and the profiled steps 21-30 without).
+    with NondeterminismLog() as nd:
+        ta.run(iter(batches[TRAIN_CKPT_EVERY:]), TRAIN_STEPS - TRAIN_CKPT_EVERY)
+        mark("steps_11_20")
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        hist_a = list(ta.history)
+        losses = [m["loss"] for _, m in hist_a]
+        check(all(np.isfinite(losses)), f"train: every loss finite ({losses})")
+        check(losses[-1] < losses[0], f"train: the loss of step {TRAIN_STEPS} "
+              f"({losses[-1]:.4f}) below step 1's ({losses[0]:.4f})")
+        del ta
+        torch.cuda.empty_cache()
+
+        # ---- Resume: a fresh trainer from the step-10 checkpoint.
+        tb = Trainer(cfg, shape, device=dev, opt_cfg=opt,
+                     tcfg=TrainerConfig(ckpt_dir=str(tmp / "b"), **{**tcfg, "ckpt_every": 10 ** 9}))
+        mark("resume_init")
+        check(tb.try_resume() and tb.step == TRAIN_CKPT_EVERY, "train: resumed at step 10")
+        mark("resume_load")
+        bf16 = [n for n, p in tb.params.items() if p.dtype == torch.bfloat16]
+        check(len(bf16) == len(tb.params) and all(bits_equal(tb.params[n], at10[n]) for n in bf16)
+              and all(bits_equal(tb.opt_state["m"][n], m10[n]) for n in m10),
+              "train: the checkpoint's bf16 weights and float32 moments came back bit-equal")
+        del at10, m10
+        tb.run(iter(batches[TRAIN_CKPT_EVERY:]), TRAIN_STEPS - TRAIN_CKPT_EVERY)
+        mark("resume_steps_11_20")
+        resumed = [m["loss"] for _, m in tb.history]
+
+        # ---- Failure path: a step that raises once (at step 15).
+        tc = Trainer(cfg, shape, device=dev, opt_cfg=opt,
+                     tcfg=TrainerConfig(ckpt_dir=str(tmp / "c"), **{**tcfg, "ckpt_every": 10 ** 9}))
+        check(tc.try_resume(), "train: the failure-path trainer resumed")
+        step_fn, calls = tc.step_fn, []
+
+        def flaky(*a):
+            calls.append(tc.step)
+            if len(calls) == 5:
+                raise RuntimeError("simulated device loss at step 15")
+            return step_fn(*a)
+
+        tc.step_fn = flaky
+        tc.run(iter(batches[TRAIN_CKPT_EVERY:TRAIN_CKPT_EVERY + 6]), 6)
+        mark("failure_path")
+        hist_c = list(tc.history)
+        del tc
+        torch.cuda.empty_cache()
+    prof = profile_run("train dense: steps 21-30",
+                       lambda: tb.run(iter(batches[TRAIN_CKPT_EVERY:]),
+                                      TRAIN_STEPS - TRAIN_CKPT_EVERY))
+    mark("steps_21_30_profiled")
+    del tb
+    torch.cuda.empty_cache()
+    rec["nondeterministic_ops"] = nd.ops
+    want = losses[TRAIN_CKPT_EVERY:]
+    rec["resume_bit_equal"] = resumed == want
+    rec["resume_max_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+
+    def repeats(got, ref, what):
+        # Bit-equal under deterministic algorithms; within 1e-3 relative if an
+        # op has no deterministic CUDA path (named).
+        if nd.ops:
+            check(max(abs(a - b) / abs(b) for a, b in zip(got, ref)) < 1e-3,
+                  f"train: {what} within 1e-3 relative of the first run's (ops without a "
+                  f"deterministic CUDA path: {nd.ops})")
+        else:
+            check(got == ref, f"train: {what} bit-equal to the first run's ({got} vs {ref})")
+
+    repeats(resumed, want, "resumed losses of steps 11-20")
+    steps_c = [s for s, _ in hist_c]
+    check(steps_c == [11, 12, 13, 14, 11, 12] and calls == [10, 11, 12, 13, 14, 10, 11],
+          f"train: the failure path retried step 15 from step 10 ({steps_c}, {calls})")
+    repeats([m["loss"] for _, m in hist_c[:4]], want[:4],
+            "the failure-path trainer's losses of steps 11-14")
+    check(hist_c[4][1]["lr"] == hist_a[TRAIN_CKPT_EVERY][1]["lr"]
+          and np.isfinite(hist_c[4][1]["loss"]),
+          "train: the retried step runs with step 11's learning rate (optimizer state rewound)")
+    step_ms = first[1:TRAIN_CKPT_EVERY - 1]
+    rec.update({
+        "losses": losses, "resumed_losses": resumed,
+        "grad_norms": [m["grad_norm"] for _, m in hist_a], "lrs": [m["lr"] for _, m in hist_a],
+        "failure_steps": steps_c, "failure_losses": [m["loss"] for _, m in hist_c],
+        "step_ms_first_10": first, "step_ms_median": float(np.median(step_ms)),
+        "tokens_per_s": tokens / (np.median(step_ms) / 1e3),
+        "profile_10_steps": {k: prof[k] for k in ("wall_ms", "device_ms", "top")},
+        "idle_share": 1 - prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] else None,
+        "profiled_step_ms": prof["wall_ms"] / (TRAIN_STEPS - TRAIN_CKPT_EVERY),
+        "phase_s": phase_s, "wall_s": time.perf_counter() - t0})
+    print(f"train dense ({smi}): smollm-360m {rec['params'] / 1e6:.1f} M params, bf16 weights, "
+          f"f32 moments, remat, {TRAIN_BATCH} x {TRAIN_SEQ} os4m-packed tokens (packing "
+          f"efficiency os4m {rec['packing']['os4m']['real_tokens'] / tokens:.4f}, hash "
+          f"{rec['packing']['hash']['real_tokens'] / tokens:.4f}) | loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} | step {rec['step_ms_median']:.1f} ms median (steps 2-9), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, {rec['profiled_step_ms']:.1f} ms a step "
+          f"under the profiler (steps 21-30) | peak {rec['peak_gb']:.2f} GB | idle "
+          f"{rec['idle_share'] if rec['idle_share'] is None else round(rec['idle_share'], 4)}",
+          flush=True)
+    print(f"train dense: resume from step 10 -> losses of steps 11-20 "
+          f"{'bit-equal' if rec['resume_bit_equal'] else 'max rel diff %.3g' % rec['resume_max_rel_diff']}"
+          f" (deterministic algorithms; ops without a deterministic path: {nd.ops or 'none'}); "
+          f"bf16 round trip bit-equal; failure at step 15 -> steps {steps_c} | phases (s) "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} }", flush=True)
+    return rec
+
+
+def ckpt_latest(path: Path):
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    return ckpt_lib.latest_step(path)
+
+
+def train_launcher_run(tmp: Path, timeout: int = 600) -> dict:
+    """``python -m repro_torch.launch.train --arch smollm-360m --full --steps
+    20 --batch 8 --seq 1024`` as a subprocess on the card, then ``--resume``
+    for 2 more steps."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-360m",
+            "--full", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir",
+            str(tmp / "cli")]
+    out = {}
+    for name, extra in (("train", ["--steps", str(TRAIN_STEPS)]),
+                        ("resume", ["--steps", "2", "--resume"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, capture_output=True, text=True, timeout=timeout,
+                              env=env, cwd=ROOT)
+        lines = proc.stdout.strip().splitlines()
+        out[name] = {"wall_s": time.perf_counter() - t0, "lines": lines}
+        check(proc.returncode == 0,
+              f"train launcher ({name}) exits 0 (rc {proc.returncode}: {proc.stderr[-2000:]})")
+        out[name]["latest_checkpoint"] = ckpt_latest(tmp / "cli")
+    lines = out["train"]["lines"]
+    pattern = re.compile(r"^step +(\d+)  loss (\d+\.\d{4})  gnorm (\d+\.\d{3})  lr (\S+)$")
+    steps = [int(m.group(1)) for m in map(pattern.match, lines[:-1]) if m]
+    check(steps == [10, 20] and len(lines) == 3
+          and lines[-1] == f"done at step {TRAIN_STEPS}; checkpoints in {tmp / 'cli'}",
+          f"train launcher: the reference's log lines ({lines})")
+    check(out["train"]["latest_checkpoint"] == TRAIN_STEPS, "train launcher: a final checkpoint")
+    check(out["resume"]["lines"][0] == f"resumed from step {TRAIN_STEPS}"
+          and out["resume"]["lines"][-1].startswith(f"done at step {TRAIN_STEPS + 2}"),
+          f"train launcher --resume: {out['resume']['lines']}")
+    print(f"train launcher (python -m repro_torch.launch.train --arch smollm-360m --full "
+          f"--steps {TRAIN_STEPS} --batch {TRAIN_BATCH} --seq {TRAIN_SEQ}, "
+          f"{out['train']['wall_s']:.1f} s): {' | '.join(lines)} || --resume "
+          f"({out['resume']['wall_s']:.1f} s): {' | '.join(out['resume']['lines'])}",
+          flush=True)
+    return out
+
+
+def moe_loss(model, cfg, tokens, capacity):
+    """The train step's loss (``launch.steps``): lm_loss + aux_loss."""
+    from repro_torch.models.model import forward, lm_loss
+
+    out = forward(model, cfg, tokens=tokens, mode="train", moe_capacity=capacity)
+    return lm_loss(out.logits[:, :-1], tokens[:, 1:]) + out.stats["aux_loss"]
+
+
+def grads_stable(model, cfg, tokens, capacity, deterministic: bool) -> list:
+    """Two backward passes at the same weights and batch: the names of the
+    parameters whose gradients differ in any bit."""
+    names, params = zip(*model.named_parameters())
+    runs = []
+    for _ in range(2):
+        if deterministic:
+            with NondeterminismLog():
+                grads = torch.autograd.grad(moe_loss(model, cfg, tokens, capacity), params)
+        else:
+            grads = torch.autograd.grad(moe_loss(model, cfg, tokens, capacity), params)
+        runs.append(grads)
+    differ = [n for n, a, b in zip(names, *runs) if not bits_equal(a, b)]
+    del runs
+    torch.cuda.empty_cache()
+    return differ
+
+
+def moe_train_leg(args, dev, smi) -> dict:
+    """deepseek-v2-236b at full width, depth cut to MOE_TRAIN_LAYERS (1 dense
+    + 1 MoE), experts over MOE_TRAIN_SLOTS slots, bf16 weights and moments:
+    MOE_TRAIN_STEPS steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ Zipf(1.3) packed
+    tokens with the balancer re-planning every MOE_REPLAN steps; at each
+    re-plan a probe batch without grad at a capacity that keeps every token
+    gives logits bit-equal before and after the weight move."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Shape
+    from repro_torch.models.model import default_placements, forward, init_model, \
+        moe_capacity_for_shape
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optim import OptConfig
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    moe = cfg.moe
+    shape = Shape("chip", "train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev, ep_slots=MOE_TRAIN_SLOTS)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = train_batches(cfg, args.seed, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                            zipf_alpha=1.3)
+    capacity = moe_capacity_for_shape(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_SLOTS)
+    rec = {"config": "deepseek-v2-236b", "source": "hf:deepseek-ai/DeepSeek-V2",
+           "reduced": {"n_layers": [full.n_layers, MOE_TRAIN_LAYERS]}, "params": n_params,
+           "ep_slots": MOE_TRAIN_SLOTS, "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+           "capacity": capacity, "capacity_factor": moe.capacity_factor,
+           "moment_dtype": "bfloat16", "init_s": time.perf_counter() - t0}
+
+    # ---- Are the card's gradients bit-stable run to run?
+    model.requires_grad_(True)
+    probe_tok = torch.as_tensor(batches[0], device=dev)
+    rec["grad_bits_differ"] = grads_stable(model, cfg, probe_tok, capacity, False)
+    rec["grad_bits_differ_deterministic"] = grads_stable(model, cfg, probe_tok, capacity, True)
+    print(f"train moe: gradients over two runs at the same weights: "
+          f"{len(rec['grad_bits_differ'])} of {len(list(model.parameters()))} parameters differ "
+          f"in some bit {rec['grad_bits_differ'] or ''}; under deterministic algorithms "
+          f"{len(rec['grad_bits_differ_deterministic'])} "
+          f"{rec['grad_bits_differ_deterministic'] or ''}", flush=True)
+
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=5, decay_steps=MOE_TRAIN_STEPS,
+                    moment_dtype="bfloat16")
+    trainer = Trainer(cfg, shape, model=model, opt_cfg=opt,
+                      tcfg=TrainerConfig(ckpt_every=10 ** 9, replan_interval=MOE_REPLAN,
+                                         log_every=1, seed=args.seed))
+    rng = np.random.default_rng(args.seed + 7)
+    probe = torch.as_tensor((rng.zipf(1.3, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)) % cfg.vocab)
+                            .astype(np.int64), device=dev)
+    per_slot = moe.num_experts // MOE_TRAIN_SLOTS
+    dropless = MOE_TRAIN_BATCH * (MOE_TRAIN_SEQ // MOE_TRAIN_SLOTS) * moe.top_k
+
+    def probe_logits(placements):
+        for layer in model.layers:
+            layer.moe.args = dataclasses.replace(layer.moe.args,
+                                                 capacity_factor=per_slot / moe.top_k)
+        with torch.inference_mode():
+            out = forward(model, cfg, tokens=probe, mode="train", placements=placements,
+                          moe_capacity=dropless)
+        for layer in model.layers:
+            layer.moe.args = dataclasses.replace(layer.moe.args,
+                                                 capacity_factor=moe.capacity_factor)
+        check(int(out.stats["overflow"]) == 0, "train moe: the probe keeps every token")
+        return out.logits
+
+    replans = []
+    apply, plan = trainer._apply_placements, trainer.balancer.replan
+
+    def timed_plan():
+        t = time.perf_counter()
+        res = plan()
+        replans.append({"replan_ms": (time.perf_counter() - t) * 1e3,
+                        "counts": trainer.balancer.counts.copy()})
+        return res
+
+    def checked_apply(placements, perms):
+        before_place = trainer.placements.clone()
+        before = probe_logits(before_place)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        apply(placements, perms)
+        torch.cuda.synchronize()
+        move_ms = (time.perf_counter() - t) * 1e3
+        after = probe_logits(trainer.placements)
+        counts = replans[-1]["counts"]
+        replans[-1].update({
+            "step": trainer.step, "move_ms": move_ms,
+            "moved": [int((np.asarray(p) != np.arange(moe.num_experts)).sum()) for p in perms],
+            "bit_equal": bool(torch.isfinite(before).all()) and torch.equal(after, before),
+            "slot_loads_before": slot_loads(counts, before_place.cpu().numpy(),
+                                            MOE_TRAIN_SLOTS).tolist(),
+            "slot_loads_after": slot_loads(counts, np.asarray(placements),
+                                           MOE_TRAIN_SLOTS).tolist()})
+        check(replans[-1]["bit_equal"], f"train moe: probe logits bit-equal across the weight "
+              f"move at step {trainer.step}")
+
+    trainer.balancer.replan = timed_plan
+    trainer._apply_placements = checked_apply
+    mark = time.perf_counter()
+    step_ms = dict(enumerate(run_steps(trainer, batches[:MOE_PROFILE_FROM]), 1))
+    rec["steps_1_20_s"] = time.perf_counter() - mark
+    mark = time.perf_counter()
+    prof = profile_run(f"train moe: steps {MOE_PROFILE_FROM + 1}-{MOE_PROFILE_TO}",
+                       lambda: trainer.run(iter(batches[MOE_PROFILE_FROM:MOE_PROFILE_TO]),
+                                           MOE_PROFILE_TO - MOE_PROFILE_FROM))
+    rec["profiled_s"] = time.perf_counter() - mark
+    step_ms.update(enumerate(run_steps(trainer, batches[MOE_PROFILE_TO:]), MOE_PROFILE_TO + 1))
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    hist = list(trainer.history)
+    losses = [m["loss"] for _, m in hist]
+    check(all(np.isfinite(losses)), f"train moe: every loss finite ({losses})")
+    check(len(replans) == MOE_TRAIN_STEPS // MOE_REPLAN
+          and all("bit_equal" in r for r in replans),
+          f"train moe: {MOE_TRAIN_STEPS // MOE_REPLAN} re-plans applied and probed")
+    plain = [t for i, t in step_ms.items() if i > 1 and i % MOE_REPLAN]   # no re-plan
+    for r in replans:
+        m = dict(hist)[r["step"]]
+        r["balance_ratio"], r["baseline_ratio"] = m["balance_ratio"], m["baseline_ratio"]
+        print(f"train moe re-plan at step {r['step']}: balance ratio {r['balance_ratio']:.4f} "
+              f"(baseline {r['baseline_ratio']:.4f}) | slot loads "
+              f"{np.round(r['slot_loads_before'][0]).astype(int).tolist()} -> "
+              f"{np.round(r['slot_loads_after'][0]).astype(int).tolist()} | {r['moved']} experts "
+              f"moved | re-plan {r['replan_ms']:.2f} ms, weight move {r['move_ms']:.1f} ms | "
+              f"probe logits bit-equal", flush=True)
+    rec.update({
+        "losses": losses, "grad_norms": [m["grad_norm"] for _, m in hist],
+        "overflow": [m["overflow"] for _, m in hist], "replans": replans,
+        "step_ms": step_ms, "step_ms_median": float(np.median(plain)),
+        "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (np.median(plain) / 1e3),
+        "profile": {k: prof[k] for k in ("wall_ms", "device_ms", "top")},
+        "idle_share": 1 - prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] else None,
+        "wall_s": time.perf_counter() - t0})
+    for r in replans:
+        del r["counts"]
+    print(f"train moe ({smi}): deepseek-v2-236b {MOE_TRAIN_LAYERS} of {full.n_layers} layers, "
+          f"{n_params / 1e9:.2f} G params over {MOE_TRAIN_SLOTS} expert slots, bf16 moments | "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, overflow {int(sum(rec['overflow']))} "
+          f"assignments over {MOE_TRAIN_STEPS} steps (capacity factor {moe.capacity_factor}) | "
+          f"step {rec['step_ms_median']:.1f} ms median, {rec['tokens_per_s']:.0f} tokens/s | peak "
+          f"{rec['peak_gb']:.2f} GB | idle "
+          f"{rec['idle_share'] if rec['idle_share'] is None else round(rec['idle_share'], 4)}",
+          flush=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def router_margin(model, cfg, tokens) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probability over the MoE layers, at ``model``'s weights."""
+    from repro_torch.models.model import forward
+
+    seen = []
+    hooks = [layer.moe.register_forward_pre_hook(lambda mod, a: seen.append((mod, a[0])))
+             for layer in model.layers]
+    with torch.no_grad():
+        forward(model, cfg, tokens=tokens, mode="train")
+    for h in hooks:
+        h.remove()
+    k = cfg.moe.top_k
+    margins = []
+    for mod, x in seen:
+        probs = torch.softmax(x.float().reshape(-1, x.shape[-1]) @ mod.router.float(), -1)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        margins.append(float((top[:, k - 1] - top[:, k]).min()))
+    return min(margins)
+
+
+def grad_log(tr) -> dict:
+    """Every step's gradient of each of ``tr``'s parameters (float32 copies
+    on the parameter's device), from a hook on the parameter."""
+    log = {name: [] for name in tr.params}
+    for name, p in tr.params.items():
+        p.register_hook(lambda g, _log=log[name]: _log.append(g.detach().float().clone()))
+    return log
+
+
+def twin_diagnosis(tg, tc, grads, k: int = 5) -> dict:
+    """Where the card's final parameters differ most from the CPU's: the
+    ``k`` worst elements with each step's gradient on both sides and the
+    parameter's gradient RMS, and over every element and step, how many
+    gradients differ in sign between card and CPU and the largest magnitude
+    among them."""
+    worst = []
+    for name, p in tc.params.items():
+        d = (tg.params[name].detach().cpu() - p.detach()).abs().flatten()
+        top = torch.topk(d, min(k, d.numel()))
+        worst += [(float(v), name, int(i)) for v, i in zip(top.values, top.indices)]
+    rows = []
+    for err, name, i in sorted(worst, reverse=True)[:k]:
+        card = [float(g.flatten()[i]) for g in grads["cuda"][name]]
+        cpu = [float(g.flatten()[i]) for g in grads["cpu"][name]]
+        rows.append({"param": name, "index": i, "abs_err": err, "grad_card": card,
+                     "grad_cpu": cpu, "sign_differs": [bool(np.sign(a) != np.sign(b))
+                                                       for a, b in zip(card, cpu)],
+                     "param_grad_rms": [float(g.square().mean().sqrt())
+                                        for g in grads["cpu"][name]]})
+    flips, flip_max, grad_sq, pairs = 0, 0.0, 0.0, 0
+    for name, steps in grads["cpu"].items():
+        for a, b in zip(grads["cuda"][name], steps):
+            b = b.to(a.device)
+            differ = torch.sign(a) != torch.sign(b)
+            flips += int(differ.sum())
+            if differ.any():
+                flip_max = max(flip_max, float(torch.maximum(a.abs(), b.abs())[differ].max()))
+            grad_sq += float(b.square().sum())
+            pairs += b.numel()
+    return {"worst": rows, "sign_flips": flips, "sign_flip_max_abs_grad": flip_max,
+            "grad_rms": (grad_sq / pairs) ** 0.5, "element_steps": pairs}
+
+
+def twin_train(label, cfg, batches, opt, tcfg_kw, ep_slots, dev, seed, controls=()) -> dict:
+    """A float32 twin trained on the card and on the CPU from the same
+    weights (drawn on the CPU) and batches: losses and grad norms within
+    1e-4 relative, final parameters within TWIN_PARAM_ATOL, placements equal
+    at each re-plan (a differing one is reported with the router's top-k
+    margin). Each step's gradients are logged on both sides for
+    :func:`twin_diagnosis`. ``controls`` names card runs with a known fault
+    ("tf32": TF32 matmuls; "bf16": bf16 compute over the float32 weights),
+    each of whose final parameters must differ from the CPU's by more than
+    TWIN_PARAM_ATOL (the check can see a fault of that size)."""
+    import copy
+
+    from repro_torch.models.config import Shape
+    from repro_torch.models.model import init_model
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest", f"{label}: TF32 off")
+    shape = Shape("twin", "train", batches[0].shape[1], batches[0].shape[0])
+    cpu_model = init_model(cfg, seed=seed, device="cpu", ep_slots=ep_slots)
+    start = copy.deepcopy(cpu_model) if controls else None
+    out, placements, grads = {}, {}, {}
+    for where, mdl in (("cuda", copy.deepcopy(cpu_model).to(dev)), ("cpu", cpu_model)):
+        t = time.perf_counter()
+        tr = Trainer(cfg, shape, model=mdl, opt_cfg=opt, tcfg=TrainerConfig(**tcfg_kw))
+        grads[where] = grad_log(tr)
+        applied = []
+        if tr.balancer is not None:
+            apply = tr._apply_placements
+
+            def record(p, perms, _apply=apply, _applied=applied, _tr=tr):
+                _apply(p, perms)
+                _applied.append(_tr.placements.cpu().numpy().copy())
+
+            tr._apply_placements = record
+        tr.run(iter(batches), len(batches))
+        out[where] = (tr, time.perf_counter() - t)
+        placements[where] = applied
+    (tg, sg), (tc, sc) = out["cuda"], out["cpu"]
+    rel = lambda key: max(abs(a[1][key] - b[1][key]) / max(abs(b[1][key]), 1e-30)  # noqa: E731
+                          for a, b in zip(tg.history, tc.history))
+
+    def param_err(tr) -> float:
+        return max(float((tr.params[n].detach().cpu() - p.detach()).abs().max())
+                   for n, p in tc.params.items())
+
+    err = param_err(tg)
+    norms = [float(sum(g[i].double().square().sum() for g in grads["cpu"].values())) ** 0.5
+             for i in range(len(batches))]
+    check(max(abs(n - m["grad_norm"]) / m["grad_norm"] for n, (_, m) in zip(norms, tc.history))
+          < 1e-5, f"{label}: the logged gradients are the step's (their norm is its grad norm)")
+    rec = {"steps": len(batches), "loss_max_rel": rel("loss"), "grad_norm_max_rel": rel("grad_norm"),
+           "param_max_abs_err": err, "seconds": {"cuda": sg, "cpu": sc},
+           "losses": [m["loss"] for _, m in tg.history],
+           "grad_norms": [m["grad_norm"] for _, m in tc.history],
+           "diagnosis": twin_diagnosis(tg, tc, grads)}
+    del grads
+    rec["controls"] = {}
+    for kind in controls:
+        prec = torch.get_float32_matmul_precision()
+        if kind == "tf32":
+            torch.set_float32_matmul_precision("high")
+        try:
+            fault = Trainer(cfg if kind == "tf32" else
+                            dataclasses.replace(cfg, compute_dtype="bfloat16"), shape,
+                            model=copy.deepcopy(start).to(dev), opt_cfg=opt,
+                            tcfg=TrainerConfig(**tcfg_kw))
+            fault.run(iter(batches), len(batches))
+        finally:
+            torch.set_float32_matmul_precision(prec)
+        rec["controls"][kind] = {"param_max_abs_err": param_err(fault),
+                                 "loss_max_rel": max(abs(a[1]["loss"] - b[1]["loss"]) / abs(b[1]["loss"])
+                                                     for a, b in zip(fault.history, tc.history))}
+        del fault
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(placements["cuda"], placements["cpu"])]
+    rec["replans"], rec["placements_equal"] = len(equal), equal
+    if not all(equal):
+        rec["router_margin"] = router_margin(tc.model, cfg, torch.as_tensor(batches[-1]))
+        check(rec["router_margin"] <= 1e-4, f"{label}: placements differ with a router top-k "
+              f"margin of {rec['router_margin']:.3g} (above 1e-4)")
+    diag = rec["diagnosis"]
+    print(f"{label} f32 twin ({cfg.n_layers} layers, {len(batches)} steps of "
+          f"{batches[0].shape[0]} x {batches[0].shape[1]}): card vs CPU loss max rel "
+          f"{rec['loss_max_rel']:.2e}, grad norm max rel {rec['grad_norm_max_rel']:.2e}, final "
+          f"params max abs {err:.2e}"
+          + (f", placements equal at {len(equal)} re-plans" if equal else "")
+          + f" (card {sg:.1f} s, CPU {sc:.1f} s) | gradients differing in sign "
+          f"{diag['sign_flips']} of {diag['element_steps']} (largest |g| among them "
+          f"{diag['sign_flip_max_abs_grad']:.3g}; gradient RMS {diag['grad_rms']:.3g})"
+          + "".join(f" | control {k}: params max abs {c['param_max_abs_err']:.2e}, loss max rel "
+                    f"{c['loss_max_rel']:.2e}" for k, c in rec["controls"].items()), flush=True)
+    for r in diag["worst"]:
+        print(f"  {r['param']}[{r['index']}]: |card - CPU| {r['abs_err']:.3g}; gradient card "
+              f"{np.array2string(np.array(r['grad_card']), precision=3)} CPU "
+              f"{np.array2string(np.array(r['grad_cpu']), precision=3)}; parameter RMS "
+              f"{np.array2string(np.array(r['param_grad_rms']), precision=3)}", flush=True)
+    check(rec["loss_max_rel"] <= 1e-4 and rec["grad_norm_max_rel"] <= 1e-4,
+          f"{label}: card vs CPU losses and grad norms within 1e-4 relative ({rec})")
+    check(err <= TWIN_PARAM_ATOL, f"{label}: final parameters within {TWIN_PARAM_ATOL} ({err:.3g})")
+    for kind, c in rec["controls"].items():
+        check(c["param_max_abs_err"] > TWIN_PARAM_ATOL,
+              f"{label}: the {kind} control's parameters differ by more than {TWIN_PARAM_ATOL}")
+    return rec
+
+
+def train_path(counters, args, dev, smi) -> tuple:
+    """The training path: the dense leg (smollm-360m, full width and depth),
+    the launcher (``--full`` and ``--resume``), the MoE leg (deepseek-v2-236b
+    at full width with the balancer in the loop) and the float32 twins, card
+    against CPU. No kernel of the nine runs on it (kernel 9 has no backward;
+    training attends with "blocked"). Returns ``(record, launches)``."""
+    import tempfile
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.train.optim import OptConfig
+
+    reset_launches(counters)
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        rec["dense"] = dense_train_leg(args, dev, smi, Path(tmp))
+        torch.cuda.empty_cache()
+        rec["launcher"] = train_launcher_run(Path(tmp))
+    rec["moe"] = moe_train_leg(args, dev, smi)
+    twin = dataclasses.replace(get_config("smollm-360m"), n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=5)
+    rec["dense_twin"] = twin_train(
+        "train dense", twin, train_batches(twin, args.seed, 5, 2, 128), opt,
+        dict(ckpt_every=10 ** 9), 1, dev, args.seed, controls=("tf32", "bf16"))
+    ds = get_smoke("deepseek-v2-236b")
+    rec["moe_twin"] = twin_train(
+        "train moe", ds, train_batches(ds, args.seed, 10, 4, 32, zipf_alpha=1.3),
+        OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=10),
+        dict(ckpt_every=10 ** 9, replan_interval=5), MOE_TRAIN_SLOTS, dev, args.seed)
+    check(rec["moe_twin"]["replans"] == 2, "train moe twin: two re-plans on each side")
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    check(all(v == 0 for v in launches.values()),
+          f"the training path launched none of the nine kernels ({launches})")
+    return rec, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3300,6 +4032,8 @@ def main(argv=None) -> int:
     record["whisper_path"], launches["whisper"] = whisper_path(counters, fa_ops, args, dev, smi)
     record["vlm_path"], launches["vlm"] = vlm_path(counters, fa_ops, args, dev, smi)
     record["mla_path"], launches["mla"] = mla_path(counters, fa_ops, args, dev, smi)
+    # ---- The training path: smollm-360m and deepseek-v2-236b at full width.
+    record["train_path"], launches["train"] = train_path(counters, args, dev, smi)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).

@@ -24,6 +24,12 @@ axis 1. The reference's mesh model axis, over which MoE layers shard their
 experts, is ``ep_slots`` expert slots stacked on the one device
 (:mod:`repro_torch.nn.moe`).
 
+Training: ``forward(mode="train")`` runs under autograd once the
+model's weights require a gradient (``model.requires_grad_(True)``);
+with ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
+scan body), and :func:`lm_loss` is the reference's token cross-entropy.
+
 The state-based families (SSM, xLSTM) raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -35,6 +41,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import default_device
 from repro_torch.models.config import ModelConfig
@@ -42,7 +49,7 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
 from repro_torch.nn.attention import MLA, Attention
 
-__all__ = ["DecoderModel", "ForwardOut", "init_model", "forward", "init_cache",
+__all__ = ["DecoderModel", "ForwardOut", "init_model", "forward", "lm_loss", "init_cache",
            "check_supported", "dtype_of", "default_placements", "moe_capacity_for_shape"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -357,19 +364,35 @@ def _stack_cache(part: Optional[dict], mode: str) -> Optional[dict]:
     return {"self": kv}
 
 
+def _remat(layer, cfg: ModelConfig, cache) -> bool:
+    """Whether to recompute ``layer`` in the backward: ``cfg.remat``, a
+    gradient being recorded for its weights, and no cache written."""
+    return (cfg.remat and cache is None and torch.is_grad_enabled()
+            and next(layer.parameters()).requires_grad)
+
+
 def _run_stack(layers, part, x, cfg, positions, cache_pos, placements=None,
                moe_capacity=None, enc_kv=None, causal_self=True):
     """Run a layer stack over ``x``; the MoE layers' stats, one a layer.
-    ``enc_kv``: the stacked cross ``(k, v)``, each (layers, B, S, n_kv, hd)."""
+    ``enc_kv``: the stacked cross ``(k, v)``, each (layers, B, S, n_kv, hd).
+
+    Under remat a layer's recomputation in the backward re-runs its routing
+    too, but the stats kept are the first forward's outputs: nothing is
+    counted twice."""
     stats = []
     for i, layer in enumerate(layers):
         lcache = None if part is None else {
             "self": {name: a[i] for name, a in part["self"].items()}}
-        x, _, st = layer(x, cfg, positions=positions, cache=lcache, cache_pos=cache_pos,
-                         enc_kv=None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i]),
-                         causal_self=causal_self,
-                         placement=None if placements is None else placements[i],
-                         moe_capacity=moe_capacity)
+        kw = dict(positions=positions, cache=lcache, cache_pos=cache_pos,
+                  enc_kv=None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i]),
+                  causal_self=causal_self,
+                  placement=None if placements is None else placements[i],
+                  moe_capacity=moe_capacity)
+        if _remat(layer, cfg, lcache):
+            x, _, st = checkpoint(layer, x, cfg, use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
+        else:
+            x, _, st = layer(x, cfg, **kw)
         stats.append(st)
     return x, stats
 
@@ -444,6 +467,24 @@ def _forward_whisper(model, cfg, tokens, frames, mode, cache, cache_pos) -> Forw
     logits = _lm_head(model, cfg, x)
     new_cache = None if cache is None else {"dec": part, "cross": enc_kv}
     return ForwardOut(logits=logits, cache=new_cache, stats=None)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Token cross-entropy in float32: the mean over ``mask`` (default all)
+    of ``logsumexp(logits) - logits[label]``. ``labels``: (B, T) ints."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = torch.as_tensor(mask, device=nll.device).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

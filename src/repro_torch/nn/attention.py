@@ -5,11 +5,15 @@ prefill and per-lane decode against a KV cache.
 Three execution paths for train/prefill, selected by ``impl`` as in the
 reference (``repro.nn.attention``), so that configurations carry across:
 
-* ``blocked`` — online softmax over kv blocks in plain tensor ops (the
-  reference's ``_blocked_fwd_impl``; forward only here);
+* ``blocked`` — online softmax over kv blocks in plain tensor ops, with
+  the reference's flash-style backward (``_BlockedAttention``: the
+  forward saves q, k, v, the output and the float32 logsumexp, and the
+  backward recomputes each kv block's probabilities); training runs it;
 * ``pallas``  — the hand-written kernel (``kernels/flash_attention``): on
   CUDA tensors it launches ``csrc/flash_attention.cu``, on CPU tensors it
-  runs the kernel's plain version;
+  runs the kernel's plain version. Forward only: the kernel has no
+  backward (the reference's has no VJP either), so a call whose inputs
+  need a gradient raises;
 * ``naive``   — materialised scores (the reference's oracle).
 
 Decode (q_len = 1) always takes the einsum path (``decode_attention``);
@@ -84,7 +88,64 @@ def _blocked_fwd_impl(q, k, v, q_pos, causal: bool, block_k: int, scale: float):
             "bhgts,bhsd->bhgtd", p.to(v.dtype).float(), vblk.float())
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-    return out.reshape(b, hq, t, d)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))          # (b, hkv, g, t) f32
+    return out.reshape(b, hq, t, d), lse
+
+
+def _blocked_bwd_impl(q, k, v, q_pos, out, lse, dout, causal: bool, block_k: int,
+                      scale: float):
+    """The reference's ``_blocked_attention_bwd``: per kv block, the
+    probabilities recomputed from ``lse``, ``delta = rowsum(dout * out)``;
+    dq, dk and dv accumulate in float32 over the blocks and the GQA group."""
+    b, hq, t, d = q.shape
+    _, hkv, s, _ = k.shape
+    g = hq // hkv
+    pad = (-s) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    nk = (s + pad) // block_k
+    qg = q.reshape(b, hkv, g, t, d).float()
+    dog = dout.reshape(b, hkv, g, t, d)
+    delta = torch.sum(dog.float() * out.reshape(b, hkv, g, t, d).float(), dim=-1)
+    dq = torch.zeros((b, hkv, g, t, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, hkv, s + pad, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for i in range(nk):
+        k0 = i * block_k
+        kblk = k[:, :, k0:k0 + block_k].float()
+        vblk = v[:, :, k0:k0 + block_k].float()
+        sc = torch.einsum("bhgtd,bhsd->bhgts", qg, kblk) * scale
+        mask = _block_mask(k0, block_k, s, q_pos, causal)
+        p = torch.where(mask, torch.exp(sc - lse[..., None]), 0.0)
+        dv[:, :, k0:k0 + block_k] = torch.einsum(
+            "bhgts,bhgtd->bhsd", p.to(dout.dtype).float(), dog.float())
+        dp = torch.einsum("bhgtd,bhsd->bhgts", dog.float(), vblk)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhgts,bhsd->bhgtd", ds.to(k.dtype).float(), kblk)
+        dk[:, :, k0:k0 + block_k] = torch.einsum(
+            "bhgts,bhgtd->bhsd", ds.to(q.dtype).float(), qg)
+    return (dq.reshape(b, hq, t, d).to(q.dtype), dk[:, :, :s].to(k.dtype),
+            dv[:, :, :s].to(v.dtype))
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """Blocked attention with the flash-style backward: only q, k, v, the
+    output and the logsumexp are saved, never a block's probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, causal, block_k, scale):
+        out, lse = _blocked_fwd_impl(q, k, v, q_pos, causal, block_k, scale)
+        ctx.save_for_backward(q, k, v, q_pos, out, lse)
+        ctx.causal, ctx.block_k, ctx.scale = causal, block_k, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _blocked_bwd_impl(q, k, v, q_pos, out, lse, dout, ctx.causal,
+                                       ctx.block_k, ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def blocked_attention(q, k, v, *, causal: bool, block_k: int = 1024,
@@ -92,8 +153,8 @@ def blocked_attention(q, k, v, *, causal: bool, block_k: int = 1024,
     """(B,Hq,T,D) x (B,Hkv,S,D)^2 -> (B,Hq,T,D): online softmax over kv blocks.
 
     ``q_pos`` gives the absolute kv-axis position of each query row
-    (default: suffix alignment). Forward only: the reference's flash-style
-    backward is part of training (ROADMAP item 12).
+    (default: suffix alignment). Differentiable in q, k and v through the
+    reference's flash-style backward.
     """
     d = q.shape[-1]
     t, s = q.shape[2], k.shape[2]
@@ -101,7 +162,7 @@ def blocked_attention(q, k, v, *, causal: bool, block_k: int = 1024,
     block_k = min(block_k, s)
     if q_pos is None:
         q_pos = (s - t) + torch.arange(t, device=q.device)
-    return _blocked_fwd_impl(q, k, v, q_pos, causal, block_k, scale)
+    return _BlockedAttention.apply(q, k, v, q_pos, causal, block_k, scale)
 
 
 def _run_attention(q, k, v, *, causal: bool, impl: str, block_q: int,
@@ -109,6 +170,12 @@ def _run_attention(q, k, v, *, causal: bool, impl: str, block_q: int,
     if q.shape[2] == 1:   # decode: one pass over the cache
         return fa_ops.decode_attention(q, k, v, k.shape[2])
     if impl == "pallas":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "attn_impl='pallas' cannot train: the flash-attention kernel (kernel 9) "
+                "is forward only, with no backward kernel (the reference's Pallas kernel "
+                "has no VJP either); train with attn_impl='blocked'")
         return fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                       causal=causal, block_q=block_q, block_k=block_k)
     if impl == "blocked":

@@ -5,8 +5,10 @@ functions over value trees). The weights keep the reference's layouts: a
 linear weight is ``(d_in, d_out)`` and applies as ``x @ w``, an embedding
 is ``(vocab, d)``. Weights are made empty here and filled by
 ``models.model.init_model`` (random, from a ``torch.Generator``) or by
-``models.convert.params_from_reference`` (the reference's values), and
-they carry no gradient: training is not ported yet (ROADMAP item 12).
+``models.convert.params_from_reference`` (the reference's values). They
+are made with ``requires_grad=False``, so a serving path builds no
+autograd graph; the trainer (``train.loop.Trainer``) switches a model to
+training with ``model.requires_grad_(True)``.
 
 Norms compute in float32 and cast back to the input's type, as the
 reference does; RoPE and M-RoPE rotate split halves (``_rotate``), not

@@ -213,11 +213,18 @@ def _route(args: MoEArgs, xs: torch.Tensor, router: torch.Tensor):
 
 
 def _aux_loss(args: MoEArgs, counts, mean_probs, logits) -> torch.Tensor:
-    """Switch-style balance loss + router z-loss (of ``logits``' tokens)."""
+    """Switch-style balance loss + router z-loss of ``logits (S, N, E)``,
+    each slot's tokens.
+
+    The reference computes the z-loss per slot and returns the loss out of
+    its ``shard_map`` as replicated: the value is slot 0's, while the
+    gradient is that of the mean of the slots' z-losses. Both are kept:
+    slot 0's value plus the mean's gradient (a zero-valued term)."""
     frac_tokens = counts / counts.sum().clamp_min(1.0)
     aux = args.aux_coef * args.num_experts * (frac_tokens * mean_probs).sum()
-    zloss = args.router_z_coef * (torch.logsumexp(logits, dim=-1) ** 2).mean()
-    return aux + zloss
+    z = args.router_z_coef * (torch.logsumexp(logits, dim=-1) ** 2).mean(dim=-1)
+    z_mean = z.mean()
+    return aux + (z[0].detach() + (z_mean - z_mean.detach()))
 
 
 def _slot_weights(module: MoE, is_ep: bool):
@@ -300,7 +307,7 @@ def _moe_shard_body(module: MoE, x, placement, *, capacity: int, n_local: int,
     flat_w = top_p.reshape(-1)
     counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
         0, flat_e, torch.ones_like(flat_w))
-    aux = _aux_loss(args, counts, probs[0].mean(0), logits[0])
+    aux = _aux_loss(args, counts, probs[0].mean(0), logits)
 
     shard_of, slot_of = placement[0].long(), placement[1].long()
     flat_tok = torch.arange(n, device=dev).repeat_interleave(k)
@@ -361,8 +368,7 @@ def _moe_a2a_shard_body(module: MoE, x, placement, *, send_cap: int, n_local: in
     local_counts = torch.zeros((m, e), dtype=torch.float32, device=dev).scatter_add_(
         1, flat_e, torch.ones_like(flat_w))
     counts = local_counts.sum(dim=0)
-    # The reference's replicated loss reads slot 0's z-loss.
-    aux = _aux_loss(args, counts, probs.mean(dim=1).sum(dim=0) / m, logits[0])
+    aux = _aux_loss(args, counts, probs.mean(dim=1).sum(dim=0) / m, logits)
 
     shard_of, slot_of = placement[0].long(), placement[1].long()
     flat_tok = torch.arange(n, device=dev).repeat_interleave(k)

@@ -34,7 +34,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.nn.layers, repro_torch.nn.attention, repro_torch.nn.moe, "
         "repro_torch.core.balancer, repro_torch.models.model, "
         "repro_torch.models.convert, repro_torch.configs, repro_torch.serve.engine, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.launch.steps, repro_torch.launch.train, "
+        "repro_torch.train.optim, repro_torch.train.compression, "
+        "repro_torch.train.checkpoint, repro_torch.train.loop, repro_torch.data.synthetic, "
+        "repro_torch.data.packing\n"
         "import repro_torch.configs as c\n"
         "[c.get_config(a) for a in c.ARCH_IDS]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
