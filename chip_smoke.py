@@ -211,6 +211,33 @@ blocked path and its own backward):
   with a known fault (TF32 matmuls, bf16 compute) must differ from the CPU
   by more than TWIN_PARAM_ATOL.
 
+Then the state-based families, the model entry points (``forward`` in
+prefill, decode and train modes) and the ``Trainer``, as the reference
+drives them (its serving engine refuses them):
+
+* the zamba2 path: zamba2-2.7b (arXiv:2411.15242) at full width and depth
+  (54 Mamba2 layers, d_model 2560, 80 SSM heads of 64, state 64; a shared
+  attention + MLP block of 32 heads of 80 after every 6 layers, one set of
+  weights; 2.42 G parameters, 4.84 GB of bf16 weights), attn_impl="pallas":
+  a prefill of 8 prompts of 1000 tokens (off the 128-token SSD chunk), 24
+  greedy decode steps from the returned state held against the train-mode
+  forward of the 1024-token stream, and in float32 compute on the same
+  weights (relative L2 within 1e-3; the bf16 decode within twice the bf16
+  forward's distance from the float32 one), the state's bytes, 20 more
+  decode steps and one Mamba2 layer at 8 x 1024 under the profiler, 3
+  ``Trainer`` steps of 8 x 1024 os4m-packed tokens (blocked attention,
+  remat, float32 moments, lr 3e-5; finite losses, the last below the
+  first, step ms, tokens/s, peak GB); kernel 9's simt instance once a
+  group in every prefill and full forward (bf16 and float32); a float32
+  twin (2 groups) on the card and the CPU: prefill and teacher-forced
+  decode logits within 2e-3 of each other and of the full forward, then 2
+  training steps (step 1's loss and gradient bounded);
+* the xlstm path: xlstm-1.3b (arXiv:2405.04517) at full width and depth (6
+  groups of 7 mLSTM + 1 sLSTM, d_model 2048, 4 heads; 2.02 G parameters),
+  the same measures (lr 3e-4), the mLSTM's and the sLSTM's layer (its
+  eager time loop) under the profiler, no kernel; its twin is 1 group of
+  7 mLSTM + 1 sLSTM.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
 non-zero.
@@ -330,9 +357,41 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_LR = 20, 8, 1024, 1
 MOE_TRAIN_LAYERS, MOE_TRAIN_SLOTS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4, 4, 512
 MOE_TRAIN_STEPS, MOE_REPLAN, MOE_PROFILE_FROM, MOE_PROFILE_TO = 30, 10, 20, 29
 TWIN_PARAM_ATOL = 5e-4
+# The state-based paths (zamba2-2.7b, xlstm-1.3b, full width and depth): a
+# prefill of STATE_BATCH prompts of STATE_PROMPT tokens (1000 = 7 x 128 +
+# 104: off zamba2's 128-token SSD chunk and xlstm's 512-token mLSTM chunk),
+# STATE_DECODE greedy decode steps from the returned state, held against
+# the train-mode forward of the whole stream (1024 tokens: on both chunks).
+# In bf16 both drift from exact arithmetic with depth (random weights
+# amplify rounding: xlstm-1.3b's bf16 forward is almost uncorrelated with
+# its float32 one), so the check is made twice: the same weights computing
+# in float32, teacher-forced on that stream, decode == the full forward
+# within STATE_F32_REL_TOL (relative L2); and the bf16 decode no further
+# from that float32 forward than twice the bf16 full forward is. Then 20
+# more decode steps under the profiler and STATE_TRAIN_STEPS Trainer steps
+# of STATE_TRAIN_BATCH x STATE_TRAIN_SEQ os4m-packed tokens. Their float32
+# twins (zamba2: 2 groups of 6 Mamba2 layers and the shared block; xlstm:
+# 1 group of 7 mLSTM and 1 sLSTM) on the card and the CPU: prefill logits
+# and teacher-forced decode logits card vs CPU and against the full
+# forward within STATE_F32_TOL (max |diff|), then STATE_TWIN_STEPS training
+# steps of 2 x 64: step 1's loss within 1e-5 relative and its gradient
+# within STATE_GRAD_REL_TOL (relative L2), card vs CPU. Later steps and the
+# parameters are recorded, not bounded: AdamW's first steps move every
+# element by about lr in its gradient's sign, so an element whose gradient
+# is near zero and of opposite signs on the two sides moves 2 lr apart,
+# and the exponential gates of these twins carry the difference on.
+STATE_BATCH, STATE_PROMPT, STATE_DECODE = 8, 1000, 24
+STATE_TRAIN_STEPS, STATE_TRAIN_BATCH, STATE_TRAIN_SEQ = 3, 8, 1024
+# Peak learning rates (warmup 2 steps): AdamW's first steps are sign-like,
+# moving every weight by about lr, and zamba2's 54 layers of width 2560-10240
+# took lr 1e-4 badly (this script on the H100: loss 10.90 at step 1, 12.36
+# at step 3); xlstm's gradients are clipped from norms of several hundred.
+STATE_TRAIN_LR = {"zamba2": 3e-5, "xlstm": 3e-4}
+STATE_F32_REL_TOL, STATE_F32_TOL, STATE_GRAD_REL_TOL = 1e-3, 2e-3, 5e-3
+STATE_TWIN_PROMPT, STATE_TWIN_DECODE, STATE_TWIN_STEPS = 48, 8, 2
 
 # The paths that serve a model (each launches kernel 9 and no other kernel).
-ATTENTION_PATHS = ("serve", "moe", "whisper", "vlm", "mla")
+ATTENTION_PATHS = ("serve", "moe", "whisper", "vlm", "mla", "zamba")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core rate, dense
@@ -1844,7 +1903,7 @@ def profile_run(label, fn, job=None) -> dict:
     else:
         print(f"{label}: the profiler saw no device time; busy share not measured",
               flush=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "device_ops": len(raw),
             "phases": None if job is None else job.last_phase_ms, "top": top[:12]}
 
 
@@ -1868,7 +1927,11 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
     admissions of each family: qwen2-vl at B = 8 lanes, T = S = 256
     patches + the prompt; MLA at B = 4 lanes, D = 192 (simt); whisper's
     causal decoder self-attention (T = S = the prompt) and its
-    cross-attention at the shortest prompt (T < 32 against S = 1500). Each
+    cross-attention at the shortest prompt (T < 32 against S = 1500); and
+    zamba2's shared block at D = 80 (simt): its prefill (B = 8, T = S =
+    STATE_PROMPT) and full forward (T = S = STATE_PROMPT + STATE_DECODE),
+    both timed beside SDPA, its float32 check's prefill, its warm-up
+    prefill (T = 64) and its f32 twin's prefill. Each
     case checks that it went through the instance ``fa_ops.design`` names.
 
     Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
@@ -1918,15 +1981,26 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
              "mla_engine_short": (MLA_LANES, 128, 128, mla_min, mla_min, 192, bf16, True),
              "whisper_decoder": (WHISPER_LANES, 8, 8, wh_max, wh_max, 64, bf16, True),
              "whisper_decoder_short": (WHISPER_LANES, 8, 8, wh_min, wh_min, 64, bf16, True),
-             "whisper_cross_short": (WHISPER_LANES, 8, 8, wh_min, 1500, 64, bf16, False)}
+             "whisper_cross_short": (WHISPER_LANES, 8, 8, wh_min, 1500, 64, bf16, False),
+             "zamba_prefill": (STATE_BATCH, 32, 32, STATE_PROMPT, STATE_PROMPT, 80, bf16, True),
+             "zamba_full": (STATE_BATCH, 32, 32, STATE_PROMPT + STATE_DECODE,
+                            STATE_PROMPT + STATE_DECODE, 80, bf16, True),
+             "zamba_f32_prefill": (STATE_BATCH, 32, 32, STATE_PROMPT, STATE_PROMPT, 80, f32,
+                                   True),
+             "zamba_warmup": (STATE_BATCH, 32, 32, 64, 64, 80, bf16, True),
+             "zamba_twin": (2, 32, 32, STATE_TWIN_PROMPT, STATE_TWIN_PROMPT, 80, f32, True)}
     # The shapes the family paths give the kernel and the instance each path
     # runs; ``timed`` are timed beside SDPA.
     family_design = {"mla_prefill": "simt", "whisper_encoder": "wgmma",
                      "whisper_cross": "wgmma", "vlm_prefill": "wgmma", "vlm_engine": "wgmma",
                      "vlm_engine_short": "wgmma", "mla_engine": "simt",
                      "mla_engine_short": "simt", "whisper_decoder": "wgmma",
-                     "whisper_decoder_short": "wgmma", "whisper_cross_short": "wgmma"}
-    timed = ("serve", "mla_prefill", "whisper_encoder", "whisper_cross", "vlm_prefill")
+                     "whisper_decoder_short": "wgmma", "whisper_cross_short": "wgmma",
+                     "zamba_prefill": "simt", "zamba_full": "simt",
+                     "zamba_f32_prefill": "simt", "zamba_warmup": "simt",
+                     "zamba_twin": "simt"}
+    timed = ("serve", "mla_prefill", "whisper_encoder", "whisper_cross", "vlm_prefill",
+             "zamba_prefill", "zamba_full")
     res = {"cases": {}, "family": {}}
     for name, (b, hq, hkv, t, s, d, dtype, causal) in cases.items():
         q = torch.randn(b, hq, t, d, generator=gen, device=dev).to(dtype)
@@ -3372,15 +3446,20 @@ def twin_diagnosis(tg, tc, grads, k: int = 5) -> dict:
             "grad_rms": (grad_sq / pairs) ** 0.5, "element_steps": pairs}
 
 
-def twin_train(label, cfg, batches, opt, tcfg_kw, ep_slots, dev, seed, controls=()) -> dict:
+def twin_train(label, cfg, batches, opt, tcfg_kw, ep_slots, dev, seed, controls=(),
+               bound: str = "trajectory") -> dict:
     """A float32 twin trained on the card and on the CPU from the same
-    weights (drawn on the CPU) and batches: losses and grad norms within
-    1e-4 relative, final parameters within TWIN_PARAM_ATOL, placements equal
-    at each re-plan (a differing one is reported with the router's top-k
-    margin). Each step's gradients are logged on both sides for
-    :func:`twin_diagnosis`. ``controls`` names card runs with a known fault
-    ("tf32": TF32 matmuls; "bf16": bf16 compute over the float32 weights),
-    each of whose final parameters must differ from the CPU's by more than
+    weights (drawn on the CPU) and batches. ``bound="trajectory"``: losses
+    and grad norms within 1e-4 relative at every step, final parameters
+    within TWIN_PARAM_ATOL; ``"first_step"`` (the state-based twins): step
+    1's loss within 1e-5 relative and its gradient within
+    STATE_GRAD_REL_TOL (relative L2), the later steps and the parameters
+    recorded. Placements equal at each re-plan (a differing one is reported
+    with the router's top-k margin). Each step's gradients are logged on
+    both sides for :func:`twin_diagnosis` and their relative L2 distance,
+    card vs CPU. ``controls`` names card runs with a known fault ("tf32":
+    TF32 matmuls; "bf16": bf16 compute over the float32 weights), each of
+    whose final parameters must differ from the CPU's by more than
     TWIN_PARAM_ATOL (the check can see a fault of that size)."""
     import copy
 
@@ -3427,7 +3506,11 @@ def twin_train(label, cfg, batches, opt, tcfg_kw, ep_slots, dev, seed, controls=
            "param_max_abs_err": err, "seconds": {"cuda": sg, "cpu": sc},
            "losses": [m["loss"] for _, m in tg.history],
            "grad_norms": [m["grad_norm"] for _, m in tc.history],
-           "diagnosis": twin_diagnosis(tg, tc, grads)}
+           "diagnosis": twin_diagnosis(tg, tc, grads),
+           "grad_rel_l2": [
+               (sum(float((grads["cuda"][n][i].cpu() - g[i]).double().square().sum())
+                    for n, g in grads["cpu"].items()) ** 0.5 / norms[i]) if norms[i] else 0.0
+               for i in range(len(batches))]}
     del grads
     rec["controls"] = {}
     for kind in controls:
@@ -3468,6 +3551,15 @@ def twin_train(label, cfg, batches, opt, tcfg_kw, ep_slots, dev, seed, controls=
               f"{np.array2string(np.array(r['grad_card']), precision=3)} CPU "
               f"{np.array2string(np.array(r['grad_cpu']), precision=3)}; parameter RMS "
               f"{np.array2string(np.array(r['param_grad_rms']), precision=3)}", flush=True)
+    print(f"  gradients card vs CPU, relative L2 by step: "
+          f"{' '.join(f'{v:.3g}' for v in rec['grad_rel_l2'])}", flush=True)
+    if bound == "first_step":
+        first = abs(tg.history[0][1]["loss"] - tc.history[0][1]["loss"]) / tc.history[0][1]["loss"]
+        check(first <= 1e-5 and rec["grad_rel_l2"][0] <= STATE_GRAD_REL_TOL,
+              f"{label}: step 1's loss within 1e-5 relative ({first:.3g}) and gradient within "
+              f"{STATE_GRAD_REL_TOL} ({rec['grad_rel_l2'][0]:.3g}), card vs CPU")
+        check(all(np.isfinite(rec["losses"])), f"{label}: every loss finite")
+        return rec
     check(rec["loss_max_rel"] <= 1e-4 and rec["grad_norm_max_rel"] <= 1e-4,
           f"{label}: card vs CPU losses and grad norms within 1e-4 relative ({rec})")
     check(err <= TWIN_PARAM_ATOL, f"{label}: final parameters within {TWIN_PARAM_ATOL} ({err:.3g})")
@@ -3512,6 +3604,296 @@ def train_path(counters, args, dev, smi) -> tuple:
     check(all(v == 0 for v in launches.values()),
           f"the training path launched none of the nine kernels ({launches})")
     return rec, launches
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / tuple (a model's cache)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def state_decode_vs_full(model, cfg, tokens, prompt: int, steps: int, greedy: bool,
+                         cache_dtype, extra_len: int = 0) -> dict:
+    """A prefill of ``tokens[:, :prompt]`` and ``steps`` decode steps from
+    the returned state (greedy, or teacher-forced with ``tokens``), then
+    the train-mode forward of the whole stream: the step logits (the
+    prefill's last and each step's), the full forward's at the same
+    positions, prefill and decode ms (host clock ending in the token's copy
+    to the host), the cache's bytes after the prefill, and the cache (room
+    for ``extra_len`` more steps) with the stream."""
+    from repro_torch.models.model import forward, init_cache
+
+    dev = tokens.device
+    b = tokens.shape[0]
+    with torch.inference_mode():
+        cache = init_cache(cfg, b, prompt + steps + extra_len, dtype=cache_dtype, device=dev)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        out = forward(model, cfg, tokens=tokens[:, :prompt], mode="prefill", cache=cache)
+        nxt = out.logits[:, -1].argmax(-1) if greedy else tokens[:, prompt]
+        nxt.cpu()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        cache, state_bytes = out.cache, tree_bytes(out.cache)
+        logits, toks, dec_ms = [out.logits[:, -1].float()], [], []
+        for i in range(steps):
+            toks.append(nxt)
+            t = time.perf_counter()
+            out = forward(model, cfg, tokens=nxt[:, None], mode="decode", cache=cache,
+                          cache_pos=prompt + i)
+            if greedy:
+                nxt = out.logits[:, -1].argmax(-1)
+            elif i + 1 < steps:
+                nxt = tokens[:, prompt + i + 1]
+            nxt.cpu()
+            dec_ms.append((time.perf_counter() - t) * 1e3)
+            logits.append(out.logits[:, -1].float())
+        del out
+        stream = torch.cat([tokens[:, :prompt], torch.stack(toks, dim=1)], dim=1)
+        full = forward(model, cfg, tokens=stream).logits[:, prompt - 1:].float()
+    return {"steps": torch.stack(logits, dim=1), "full": full, "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "state_bytes": state_bytes, "cache": cache, "stream": stream}
+
+
+def state_twin(label, cfg, dev, seed) -> dict:
+    """The float32 twin at full width and small depth, on the card and the
+    CPU from the same weights (drawn on the CPU): a prefill of 2 x
+    STATE_TWIN_PROMPT tokens and STATE_TWIN_DECODE teacher-forced decode
+    steps, whose logits card vs CPU and against each side's full forward
+    are within STATE_F32_TOL (with ``cfg``'s attention: zamba2's twin
+    launches kernel 9); then :func:`twin_train` (STATE_TWIN_STEPS steps of
+    2 x 64 with blocked attention, ``bound="first_step"``)."""
+    import copy
+
+    from repro_torch.models.model import init_model
+    from repro_torch.train.optim import OptConfig
+
+    check(not torch.backends.cuda.matmul.allow_tf32, f"{label} twin: TF32 off")
+    cpu_model = init_model(cfg, seed=seed, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(seed + 17)
+    toks = torch.as_tensor(rng.integers(3, cfg.vocab, (2, STATE_TWIN_PROMPT + STATE_TWIN_DECODE)))
+    res = {}
+    for where, mdl in (("cuda", gpu_model), ("cpu", cpu_model)):
+        t = time.perf_counter()
+        res[where] = state_decode_vs_full(mdl, cfg, toks.to(mdl.device), STATE_TWIN_PROMPT,
+                                          STATE_TWIN_DECODE, False, torch.float32)
+        res[where]["seconds"] = time.perf_counter() - t
+    g, c = res["cuda"], res["cpu"]
+    diff = lambda a, b: float((a.cpu() - b.cpu()).abs().max())  # noqa: E731
+    rec = {"n_layers": cfg.n_layers, "prompt": STATE_TWIN_PROMPT, "decode": STATE_TWIN_DECODE,
+           "tol": STATE_F32_TOL, "prefill_card_vs_cpu": diff(g["steps"][:, 0], c["steps"][:, 0]),
+           "decode_card_vs_cpu": diff(g["steps"], c["steps"]),
+           "decode_vs_full_card": diff(g["steps"], g["full"]),
+           "decode_vs_full_cpu": diff(c["steps"], c["full"]),
+           "logit_max_abs": float(c["full"].abs().max()),
+           "argmax_agree_card_cpu": float((g["steps"].argmax(-1).cpu()
+                                           == c["steps"].argmax(-1)).float().mean()),
+           "seconds": {k: v["seconds"] for k, v in res.items()}}
+    print(f"{label} f32 twin ({cfg.n_layers} layers, full width): prefill logits card vs CPU "
+          f"{rec['prefill_card_vs_cpu']:.3g}, {STATE_TWIN_DECODE} teacher-forced decode steps "
+          f"card vs CPU {rec['decode_card_vs_cpu']:.3g}, decode vs the full forward card "
+          f"{rec['decode_vs_full_card']:.3g} CPU {rec['decode_vs_full_cpu']:.3g} (max |logit| "
+          f"{rec['logit_max_abs']:.3g}, tol {STATE_F32_TOL}; card {g['seconds']:.1f} s, CPU "
+          f"{c['seconds']:.1f} s)", flush=True)
+    for key in ("prefill_card_vs_cpu", "decode_card_vs_cpu", "decode_vs_full_card",
+                "decode_vs_full_cpu"):
+        check(rec[key] <= STATE_F32_TOL, f"{label} f32 twin: {key} within {STATE_F32_TOL} "
+              f"({rec[key]:.3g})")
+    del res, g, c, gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    rec["train"] = twin_train(
+        f"{label} train", dataclasses.replace(cfg, attn_impl="blocked"),
+        train_batches(cfg, seed, STATE_TWIN_STEPS, 2, 64),
+        OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=STATE_TWIN_STEPS),
+        dict(ckpt_every=10 ** 9), 1, dev, seed, bound="first_step")
+    return rec
+
+
+def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
+    """A state-based arch at full width and depth, bf16 weights from seed
+    ``args.seed``: zamba2-2.7b (arXiv:2411.15242: 54 Mamba2 layers, d_model
+    2560, d_inner 5120 in 80 heads of 64, state 64; the shared attention +
+    MLP block after every 6, 32 heads of 80, with attn_impl="pallas":
+    kernel 9's simt instance once a group in every prefill and full
+    forward) or xlstm-1.3b (arXiv:2405.04517: 48 layers, 6 groups of 7
+    mLSTM + 1 sLSTM, d_model 2048, 4 heads, the mLSTM's head dim 1024; no
+    kernel). Model level (:func:`state_decode_vs_full`): a prefill of
+    STATE_BATCH x STATE_PROMPT, STATE_DECODE greedy decode steps against the
+    full forward, and in float32 compute on the same weights (teacher-forced
+    on that stream) within STATE_F32_REL_TOL, the bf16 decode within twice
+    the bf16 forward's distance from the float32 one; the decode state's
+    bytes; 20 more
+    decode steps and one Mamba2 / sLSTM layer's forward at the training
+    shape under the profiler (the SSD chunk loop, the sLSTM's time loop);
+    then STATE_TRAIN_STEPS Trainer steps (attn_impl="blocked", remat, f32
+    moments, os4m-packed batches): finite losses, the last below the first,
+    step ms, tokens/s, peak GB; last the float32 twin
+    (:func:`state_twin`). Returns ``(record, launches)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Shape
+    from repro_torch.models.model import forward, init_model
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optim import OptConfig
+
+    label = arch.split("-")[0]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    groups = cfg.n_layers // (cfg.attn_every or cfg.slstm_every)
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    rec = {"config": arch, "source": {"zamba2": "arXiv:2411.15242",
+                                      "xlstm": "arXiv:2405.04517"}[label],
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weights_gb": weights_gb(model), "init_s": time.perf_counter() - t0, "reduced": {}}
+    print(f"{label} path ({smi}): {arch}, {cfg.n_layers} layers, d_model {cfg.d_model}: "
+          f"{rec['params'] / 1e9:.3f} G params, {rec['weights_gb']:.2f} GB of bf16 weights in "
+          f"{rec['init_s']:.1f} s", flush=True)
+
+    rng = np.random.default_rng(args.seed + 5)
+    prompts = torch.as_tensor(rng.integers(3, cfg.vocab, (STATE_BATCH, STATE_PROMPT)),
+                              device=dev)
+    with torch.inference_mode():      # first calls (libraries, allocations) untimed
+        forward(model, cfg, tokens=prompts[:, :64], mode="prefill")
+    res = state_decode_vs_full(model, cfg, prompts, STATE_PROMPT, STATE_DECODE, True,
+                               torch.bfloat16, extra_len=21)
+    steps, full = res["steps"], res["full"]
+    # The same weights computing in float32, teacher-forced on the bf16
+    # greedy stream: decode from state == the full forward at full depth.
+    res32 = state_decode_vs_full(model, dataclasses.replace(cfg, compute_dtype="float32"),
+                                 res["stream"], STATE_PROMPT, STATE_DECODE, False,
+                                 torch.float32)
+    full32 = res32["full"]
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b)  # noqa: E731
+                             / torch.linalg.vector_norm(b))
+    ml = {"batch": STATE_BATCH, "prompt": STATE_PROMPT, "decode_steps": STATE_DECODE,
+          "rel_l2": rel(steps, full), "f32_rel_l2": rel(res32["steps"], full32),
+          "f32_tol": STATE_F32_REL_TOL, "bf16_decode_vs_f32": rel(steps, full32),
+          "bf16_full_vs_f32": rel(full, full32),
+          "top1_agree": float((steps.argmax(-1) == full.argmax(-1)).float().mean()),
+          "max_abs_diff": float((steps - full).abs().max()),
+          "logit_max_abs": float(full.abs().max()), "prefill_ms": res["prefill_ms"],
+          "decode_ms": res["decode_ms"], "decode_ms_median": float(np.median(res["decode_ms"][1:])),
+          "f32_prefill_ms": res32["prefill_ms"], "state_bytes": res["state_bytes"],
+          "state_bytes_per_lane": res["state_bytes"] / STATE_BATCH}
+    rec["model_level"] = ml
+    print(f"{label} model level: prefill {STATE_BATCH} x {STATE_PROMPT} {ml['prefill_ms']:.1f} "
+          f"ms, {STATE_DECODE} greedy decode steps median {ml['decode_ms_median']:.2f} ms | "
+          f"state after the prefill {ml['state_bytes'] / 2 ** 20:.1f} MiB "
+          f"({ml['state_bytes_per_lane'] / 2 ** 20:.1f} MiB a lane) | vs the full forward of "
+          f"{STATE_PROMPT + STATE_DECODE}: bf16 relative L2 {ml['rel_l2']:.4g} (top-1 agree "
+          f"{ml['top1_agree']:.3f}); against the float32 forward: bf16 decode "
+          f"{ml['bf16_decode_vs_f32']:.4g}, bf16 full forward {ml['bf16_full_vs_f32']:.4g}; "
+          f"float32 decode vs float32 full {ml['f32_rel_l2']:.3g} (tol {STATE_F32_REL_TOL}) | "
+          f"{smi}", flush=True)
+    check(bool(torch.isfinite(steps).all()) and ml["f32_rel_l2"] <= STATE_F32_REL_TOL,
+          f"{label}: float32 prefill + decode == the full forward within {STATE_F32_REL_TOL} "
+          f"at full depth (relative L2 {ml['f32_rel_l2']:.4g})")
+    check(ml["bf16_decode_vs_f32"] <= max(2 * ml["bf16_full_vs_f32"], STATE_F32_REL_TOL),
+          f"{label}: bf16 decode no further from the float32 forward than twice the bf16 full "
+          f"forward ({ml['bf16_decode_vs_f32']:.4g} vs {ml['bf16_full_vs_f32']:.4g})")
+
+    cache, pos = res["cache"], STATE_PROMPT + STATE_DECODE
+    cur = res["stream"][:, -1:]
+    del res, res32, steps, full, full32
+
+    def steps20():
+        nonlocal cur
+        with torch.inference_mode():
+            for i in range(20):
+                out = forward(model, cfg, tokens=cur, mode="decode", cache=cache,
+                              cache_pos=pos + i)
+                cur = out.logits[:, -1:].argmax(-1)
+                cur.cpu()
+
+    prof = profile_run(f"{label} profile 20 decode steps", steps20)
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"] if prof["device_ms"] else None
+    prof["ms_per_step"] = prof["wall_ms"] / 20
+    rec["profile_20_decode_steps"] = prof
+    print(f"{label}: 20 decode steps {prof['ms_per_step']:.2f} ms a step under the profiler, "
+          f"device idle share {prof['idle_share']}", flush=True)
+    del cache
+    torch.cuda.empty_cache()
+
+    # The recurrent loops at the training shape, one layer each, forward only.
+    x = torch.randn(STATE_TRAIN_BATCH, STATE_TRAIN_SEQ, cfg.d_model, device=dev,
+                    dtype=torch.bfloat16)
+    layers = ({"mamba2": model.mamba[0][0]} if cfg.ssm is not None
+              else {"mlstm": model.mlstm[0][0], "slstm": model.slstm[0]})
+    rec["layer_profiles"] = {}
+    for name, layer in layers.items():
+        with torch.inference_mode():
+            layer(x, "train")
+            torch.cuda.synchronize()
+            lp = profile_run(f"{label} one {name} layer forward {tuple(x.shape[:2])}",
+                             lambda: (layer(x, "train"), torch.cuda.synchronize()))
+        lp["idle_share"] = 1 - lp["device_ms"] / lp["wall_ms"] if lp["device_ms"] else None
+        rec["layer_profiles"][name] = {k: lp[k] for k in ("wall_ms", "device_ms", "device_ops",
+                                                          "idle_share", "top")}
+        print(f"{label} {name} layer: {lp['device_ops']} device operations, run "
+              f"{lp['wall_ms']:.1f} ms, idle share {lp['idle_share']}", flush=True)
+    del x
+
+    # Training at full width and depth.
+    tcfg = dataclasses.replace(cfg, attn_impl="blocked")
+    shape = Shape("chip", "train", STATE_TRAIN_SEQ, STATE_TRAIN_BATCH)
+    batches = train_batches(cfg, args.seed, STATE_TRAIN_STEPS, STATE_TRAIN_BATCH,
+                            STATE_TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(tcfg, shape, model=model,
+                 opt_cfg=OptConfig(lr=STATE_TRAIN_LR[label], warmup_steps=2,
+                                   decay_steps=STATE_TRAIN_STEPS),
+                 tcfg=TrainerConfig(ckpt_every=10 ** 9, log_every=1, seed=args.seed))
+    times = run_steps(tr, batches)
+    losses = [m["loss"] for _, m in tr.history]
+    check(all(np.isfinite(losses)), f"{label} train: every loss finite ({losses})")
+    check(losses[-1] < losses[0], f"{label} train: the last loss ({losses[-1]:.4f}) below the "
+          f"first ({losses[0]:.4f})")
+    tokens = STATE_TRAIN_BATCH * STATE_TRAIN_SEQ
+    step_ms = float(np.median(times[1:]))
+    rec["train"] = {"batch": STATE_TRAIN_BATCH, "seq": STATE_TRAIN_SEQ, "lr": STATE_TRAIN_LR[label],
+                    "remat": tcfg.remat, "moment_dtype": "float32", "losses": losses,
+                    "grad_norms": [m["grad_norm"] for _, m in tr.history], "step_ms": times,
+                    "step_ms_median": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rt = rec["train"]
+    print(f"{label} train ({smi}): {STATE_TRAIN_STEPS} steps of {STATE_TRAIN_BATCH} x "
+          f"{STATE_TRAIN_SEQ} os4m-packed tokens, bf16 weights, f32 moments, remat, lr "
+          f"{STATE_TRAIN_LR[label]:g} | loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)} | step {step_ms:.1f} ms median (steps 2-"
+          f"{STATE_TRAIN_STEPS}), {rt['tokens_per_s']:.0f} tokens/s | peak {rt['peak_gb']:.2f} GB",
+          flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+
+    twin = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                               n_layers=2 * cfg.attn_every if cfg.ssm is not None
+                               else cfg.slstm_every)
+    twin_flash = dict(fa_ops.launches_by_design)
+    rec["f32_twin"] = state_twin(label, twin, dev, args.seed)
+    twin_flash = {k: fa_ops.launches_by_design[k] - twin_flash[k] for k in twin_flash}
+    launches = read_launches(counters)
+    rec["launches"] = launches
+    rec["launches_by_design"] = dict(fa_ops.launches_by_design)
+    if cfg.ssm is not None:
+        # One launch a group in every prefill (the warm-up's, bf16's and
+        # float32's) and full forward (bf16 and float32), and in the twin's
+        # on the card; none in decode or training.
+        want = 5 * groups + 2 * (twin.n_layers // twin.attn_every)
+        check(rec["launches_by_design"] == {"wgmma": 0, "simt": want}
+              and twin_flash["simt"] == 2 * (twin.n_layers // twin.attn_every),
+              f"{label}: kernel 9's simt instance once a shared block in every prefill and "
+              f"full forward ({want}; {rec['launches_by_design']})")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"{label}: no kernel but kernel 9 on this path ({launches})")
+    return rec, launches
+
 
 
 def main(argv=None) -> int:
@@ -4034,6 +4416,12 @@ def main(argv=None) -> int:
     record["mla_path"], launches["mla"] = mla_path(counters, fa_ops, args, dev, smi)
     # ---- The training path: smollm-360m and deepseek-v2-236b at full width.
     record["train_path"], launches["train"] = train_path(counters, args, dev, smi)
+    # ---- The state-based families at full width and depth: zamba2-2.7b
+    # (kernel 9 in its shared block) and xlstm-1.3b (no kernel).
+    record["zamba_path"], launches["zamba"] = state_path("zamba2-2.7b", counters, fa_ops, args,
+                                                         dev, smi)
+    record["xlstm_path"], launches["xlstm"] = state_path("xlstm-1.3b", counters, fa_ops, args,
+                                                         dev, smi)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).
@@ -4148,8 +4536,9 @@ def main(argv=None) -> int:
          "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
          "library_ms": st["library_ms"], "library_event_ms": st["library_event_ms"]},
         # Launched in every attention of every prefill of the serve, MoE and
-        # family paths (launches_by_path), bf16 through the wgmma instance
-        # but MLA's D = 192 through the simt one; its times are at the serve
+        # family paths and in zamba2's shared block (launches_by_path), bf16
+        # through the wgmma instance but MLA's D = 192 and zamba2's D = 80
+        # through the simt one; its times are at the serve
         # path's longest prefill, device time a call from a burst behind a
         # spin, and family_cases holds the family paths' shapes; its error is
         # the largest over every case of its phase. The library call is

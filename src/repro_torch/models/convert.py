@@ -4,8 +4,11 @@ The input is the reference's value tree (``repro.nn.layers.split(
 repro.models.model.init_model(key, cfg))[0]``) with every leaf as a numpy
 array, in nested dicts, the layer stacks' leaves carrying a leading layer
 axis: ``values["layers"]`` (and ``"dense_layers"``), or whisper's
-``values["enc"]`` and ``values["dec"]``. Attention is GQA (q, k, v, o with
-biases when the config has them) or MLA (its nine parameters); whisper's
+``values["enc"]`` and ``values["dec"]``; zamba2's ``values["mamba"]``
+(leaves ``(groups, attn_every, ...)``) and its one ``"shared_attn"``
+decoder layer (unstacked), xLSTM's ``values["mlstm"]`` ``(groups,
+slstm_every - 1, ...)`` and ``values["slstm"]`` ``(groups, ...)``.
+Attention is GQA (q, k, v, o with biases when the config has them) or MLA (its nine parameters); whisper's
 decoder layers add ``ln_x`` and ``xattn``. Linear weights are ``(d_in, d_out)`` on
 both sides, so every leaf copies as it is. numpy has no bfloat16: pass
 float32 arrays (a bf16 reference leaf cast to float32 is exact); they are
@@ -85,25 +88,41 @@ def _load_attention(attn, tree: Mapping, name: str, index: int) -> None:
         _load_linear(getattr(attn, part), tree[part], f"{name}.{part}", index)
 
 
+def _load_layer(layer, tree: Mapping, pre: str, i) -> None:
+    """A decoder layer from ``tree``'s leaves at ``i`` (a layer index of a
+    stack, or None: zamba2's one shared block)."""
+    _load_norm(layer.ln1, tree["ln1"], f"{pre}.ln1", i)
+    _load_norm(layer.ln2, tree["ln2"], f"{pre}.ln2", i)
+    _load_attention(layer.attn, tree["attn"], f"{pre}.attn", i)
+    if layer.xattn is not None:
+        _load_norm(layer.ln_x, tree["ln_x"], f"{pre}.ln_x", i)
+        _load_attention(layer.xattn, tree["xattn"], f"{pre}.xattn", i)
+    if layer.moe is not None:
+        _load_moe(layer.moe, tree["moe"], f"{pre}.moe", i)
+        return
+    for part in ("up", "down", "gate"):
+        lin = getattr(layer.mlp, part)
+        if lin is None:
+            if part in tree["mlp"]:
+                raise ValueError(f"{pre}.mlp: the reference is gated, the config not")
+            continue
+        _load_linear(lin, tree["mlp"][part], f"{pre}.mlp.{part}", i)
+
+
 def _load_stack(layers, stack: Mapping, name: str) -> None:
     for i, layer in enumerate(layers):
-        pre = f"{name}[{i}]"
-        _load_norm(layer.ln1, stack["ln1"], f"{pre}.ln1", i)
-        _load_norm(layer.ln2, stack["ln2"], f"{pre}.ln2", i)
-        _load_attention(layer.attn, stack["attn"], f"{pre}.attn", i)
-        if layer.xattn is not None:
-            _load_norm(layer.ln_x, stack["ln_x"], f"{pre}.ln_x", i)
-            _load_attention(layer.xattn, stack["xattn"], f"{pre}.xattn", i)
-        if layer.moe is not None:
-            _load_moe(layer.moe, stack["moe"], f"{pre}.moe", i)
-            continue
-        for part in ("up", "down", "gate"):
-            lin = getattr(layer.mlp, part)
-            if lin is None:
-                if part in stack["mlp"]:
-                    raise ValueError(f"{pre}.mlp: the reference is gated, the config not")
-                continue
-            _load_linear(lin, stack["mlp"][part], f"{pre}.mlp.{part}", i)
+        _load_layer(layer, stack, f"{name}[{i}]", i)
+
+
+def _load_by_name(module, tree: Mapping, pre: str, index) -> None:
+    """Every parameter of ``module`` (a Mamba2, mLSTM or sLSTM layer, whose
+    parameter names are the reference's paths: ``mixer.in_proj.w`` is
+    ``tree["mixer"]["in_proj"]["w"]``) from its stacked leaf at ``index``."""
+    for name, param in module.named_parameters():
+        leaf = tree
+        for key in name.split("."):
+            leaf = leaf[key]
+        _copy(param, leaf[index], f"{pre}.{name}")
 
 
 def params_from_reference(values: Mapping, cfg: ModelConfig, device=None,
@@ -116,6 +135,19 @@ def params_from_reference(values: Mapping, cfg: ModelConfig, device=None,
         _copy(model.embed.w, values["embed"]["w"], "embed.w")
         _load_norm(model.final_norm, values["final_norm"], "final_norm")
         _load_linear(model.lm_head, values["lm_head"], "lm_head")
+        if cfg.xlstm is not None:
+            for g, (group, s_layer) in enumerate(zip(model.mlstm, model.slstm)):
+                for i, layer in enumerate(group):
+                    _load_by_name(layer, values["mlstm"], f"mlstm[{g}][{i}]", (g, i))
+                _load_by_name(s_layer, values["slstm"], f"slstm[{g}]", g)
+            return model
+        if cfg.ssm is not None:
+            for g, group in enumerate(model.mamba):
+                for i, layer in enumerate(group):
+                    _load_by_name(layer, values["mamba"], f"mamba[{g}][{i}]", (g, i))
+            if model.shared_attn is not None:
+                _load_layer(model.shared_attn, values["shared_attn"], "shared_attn", None)
+            return model
         if cfg.enc_dec:
             _load_stack(model.enc_layers, values["enc"], "enc")
             _load_norm(model.enc_norm, values["enc_norm"], "enc_norm")

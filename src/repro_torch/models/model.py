@@ -13,7 +13,15 @@ engine serves:
 * whisper (``enc_dec``): an encoder stack over the frame embeddings
   (``extra_embed``), non-causal, with sinusoidal positions, then decoder
   layers that add cross-attention over each layer's projection of the
-  encoder output.
+  encoder output;
+
+and for the state-based families, which decode from a recurrent state:
+
+* zamba2 (``ssm``): groups of ``attn_every`` pre-norm Mamba2 layers, each
+  group followed by one shared attention + MLP decoder layer (a single set
+  of weights, applied once a group, with a KV cache of its own per group);
+* xLSTM (``xlstm``): groups of ``slstm_every - 1`` mLSTM layers and one
+  sLSTM layer.
 
 The reference's ``lax.scan`` over stacked layer weights becomes a loop
 over an ``nn.ModuleList``; its cache keeps the reference's layout, ``(layers,
@@ -30,8 +38,15 @@ with ``cfg.remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
 scan body), and :func:`lm_loss` is the reference's token cross-entropy.
 
-The state-based families (SSM, xLSTM) raise ``NotImplementedError``
-naming their ROADMAP item.
+The state-based families keep the reference's cache trees: zamba2's
+``{"mamba": {"ssm" (groups, k, B, H, P, N), "conv" (groups, k, B, K-1,
+conv_dim)}, "attn": {"self": {"k", "v"}}}`` (the shared block's keys and
+values per group, ``(groups, B, max_len, n_kv, hd)``), xLSTM's ``{"mlstm":
+{"cell": (C, n, m), "conv"}, "slstm": (h, c, n, m)}`` stacked on ``(groups,
+per - 1)`` and ``(groups,)``; states are float32. A prefill starts every
+state from zero (the sLSTM from the cache it is given, as the reference)
+and returns fresh states; a decode step writes the new states into the
+cache it is given, in place, as it writes keys and values.
 """
 
 from __future__ import annotations
@@ -47,10 +62,13 @@ from repro_torch.device import default_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
+from repro_torch.nn import ssm as S
+from repro_torch.nn import xlstm as X
 from repro_torch.nn.attention import MLA, Attention
 
 __all__ = ["DecoderModel", "ForwardOut", "init_model", "forward", "lm_loss", "init_cache",
-           "check_supported", "dtype_of", "default_placements", "moe_capacity_for_shape"]
+           "check_supported", "dtype_of", "default_placements", "moe_capacity_for_shape",
+           "MambaLayer", "MLSTMLayer", "SLSTMLayer"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -63,12 +81,9 @@ def dtype_of(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    for field, value in (("ssm", cfg.ssm), ("xlstm", cfg.xlstm)):
-        if value is not None:
-            missing.append((f"{field}=...", 12))
     if cfg.rope_kind not in ("rope", "mrope", "none"):
         missing.append((f"rope_kind={cfg.rope_kind!r}", 12))
-    if cfg.family not in ("dense", "moe", "vlm", "audio") and not missing:
+    if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm", "hybrid"):
         missing.append((f"family={cfg.family!r}", 12))
     if missing:
         what = "; ".join(f"{name} (ROADMAP item {item})" for name, item in missing)
@@ -172,15 +187,93 @@ class DecoderLayer(nn.Module):
         return x, ({"self": new_cache} if new_cache is not None else {}), stats
 
 
+class _MixerLayer(nn.Module):
+    """A pre-norm ``ln`` and a ``mixer``: ``x + mixer(ln(x))``."""
+
+    def __init__(self, cfg: ModelConfig, mixer: nn.Module, *, dtype, device):
+        super().__init__()
+        self.ln = L.make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
+        self.mixer = mixer
+
+    def reset(self, gen: torch.Generator) -> None:
+        self.ln.reset()
+        self.mixer.reset(gen)
+
+
+class MambaLayer(_MixerLayer):
+    """The reference's ``init_mamba_layer``: ``ln`` and a Mamba2 mixer."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__(cfg, S.Mamba2(cfg.ssm, dtype=dtype, device=device), dtype=dtype,
+                         device=device)
+
+    def forward(self, x, mode: str, state=None):
+        """``(x + y, new_state)``: decode steps from ``state``; prefill
+        starts from zero and returns its state; train returns None."""
+        h = self.ln(x)
+        if mode == "decode":
+            y, new = S.mamba2_decode(self.mixer, h, state)
+        elif mode == "prefill":
+            y, new = S.mamba2(self.mixer, h, return_state=True)
+        else:
+            y, new = S.mamba2(self.mixer, h), None
+        return x + y, new
+
+
+class MLSTMLayer(_MixerLayer):
+    """The reference's ``init_mlstm_layer``: ``ln`` and an mLSTM mixer."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__(cfg, X.MLSTM(cfg.xlstm, dtype=dtype, device=device), dtype=dtype,
+                         device=device)
+
+    def forward(self, x, mode: str, state=None):
+        """As :meth:`MambaLayer.forward`, with the mLSTM's state."""
+        h = self.ln(x)
+        if mode == "decode":
+            y, new = X.mlstm_decode(self.mixer, h, state)
+        elif mode == "prefill":
+            y, new = X.mlstm(self.mixer, h, return_state=True)
+        else:
+            y, new = X.mlstm(self.mixer, h), None
+        return x + y, new
+
+
+class SLSTMLayer(_MixerLayer):
+    """The reference's ``init_slstm_layer``: ``ln`` and an sLSTM mixer."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__(cfg, X.SLSTM(cfg.xlstm, dtype=dtype, device=device), dtype=dtype,
+                         device=device)
+
+    def forward(self, x, mode: str, state=None):
+        """``(x + y, new_state)``; prefill and decode run from ``state``
+        (None: the zero state) and return the final one."""
+        h = self.ln(x)
+        if mode == "train":
+            return x + X.slstm(self.mixer, h), None
+        y, new = X.slstm(self.mixer, h, state=state, return_state=True)
+        return x + y, new
+
+
 def _n_dense(cfg: ModelConfig) -> int:
     return cfg.first_k_dense if cfg.moe is not None else 0
+
+
+def _groups(cfg: ModelConfig) -> tuple:
+    """``(groups, layers a group)`` of a state-based stack: zamba2's Mamba2
+    layers between shared attention blocks, xLSTM's mLSTM + sLSTM layers."""
+    per = (cfg.slstm_every if cfg.xlstm is not None else cfg.attn_every) or cfg.n_layers
+    return cfg.n_layers // per, per
 
 
 class DecoderModel(nn.Module):
     """Embedding, ``first_k_dense`` dense layers (MoE configs), the
     ``layers`` stack (MoE layers for an MoE config; whisper's decoder
     layers, with cross-attention, after its ``enc_layers`` and
-    ``enc_norm``), final norm, LM head."""
+    ``enc_norm``), final norm, LM head. A state-based config has no
+    ``layers``: zamba2 has ``mamba[g][i]`` and ``shared_attn``, xLSTM
+    ``mlstm[g][i]`` and ``slstm[g]``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, ep_slots: int = 1):
         """Uninitialised weights on ``device`` (default: the current CUDA
@@ -201,10 +294,26 @@ class DecoderModel(nn.Module):
         self.enc_layers = nn.ModuleList(
             DecoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers if cfg.enc_dec else 0))
         self.enc_norm = L.make_norm(cfg.norm, cfg.d_model, **kw) if cfg.enc_dec else None
+        state_based = cfg.ssm is not None or cfg.xlstm is not None
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, moe_layer=cfg.moe is not None, cross=cfg.enc_dec,
                          ep_slots=ep_slots, **kw)
-            for _ in range(cfg.n_layers - n_dense))
+            for _ in range(0 if state_based else cfg.n_layers - n_dense))
+        # State-based stacks, group by group: zamba2's Mamba2 layers and its
+        # one shared attention block; xLSTM's mLSTM layers and sLSTMs.
+        self.mamba = self.mlstm = self.slstm = self.shared_attn = None
+        if cfg.xlstm is not None:
+            groups, per = _groups(cfg)
+            self.mlstm = nn.ModuleList(
+                nn.ModuleList(MLSTMLayer(cfg, **kw) for _ in range(per - 1))
+                for _ in range(groups))
+            self.slstm = nn.ModuleList(SLSTMLayer(cfg, **kw) for _ in range(groups))
+        elif cfg.ssm is not None:
+            groups, per = _groups(cfg)
+            self.mamba = nn.ModuleList(
+                nn.ModuleList(MambaLayer(cfg, **kw) for _ in range(per)) for _ in range(groups))
+            if cfg.attn_every:
+                self.shared_attn = DecoderLayer(cfg, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -232,6 +341,11 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     model.final_norm.reset()
     model.lm_head.reset(generator)
     for layer in (*model.dense_layers, *model.enc_layers, *model.layers):
+        layer.reset(generator)
+    for group in (*(model.mamba or ()), *(model.mlstm or ())):
+        for layer in group:
+            layer.reset(generator)
+    for layer in (*(model.slstm or ()), *filter(None, [model.shared_attn])):
         layer.reset(generator)
     if model.enc_norm is not None:
         model.enc_norm.reset()
@@ -350,6 +464,10 @@ def forward(model: DecoderModel, cfg: ModelConfig, *, tokens, extra_embed=None,
     check_supported(cfg)
     if cfg.enc_dec:
         return _forward_whisper(model, cfg, tokens, extra_embed, mode, cache, cache_pos)
+    if cfg.xlstm is not None:
+        return _forward_xlstm(model, cfg, tokens, mode, cache)
+    if cfg.ssm is not None:
+        return _forward_zamba(model, cfg, tokens, mode, cache, cache_pos)
     return _forward_decoder(model, cfg, tokens, extra_embed, mode, cache, cache_pos,
                             placements, moe_capacity)
 
@@ -469,6 +587,114 @@ def _forward_whisper(model, cfg, tokens, frames, mode, cache, cache_pos) -> Forw
     return ForwardOut(logits=logits, cache=new_cache, stats=None)
 
 
+def _state_layer(layer, cfg: ModelConfig, x, mode: str, state):
+    """``layer(x, mode, state)``, recomputed in the backward under
+    ``cfg.remat`` while training (the reference's ``_remat`` of its Mamba2
+    and mLSTM scan bodies)."""
+    if mode == "train" and _remat(layer, cfg, None):
+        return checkpoint(layer, x, mode, state, use_reentrant=False,
+                          preserve_rng_state=False)
+    return layer(x, mode, state)
+
+
+def _stacked(states: list):
+    """Per-layer state trees (dicts and tuples of tensors) stacked on a new
+    leading axis; None if the layers returned none."""
+    first = states[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stacked([s[k] for s in states]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stacked([s[i] for s in states]) for i in range(len(first)))
+    return torch.stack(states)
+
+
+def _pick(tree, index):
+    """The ``index`` slice of every leaf of a stacked state tree."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, index) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_pick(v, index) for v in tree)
+    return tree[index]
+
+
+def _write(dst, src) -> None:
+    """Copy the state tree ``src`` into ``dst``'s tensors (a decode step's
+    in-place update of its cache)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _write(d, s)
+    else:
+        dst.copy_(src)
+
+
+def _forward_zamba(model, cfg, tokens, mode, cache, cache_pos) -> ForwardOut:
+    """The reference's ``_forward_zamba``: each group's Mamba2 layers, then
+    the shared attention block with the group's own KV cache. Positions
+    start at ``cache_pos`` in decode. A cache comes back when one was given
+    or in prefill: prefill's states start from zero, even with a cache."""
+    x = model.embed(tokens).to(dtype_of(cfg.compute_dtype))
+    b, t, _ = x.shape
+    decode = mode == "decode"
+    positions = _positions(cfg, b, t, start=cache_pos if decode else 0, device=x.device)
+    attn = None if cache is None else _stack_cache(cache["attn"], mode)
+    states = []
+    for g, group in enumerate(model.mamba):
+        group_states = []
+        for i, layer in enumerate(group):
+            state = _pick(cache["mamba"], (g, i)) if decode else None
+            x, new = _state_layer(layer, cfg, x, mode, state)
+            if decode:
+                _write(state, new)
+            group_states.append(new)
+        states.append(_stacked(group_states))
+        if model.shared_attn is not None:
+            acache = None if attn is None else {
+                "self": {name: a[g] for name, a in attn["self"].items()}}
+            x, _, _ = model.shared_attn(x, cfg, positions=positions, cache=acache,
+                                        cache_pos=cache_pos)
+    logits = _lm_head(model, cfg, x)
+    new_cache = None
+    if cache is not None or mode == "prefill":
+        new_cache = {"mamba": cache["mamba"] if decode else _stacked(states),
+                     "attn": attn if attn is not None else {}}
+    return ForwardOut(logits=logits, cache=new_cache, stats=None)
+
+
+def _forward_xlstm(model, cfg, tokens, mode, cache) -> ForwardOut:
+    """The reference's ``_forward_xlstm``: each group's mLSTM layers, then
+    its sLSTM. mLSTM states start from zero in prefill; the sLSTM runs from
+    the cache's state whenever a cache is given (prefill or decode)."""
+    x = model.embed(tokens).to(dtype_of(cfg.compute_dtype))
+    decode = mode == "decode"
+    m_states, s_states = [], []
+    for g, (group, s_layer) in enumerate(zip(model.mlstm, model.slstm)):
+        group_states = []
+        for i, layer in enumerate(group):
+            state = _pick(cache["mlstm"], (g, i)) if decode else None
+            x, new = _state_layer(layer, cfg, x, mode, state)
+            if decode:
+                _write(state, new)
+            group_states.append(new)
+        m_states.append(_stacked(group_states))
+        state = None if cache is None else _pick(cache["slstm"], g)
+        x, new = s_layer(x, mode, state)
+        if decode:
+            _write(state, new)
+        s_states.append(new)
+    logits = _lm_head(model, cfg, x)
+    new_cache = None
+    if decode:
+        new_cache = cache
+    elif cache is not None or mode == "prefill":
+        new_cache = {"mlstm": _stacked(m_states), "slstm": _stacked(s_states)}
+    return ForwardOut(logits=logits, cache=new_cache, stats=None)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
@@ -504,7 +730,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     * MLA: the same parts of ``{"self": {"c_kv" (layers, batch, max_len,
       kv_lora), "k_pe" (..., qk_rope)}}``;
     * whisper: ``{"dec": {"self": {"k", "v"}}, "cross": (k, v)}``, the cross
-      pair ``(layers, batch, enc_len, n_kv, head_dim)`` each.
+      pair ``(layers, batch, enc_len, n_kv, head_dim)`` each;
+    * zamba2: ``{"mamba": {"ssm", "conv"}, "attn": {"self": {"k", "v"}}}``,
+      float32 states on ``(groups, attn_every, batch)`` and the shared
+      block's keys and values ``(groups, batch, max_len, n_kv, head_dim)``;
+    * xLSTM: ``{"mlstm": {"cell": (C, n, m), "conv"}, "slstm": (h, c, n,
+      m)}``, float32 states on ``(groups, slstm_every - 1, batch)`` and
+      ``(groups, batch)``, every ``m`` filled with -1e30.
     """
     check_supported(cfg)
     device = default_device(device, "init_cache")
@@ -521,6 +753,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
         return {"self": {"k": zeros(layers, batch, max_len, cfg.n_kv, hd),
                          "v": zeros(layers, batch, max_len, cfg.n_kv, hd)}}
 
+    def states(*shape, fill=0.0):
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+    if cfg.xlstm is not None:
+        a = cfg.xlstm
+        groups, per = _groups(cfg)
+        lead = (groups, per - 1, batch, a.n_heads)
+        s_shape = (groups, batch, a.n_heads, a.s_head_dim)
+        return {"mlstm": {"cell": (states(*lead, a.head_dim, a.head_dim),
+                                   states(*lead, a.head_dim), states(*lead, fill=X.M_INIT)),
+                          "conv": states(groups, per - 1, batch, a.conv_kernel - 1, a.d_inner)},
+                "slstm": (states(*s_shape), states(*s_shape), states(*s_shape),
+                          states(*s_shape, fill=X.M_INIT))}
+    if cfg.ssm is not None:
+        a = cfg.ssm
+        groups, per = _groups(cfg)
+        out = {"mamba": {"ssm": states(groups, per, batch, a.n_heads, a.head_dim, a.d_state),
+                         "conv": states(groups, per, batch, a.conv_kernel - 1, a.conv_dim)},
+               "attn": None}
+        if cfg.attn_every:
+            out["attn"] = kv(groups)
+        return out
     if cfg.enc_dec:
         cross = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv, hd)
         return {"dec": kv(cfg.n_layers), "cross": (zeros(*cross), zeros(*cross))}

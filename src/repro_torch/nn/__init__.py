@@ -1,4 +1,3 @@
 """Neural-network layers of the port: primitives (``layers``), attention
-(``attention``), and the argument dataclasses of the MoE, SSM and xLSTM
-layers that the model configurations name (``moe``, ``ssm``, ``xlstm``;
-their layers are ported in later slices)."""
+(``attention``: GQA and MLA), the MoE layer (``moe``), Mamba2's SSD layer
+(``ssm``) and xLSTM's mLSTM and sLSTM layers (``xlstm``)."""

@@ -199,11 +199,15 @@ def test_init_model_uses_the_reference_scales():
     assert bf.embed.w.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", DENSE + ["deepseek-v2-236b", "whisper-base", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", DENSE + ["deepseek-v2-236b", "whisper-base", "qwen2-vl-7b",
+                                  "zamba2-2.7b", "xlstm-1.3b"])
 def test_cache_layout_equals_reference(arch):
     """Every leaf of the cache (MLA's compressed ``c_kv`` / ``k_pe``,
-    whisper's ``dec`` part and ``cross`` tuple) has the reference's path and
-    shape, zeros of the asked type (float32 and bfloat16)."""
+    whisper's ``dec`` part and ``cross`` tuple, zamba2's Mamba2 states and
+    shared-block keys and values, xLSTM's mLSTM and sLSTM states) has the
+    reference's path, shape, type and values: zeros of the asked type
+    (float32 and bfloat16) for keys and values, float32 states, every
+    stabiliser ``m`` at -1e30."""
     import jax
     import jax.numpy as jnp
 
@@ -218,48 +222,58 @@ def test_cache_layout_equals_reference(arch):
             port, is_leaf=lambda a: isinstance(a, torch.Tensor))[0]
         assert [(jax.tree_util.keystr(p), tuple(a.shape)) for p, a in got] == \
             [(jax.tree_util.keystr(p), a.shape) for p, a in want]
-        assert all(a.dtype == dtype and not torch.any(a) for _, a in got)
+        for (path, a), (_, b) in zip(got, want):
+            assert str(a.dtype) == f"torch.{b.dtype}", jax.tree_util.keystr(path)
+            np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32))
+        state_based = arch in ("zamba2-2.7b", "xlstm-1.3b")
+        assert state_based or all(a.dtype == dtype and not torch.any(a) for _, a in got)
 
 
 @pytest.mark.parametrize("arch,item", [
     ("grok-1-314b", 11), ("deepseek-v2-236b", 12), ("zamba2-2.7b", 12),
     ("xlstm-1.3b", 12), ("whisper-base", 12), ("qwen2-vl-7b", 12)])
 def test_unported_families_name_their_item(arch, item):
-    """Each family the port does not run names its ROADMAP item: zamba2 and
-    xlstm (the state-based half of item 12). The test keeps its name and
-    its six cases from when more families were refused: the MoE family
-    (item 11, grok-1) and the attention families of item 12 (deepseek-v2's
-    MLA, whisper's encoder-decoder, qwen2-vl's M-RoPE and patches) are
-    ported, and their cases hold the prefill logits (and grok-1's and
-    deepseek-v2's expert counts) equal to the reference's."""
-    if arch in ("grok-1-314b", "deepseek-v2-236b", "whisper-base", "qwen2-vl-7b"):
-        import jax.numpy as jnp
+    """The test keeps its name and its six cases from when the port refused
+    these families, each naming its ROADMAP item. All are ported now: the
+    MoE family (item 11, grok-1), the attention families of item 12
+    (deepseek-v2's MLA, whisper's encoder-decoder, qwen2-vl's M-RoPE and
+    patches) and its state-based families (zamba2's Mamba2 with the shared
+    attention block, xLSTM's mLSTM and sLSTM). Each case holds the prefill
+    logits (and grok-1's and deepseek-v2's expert counts, and zamba2's and
+    xlstm's returned states) equal to the reference's."""
+    import jax.numpy as jnp
 
-        from repro import configs as ref_configs
-        from repro.models.model import forward as ref_forward
+    from repro import configs as ref_configs
+    from repro.models.model import forward as ref_forward
 
-        cfg_ref = ref_configs.get_smoke(arch)
-        jvals, values = _ref_values(cfg_ref)
-        cfg = port_configs.get_smoke(arch)
-        model = params_from_reference(values, cfg, device="cpu")
-        rng = np.random.default_rng(0)
-        toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
-        extra = None
-        if cfg.n_patches or cfg.enc_dec:
-            rows = cfg.n_patches or cfg.enc_len
-            extra = rng.standard_normal((2, rows, cfg.d_model)).astype(np.float32)
-        want = ref_forward(jvals, cfg_ref, tokens=jnp.asarray(toks), mode="prefill",
-                           extra_embed=None if extra is None else jnp.asarray(extra))
-        got = forward(model, cfg, tokens=torch.from_numpy(toks), mode="prefill",
-                      extra_embed=extra)
-        np.testing.assert_allclose(got.logits.numpy(), np.asarray(want.logits),
-                                   atol=LOGIT_ATOL, rtol=0)
-        if cfg.moe is not None:
-            np.testing.assert_array_equal(got.stats["expert_counts"].numpy(),
-                                          np.asarray(want.stats["expert_counts"]))
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        init_model(port_configs.get_smoke(arch), device="cpu")
+    cfg_ref = ref_configs.get_smoke(arch)
+    jvals, values = _ref_values(cfg_ref)
+    cfg = port_configs.get_smoke(arch)
+    model = params_from_reference(values, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 9)).astype(np.int32)
+    extra = None
+    if cfg.n_patches or cfg.enc_dec:
+        rows = cfg.n_patches or cfg.enc_len
+        extra = rng.standard_normal((2, rows, cfg.d_model)).astype(np.float32)
+    want = ref_forward(jvals, cfg_ref, tokens=jnp.asarray(toks), mode="prefill",
+                       extra_embed=None if extra is None else jnp.asarray(extra))
+    got = forward(model, cfg, tokens=torch.from_numpy(toks), mode="prefill",
+                  extra_embed=extra)
+    np.testing.assert_allclose(got.logits.numpy(), np.asarray(want.logits),
+                               atol=LOGIT_ATOL, rtol=0)
+    if cfg.moe is not None:
+        np.testing.assert_array_equal(got.stats["expert_counts"].numpy(),
+                                      np.asarray(want.stats["expert_counts"]))
+    if cfg.ssm is not None or cfg.xlstm is not None:
+        import jax
+
+        want_states = jax.tree_util.tree_leaves(want.cache)
+        got_states = jax.tree_util.tree_leaves(
+            got.cache, is_leaf=lambda a: isinstance(a, torch.Tensor))
+        assert len(got_states) == len(want_states) > 0
+        for a, b in zip(got_states, want_states):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("builder", ["init_model", "init_cache", "params_from_reference"])
