@@ -215,10 +215,11 @@ Then the state-based families, the model entry points (``forward`` in
 prefill, decode and train modes) and the ``Trainer``, as the reference
 drives them (its serving engine refuses them):
 
-* the zamba2 path: zamba2-2.7b (arXiv:2411.15242) at full width and depth
-  (54 Mamba2 layers, d_model 2560, 80 SSM heads of 64, state 64; a shared
-  attention + MLP block of 32 heads of 80 after every 6 layers, one set of
-  weights; 2.42 G parameters, 4.84 GB of bf16 weights), attn_impl="pallas":
+* the zamba2 path: zamba2-2.7b (arXiv:2411.15242) at full width (d_model
+  2560, 80 SSM heads of 64, state 64; a shared attention + MLP block of 32
+  heads of 80 after every 6 layers, one set of weights), its depth cut
+  from 54 Mamba2 layers (9 groups, 2.42 G parameters) to 24 (4 groups) so
+  that the script stays inside its time, attn_impl="pallas":
   a prefill of 8 prompts of 1000 tokens (off the 128-token SSD chunk), 24
   greedy decode steps from the returned state held against the train-mode
   forward of the 1024-token stream, and in float32 compute on the same
@@ -232,11 +233,44 @@ drives them (its serving engine refuses them):
   twin (2 groups) on the card and the CPU: prefill and teacher-forced
   decode logits within 2e-3 of each other and of the full forward, then 2
   training steps (step 1's loss and gradient bounded);
-* the xlstm path: xlstm-1.3b (arXiv:2405.04517) at full width and depth (6
-  groups of 7 mLSTM + 1 sLSTM, d_model 2048, 4 heads; 2.02 G parameters),
-  the same measures (lr 3e-4), the mLSTM's and the sLSTM's layer (its
-  eager time loop) under the profiler, no kernel; its twin is 1 group of
-  7 mLSTM + 1 sLSTM.
+* the xlstm path: xlstm-1.3b (arXiv:2405.04517) at full width (d_model
+  2048, 4 heads), its depth cut from 6 groups of 7 mLSTM + 1 sLSTM (2.02 G
+  parameters) to 3, the same measures (lr 3e-4), the mLSTM's and the
+  sLSTM's layer (its eager time loop) under the profiler, no kernel; its
+  twin is 1 group of 7 mLSTM + 1 sLSTM.
+
+Last, the user-facing entry points (the card freed first):
+
+* the on-device LPT (``scheduler.lpt_assign_torch``) at 160 experts on 16
+  slots (deepseek-v2's expert count; Zipf(1.3) routing of 2^20 tokens),
+  the main path's 352 II cluster loads on 32 slots with slot 0 at speed
+  0.5 and slot 5 dead, and 4,096 operations on 64 slots: the card's
+  assignment and slot loads equal to the CPU's, no host sync under
+  ``torch.cuda.set_sync_debug_mode("error")``, the dead slot given no load,
+  the makespan within float32 of the host ``schedule_lpt``'s; timed with
+  CUDA events beside the host LPT;
+* the plan checker (``repro_torch.analysis.plan_checks``) on the card's
+  plans: the reuse path's snapshot through ``validate_snapshot`` and
+  ``validate_roundtrip``, the elastic path's replay plan and its
+  ``slot_dead`` re-plan through ``validate_wave_plan`` and
+  ``validate_schedule`` (each run where its path made the plan): zero
+  findings;
+* the examples phase: ``python -m repro_torch.examples.<name>`` for the
+  five examples as subprocesses on the card at the reference's sizes
+  (``train_lm --steps 300``, its full run), each exiting 0 within 600 s,
+  while ``inverted_index``, ``quickstart`` §1-§2c and ``moe_balance``'s
+  placement and reuse sections run with ``--device cpu`` (one thread
+  each); their plans, balance ratios, network bytes, top-cluster loads,
+  counts, reuse flags and reasons must equal the card's exactly.
+  Checked: the examples' own asserts, os4m's balance ratio <= hash's
+  (``inverted_index``, ``serve_lm``), every ``serve_lm`` request given
+  exactly its budget, ``train_lm``'s 300 losses finite and falling,
+  ``moe_balance``'s balance <= its baseline at each re-plan, kernels 1
+  and 2 launched by the MapReduce examples on the card and no kernel by
+  the CPU runs. Each example's wall time, ``train_lm``'s tokens/s and
+  peak memory and ``serve_lm``'s tokens/s are printed, and the examples'
+  own launches of kernels 1 and 2 on a line of their own (they run in
+  other processes, so they are not in the kernels line).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
@@ -357,7 +391,7 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_LR = 20, 8, 1024, 1
 MOE_TRAIN_LAYERS, MOE_TRAIN_SLOTS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4, 4, 512
 MOE_TRAIN_STEPS, MOE_REPLAN, MOE_PROFILE_FROM, MOE_PROFILE_TO = 30, 10, 20, 29
 TWIN_PARAM_ATOL = 5e-4
-# The state-based paths (zamba2-2.7b, xlstm-1.3b, full width and depth): a
+# The state-based paths (zamba2-2.7b, xlstm-1.3b, full width, STATE_GROUPS deep): a
 # prefill of STATE_BATCH prompts of STATE_PROMPT tokens (1000 = 7 x 128 +
 # 104: off zamba2's 128-token SSD chunk and xlstm's 512-token mLSTM chunk),
 # STATE_DECODE greedy decode steps from the returned state, held against
@@ -389,10 +423,29 @@ STATE_TRAIN_STEPS, STATE_TRAIN_BATCH, STATE_TRAIN_SEQ = 3, 8, 1024
 STATE_TRAIN_LR = {"zamba2": 3e-5, "xlstm": 3e-4}
 STATE_F32_REL_TOL, STATE_F32_TOL, STATE_GRAD_REL_TOL = 1e-3, 2e-3, 5e-3
 STATE_TWIN_PROMPT, STATE_TWIN_DECODE, STATE_TWIN_STEPS = 48, 8, 2
+# Depth of the state paths, in groups (zamba2: 6 Mamba2 layers + the shared
+# block; xlstm: 7 mLSTM + 1 sLSTM), cut from 9 and 6 at full width so that
+# the whole script, with the examples phase after it, stays well inside its
+# 1,200 s (at full depth it took 1,059.8 s on the H100).
+STATE_GROUPS = {"zamba2-2.7b": 4, "xlstm-1.3b": 3}
 
 # The paths that serve a model (each launches kernel 9 and no other kernel).
 ATTENTION_PATHS = ("serve", "moe", "whisper", "vlm", "mla", "zamba")
 
+# The examples phase: each example as a subprocess on the card (train_lm at
+# its documented full run), and the host-plan sections once more on the CPU,
+# whose printed plans must equal the card's (the keys of each report compared).
+EXAMPLES_ON_CARD = {"inverted_index": [], "quickstart": [], "serve_lm": [],
+                    "moe_balance": [], "train_lm": ["--steps", "300"]}
+EXAMPLES_ON_CPU = {"inverted_index": [],
+                   "quickstart": ["--sections", "schedulers,wordcount,pipelined,reuse"],
+                   "moe_balance": ["--sections", "placement,reuse"]}
+EXAMPLE_HOST_KEYS = {"inverted_index": ("pairs", "clusters", "runs"),
+                     "quickstart": ("schedulers", "wordcount", "pipelined", "reuse"),
+                     "moe_balance": ("placement", "reuse")}
+EXAMPLE_TIMEOUT_S = 600
+LPT_SEED = 15                 # the LPT phase's expert and operation loads
+LPT_DEAD_SLOT = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core rate, dense
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -1592,6 +1645,10 @@ def elastic_path(batches, main_runs, main_plan0, main_peak_gb, pipelined0, count
     check_oracle(res1, oracle1, what)
     print(f"{what}: {res1.plan_reason}, slot {KILL_SLOT} load 0, oracle ok | run "
           f"{info1['wall_ms']:.1f} ms (phase B {info1['phase_b']:.1f})", flush=True)
+    checked = [plan_findings(f"the elastic path's replay plan (slot {KILL_SLOT} killed before "
+                             f"wave {KILL_WAVE})", rplan, n, whole=False),
+               plan_findings("the elastic path's slot_dead re-plan of batch 1", job.last_plan,
+                             n, whole=False)]
 
     # 4. Warm resize 32 -> 24 -> 32: the snapshot is re-projected, and batch
     # 1's pairs re-sliced into 24 shards replay it.
@@ -1666,7 +1723,8 @@ def elastic_path(batches, main_runs, main_plan0, main_peak_gb, pipelined0, count
             "after_kill": info1,
             "resize": {"to_ms": resize_ms, "back_ms": resize_back_ms, "run_24": info24,
                        "run_32": info32, "cache": cache_stats},
-            "sharded": {"killed": sinfo, "run_24": s24info}, "peak_gb": peak_gb}, launches
+            "sharded": {"killed": sinfo, "run_24": s24info}, "peak_gb": peak_gb,
+            "plan_checks": checked}, launches
 
 
 def multi_job_path(batches, counters, n, smi, seed, MapReduceConfig, MapReduceJob,
@@ -3714,12 +3772,13 @@ def state_twin(label, cfg, dev, seed) -> dict:
 
 
 def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
-    """A state-based arch at full width and depth, bf16 weights from seed
-    ``args.seed``: zamba2-2.7b (arXiv:2411.15242: 54 Mamba2 layers, d_model
+    """A state-based arch at full width, its depth cut to STATE_GROUPS groups,
+    bf16 weights from seed ``args.seed``: zamba2-2.7b (arXiv:2411.15242: 54
+    Mamba2 layers in full, d_model
     2560, d_inner 5120 in 80 heads of 64, state 64; the shared attention +
     MLP block after every 6, 32 heads of 80, with attn_impl="pallas":
     kernel 9's simt instance once a group in every prefill and full
-    forward) or xlstm-1.3b (arXiv:2405.04517: 48 layers, 6 groups of 7
+    forward) or xlstm-1.3b (arXiv:2405.04517: 48 layers in full, 6 groups of 7
     mLSTM + 1 sLSTM, d_model 2048, 4 heads, the mLSTM's head dim 1024; no
     kernel). Model level (:func:`state_decode_vs_full`): a prefill of
     STATE_BATCH x STATE_PROMPT, STATE_DECODE greedy decode steps against the
@@ -3740,8 +3799,10 @@ def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
     from repro_torch.train.optim import OptConfig
 
     label = arch.split("-")[0]
-    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
-    groups = cfg.n_layers // (cfg.attn_every or cfg.slstm_every)
+    full = get_config(arch)
+    per = full.attn_every or full.slstm_every
+    groups = STATE_GROUPS[arch]
+    cfg = dataclasses.replace(full, attn_impl="pallas", n_layers=groups * per)
     reset_launches(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3751,10 +3812,12 @@ def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
                                       "xlstm": "arXiv:2405.04517"}[label],
            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
            "params": sum(p.numel() for p in model.parameters()),
-           "weights_gb": weights_gb(model), "init_s": time.perf_counter() - t0, "reduced": {}}
-    print(f"{label} path ({smi}): {arch}, {cfg.n_layers} layers, d_model {cfg.d_model}: "
-          f"{rec['params'] / 1e9:.3f} G params, {rec['weights_gb']:.2f} GB of bf16 weights in "
-          f"{rec['init_s']:.1f} s", flush=True)
+           "weights_gb": weights_gb(model), "init_s": time.perf_counter() - t0,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                       "why": "the script's 1,200 s with the examples phase"}}
+    print(f"{label} path ({smi}): {arch}, {cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}: {rec['params'] / 1e9:.3f} G params, {rec['weights_gb']:.2f} GB of "
+          f"bf16 weights in {rec['init_s']:.1f} s", flush=True)
 
     rng = np.random.default_rng(args.seed + 5)
     prompts = torch.as_tensor(rng.integers(3, cfg.vocab, (STATE_BATCH, STATE_PROMPT)),
@@ -3894,6 +3957,209 @@ def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
           f"{label}: no kernel but kernel 9 on this path ({launches})")
     return rec, launches
 
+
+
+def lpt_phase(ii_loads: np.ndarray, dev, smi) -> dict:
+    """``lpt_assign_torch`` on the card at three sizes: 160 experts on 16 slots
+    (deepseek-v2's expert count; loads are the tokens a Zipf(1.3) router
+    sends each expert out of 2^20), the main path's 352 II cluster loads on
+    32 slots with slot 0 at speed 0.5 and slot 5 dead, and 4,096 operations
+    (Zipf(1.3) loads clipped to 20,000) on 64 slots. Each: the card's
+    assignment and slot loads equal to the same call on the CPU, no host
+    sync (``set_sync_debug_mode("error")`` around the call), the dead slot
+    given no load, the makespan equal within float32 to the host
+    ``schedule_lpt``'s; timed with CUDA events beside the host LPT."""
+    from repro_torch.core.scheduler import lpt_assign_torch, schedule_lpt
+    from repro_torch.data.synthetic import zipf
+
+    rng = np.random.default_rng(LPT_SEED)
+    experts = np.bincount(zipf(rng, 1.3, 2 ** 20) % 160, minlength=160).astype(np.float32)
+    ops = zipf(rng, 1.3, 4096).clip(1, 20_000).astype(np.float32)
+    ii_speeds = np.ones(32, np.float32)
+    ii_speeds[0], ii_speeds[LPT_DEAD_SLOT] = 0.5, 0.0
+    cases = (("160 experts on 16 slots", experts, 16, None),
+             (f"II's {ii_loads.size} clusters on 32 slots (slot 0 at speed 0.5, slot "
+              f"{LPT_DEAD_SLOT} dead)", np.asarray(ii_loads, np.float32), 32, ii_speeds),
+             ("4096 operations on 64 slots", ops, 64, None))
+    out = []
+    for label, loads, m, speeds in cases:
+        check(float(loads.sum()) < 2 ** 24 * m, f"LPT {label}: slot sums exact in float32")
+        want_a, want_l = lpt_assign_torch(loads, m, speeds=speeds, device="cpu")
+        loads_d = torch.as_tensor(loads, device=dev)
+        speeds_d = None if speeds is None else torch.as_tensor(speeds, device=dev)
+
+        def on_card():
+            return lpt_assign_torch(loads_d, m, speeds=speeds_d)
+
+        on_card()                                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_a, got_l = on_card()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(got_a.device == loads_d.device, f"LPT {label}: the result stays on the card")
+        check(torch.equal(got_a.cpu(), want_a) and torch.equal(got_l.cpu(), want_l),
+              f"LPT {label}: the card's assignment and slot loads == the CPU's")
+        host = schedule_lpt(loads.astype(np.float64), m, speeds=speeds)
+        sp = np.ones(m) if speeds is None else speeds.astype(np.float64)
+        alive = sp > 0
+        slot_loads = got_l.cpu().numpy().astype(np.float64)
+        if speeds is not None:
+            dead = np.nonzero(~alive)[0]
+            check(not bool(np.isin(got_a.cpu().numpy(), dead).any())
+                  and bool((slot_loads[dead] == 0).all()),
+                  f"LPT {label}: the dead slot gets no load")
+        makespan = float((slot_loads[alive] / sp[alive]).max())
+        check(abs(makespan - host.makespan) <= 2.0 ** -23 * host.makespan,
+              f"LPT {label}: makespan {makespan} within float32 of the host's {host.makespan}")
+        ms = cuda_ms(on_card, reps=5, warmup=1)
+        host_times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            schedule_lpt(loads.astype(np.float64), m, speeds=speeds)
+            host_times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"case": label, "n": int(loads.size), "slots": m, "ms": ms,
+               "host_ms": float(np.median(host_times)), "makespan": makespan,
+               "host_makespan": float(host.makespan),
+               "same_assignment_as_host": bool(np.array_equal(got_a.cpu().numpy(),
+                                                              host.assignment)),
+               "balance_ratio": float(host.balance_ratio)}
+        out.append(rec)
+        print(f"LPT on the card, {label}: == CPU, no host sync, makespan {makespan:.0f} == host "
+              f"schedule_lpt's (same assignment: {rec['same_assignment_as_host']}) | "
+              f"lpt_assign_torch {ms:.3f} ms (CUDA events) | host schedule_lpt "
+              f"{rec['host_ms']:.3f} ms | {smi}", flush=True)
+    return {"cases": out}
+
+
+def plan_findings(label: str, plan, n: int, whole: bool) -> dict:
+    """The port's plan checker on a plan the card's run made: the whole
+    snapshot and its JSON round trip (``whole``), else its schedule and wave
+    plan. Zero findings, or the run fails."""
+    from repro_torch.analysis import plan_checks
+
+    if whole:
+        findings = (plan_checks.validate_snapshot(plan, label)
+                    + plan_checks.validate_roundtrip(plan, label))
+        checks = ["validate_snapshot", "validate_roundtrip"]
+    else:
+        findings = (plan_checks.validate_wave_plan(plan.waves, n, label)
+                    + plan_checks.validate_schedule(plan.schedule, label))
+        checks = ["validate_wave_plan", "validate_schedule"]
+    check(findings == [], f"plan checks on {label}: "
+          + "; ".join(f.render() for f in findings))
+    print(f"plan checks on {label}: {', '.join(checks)}: 0 findings", flush=True)
+    return {"plan": label, "checks": checks, "findings": len(findings)}
+
+
+def example_cmd(name: str, report: Path, args=(), cpu: bool = False) -> list:
+    return ([sys.executable, "-m", f"repro_torch.examples.{name}", "--report", str(report)]
+            + list(args) + (["--device", "cpu"] if cpu else []))
+
+
+def examples_phase(smi) -> dict:
+    """The five examples (``python -m repro_torch.examples.<name>``) as
+    subprocesses on the card at the reference's sizes, ``train_lm`` at its
+    full ``--steps 300``; meanwhile ``inverted_index``, ``quickstart`` §1-§2c
+    and ``moe_balance``'s placement and reuse sections run once more with
+    ``--device cpu``, and their plans, balance ratios, network bytes,
+    top-cluster loads, counts, reuse flags and reasons must equal the card's
+    exactly. Each run must exit 0 within its timeout; each example writes
+    the numbers it printed, and its own kernel launches, to a JSON report."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        tmp = Path(tmp)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "TMPDIR": str(tmp)}
+        cpu_runs = {name: example_cmd(name, tmp / f"{name}_cpu.json", args, cpu=True)
+                    for name, args in EXAMPLES_ON_CPU.items()}
+        t_cpu = time.perf_counter()
+        # One thread each, so that they take little of the host from the card's runs.
+        procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True, env={**env, "OMP_NUM_THREADS": "1"},
+                                        cwd=ROOT)
+                 for name, cmd in cpu_runs.items()}
+        try:
+            for name, args in EXAMPLES_ON_CARD.items():
+                if name == "train_lm":
+                    args = args + ["--ckpt-dir", str(tmp / "train_lm_ckpt")]
+                report = tmp / f"{name}_card.json"
+                t0 = time.perf_counter()
+                proc = subprocess.run(example_cmd(name, report, args), capture_output=True,
+                                      text=True, timeout=EXAMPLE_TIMEOUT_S, env=env, cwd=ROOT)
+                wall = time.perf_counter() - t0
+                check(proc.returncode == 0, f"example {name} on the card exits 0 (rc "
+                      f"{proc.returncode}: {proc.stderr[-3000:]})")
+                rec = json.loads(report.read_text())
+                rec.update(wall_s=wall, stdout=proc.stdout.splitlines())
+                out[name] = rec
+                print(f"example {name} on the card: rc 0 in {wall:.1f} s | "
+                      + " | ".join(proc.stdout.strip().splitlines()[-3:]), flush=True)
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+                check(proc.returncode == 0, f"example {name} --device cpu exits 0 (rc "
+                      f"{proc.returncode}: {stderr[-3000:]})")
+                rec = json.loads((tmp / f"{name}_cpu.json").read_text())
+                rec["stdout"] = stdout.splitlines()
+                out[f"{name}_cpu"] = rec
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cpu_wall = time.perf_counter() - t_cpu
+
+    # Host plans over the same numpy inputs: the card's numbers == the CPU's.
+    for name, keys in EXAMPLE_HOST_KEYS.items():
+        card, cpu = out[name], out[f"{name}_cpu"]
+        for key in keys:
+            check(card[key] == cpu[key], f"example {name}: {key} on the card == on the CPU")
+        print(f"example {name}: {', '.join(keys)} on the card == --device cpu, exactly",
+              flush=True)
+    ii, qs, sl, mb, tl = (out[k] for k in ("inverted_index", "quickstart", "serve_lm",
+                                           "moe_balance", "train_lm"))
+    check(ii["runs"]["os4m"]["balance_ratio"] <= ii["runs"]["hash"]["balance_ratio"],
+          "inverted_index: os4m's balance ratio <= hash's")
+    check(qs["pipelined"]["bit_identical"] and qs["reuse"]["stats"]["replans"] == 2,
+          "quickstart: pipelined == sequential, two replans (its own asserts)")
+    check(all(np.isfinite(qs["lm"]["losses"])), "quickstart: the tiny LM's losses are finite")
+    check(sl["runs"]["os4m"]["balance_ratio"] <= sl["runs"]["hash"]["balance_ratio"],
+          "serve_lm: os4m's lane balance ratio <= hash's")
+    budgets = {str(i): b for i, b in enumerate(sl["budgets"])}
+    check(all(run["generated"] == budgets for run in sl["runs"].values()),
+          "serve_lm: every request gets exactly its budget (eos=-1)")
+    losses = tl["losses"]
+    check(len(losses) == 300 and all(np.isfinite(losses))
+          and float(np.mean(losses[-10:])) < float(np.mean(losses[:10])),
+          "train_lm: 300 finite losses, the last ten's mean below the first ten's")
+    check(len(mb["trainer"]["replans"]) == 3
+          and all(r["balance_ratio"] <= r["baseline_ratio"] for r in mb["trainer"]["replans"]),
+          "moe_balance: balance <= its baseline at each re-plan")
+    check(all(out[k]["launches"]["histogram"] > 0 and out[k]["launches"]["fused_shuffle_reduce"] > 0
+              for k in ("inverted_index", "quickstart", "moe_balance")),
+          "the MapReduce examples launched kernels 1 and 2 on the card")
+    check(all(all(v == 0 for v in out[f"{k}_cpu"]["launches"].values()) for k in EXAMPLES_ON_CPU),
+          "the --device cpu runs launched no kernel")
+    launches = {k: {kern: out[k]["launches"][kern]
+                    for kern in ("histogram", "fused_shuffle_reduce")} for k in EXAMPLES_ON_CARD}
+    summary = {
+        "wall_s": {k: out[k]["wall_s"] for k in EXAMPLES_ON_CARD}, "cpu_wall_s": cpu_wall,
+        "train_lm_tokens_per_s": tl["tokens_per_s"], "train_lm_peak_gb": tl["peak_gb"],
+        "train_lm_loss": [losses[0], losses[-1]],
+        "serve_lm_tokens_per_s": {s: r["tokens_per_s"] for s, r in sl["runs"].items()},
+        "launches": launches}
+    print(f"examples on the card: wall s {summary['wall_s']} (the --device cpu runs beside "
+          f"them: {cpu_wall:.1f} s) | train_lm: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{tl['tokens_per_s']:.0f} tokens/s (checkpoints included), peak "
+          f"{tl['peak_gb']:.2f} GB | serve_lm tokens/s: "
+          + ", ".join(f"{s} {v:.1f}" for s, v in summary["serve_lm_tokens_per_s"].items())
+          + f" | {smi}", flush=True)
+    print(f"examples' own launches of kernels 1 and 2 (subprocesses): {json.dumps(launches)}",
+          flush=True)
+    out["summary"] = summary
+    return out
 
 
 def main(argv=None) -> int:
@@ -4104,6 +4370,7 @@ def main(argv=None) -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"main path launches: {launches['main']} | peak device memory {peak_gb:.1f} GB",
           flush=True)
+    ii_loads = np.asarray(main_plan0.local_hist, np.float64).sum(axis=0)   # the LPT phase's
 
     # ---- Sequential phase B on batch 0: bit-identical to the pipelined run.
     seq = MapReduceJob(lambda b: b, MapReduceConfig(
@@ -4150,6 +4417,8 @@ def main(argv=None) -> int:
     launches["reuse"] = read_launches(counters)
     cache_stats = job.schedule_cache.stats()
     print(f"reuse path launches: {launches['reuse']} | cache {cache_stats}", flush=True)
+    reuse_plan_checks = plan_findings("the reuse path's snapshot", job.schedule_cache.snapshot,
+                                      n, whole=True)
 
     # A snapshot of the live plan, through JSON, into a fresh job: batch 0
     # replays it with no planner call.
@@ -4171,7 +4440,8 @@ def main(argv=None) -> int:
           f"{phases['phase_b']:.1f} ms | run {warm_ms:.1f} ms", flush=True)
     record["reuse"] = {"runs": reuse_runs, "cache": cache_stats,
                        "snapshot_replay": {"wall_ms": warm_ms, "drift": res.drift,
-                                           **phases}}
+                                           **phases},
+                       "plan_checks": reuse_plan_checks}
     del res, job, warm
     torch.cuda.empty_cache()
 
@@ -4422,6 +4692,14 @@ def main(argv=None) -> int:
                                                          dev, smi)
     record["xlstm_path"], launches["xlstm"] = state_path("xlstm-1.3b", counters, fa_ops, args,
                                                          dev, smi)
+    # ---- Item 13's user-facing half, the card freed first: the on-device LPT,
+    # then the five examples as subprocesses (their kernel launches are
+    # their own: printed above the kernels line, not in it).
+    torch.cuda.empty_cache()
+    print(f"card freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
+    record["lpt"] = lpt_phase(ii_loads, dev, smi)
+    record["examples"] = examples_phase(smi)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).

@@ -42,6 +42,9 @@ Implemented strategies (all return a :class:`Schedule`):
                                solved with an ``eta``-FPTAS.
 * :func:`schedule_brute`     — exact branch-and-bound over finish times for
                                tiny instances (test oracle).
+* :func:`lpt_assign_torch`   — earliest-finish-time LPT as tensor ops on the
+                               loads' device (sort + a loop of argmins), so a
+                               step can re-balance without leaving the device.
 
 Loads are "number of key-value pairs" in the paper; here any non-negative
 measure (tokens routed to an expert, document lengths, request decode
@@ -72,6 +75,7 @@ __all__ = [
     "schedule_brute",
     "schedule_unrelated",
     "get_scheduler",
+    "lpt_assign_torch",
     "SCHEDULERS",
     "AUTO_CANDIDATES",
 ]
@@ -1107,3 +1111,74 @@ def get_scheduler(name: str) -> Callable[..., Schedule]:
             "simulator.pick_strategy)"
         ) from exc
 
+
+
+# ---------------------------------------------------------------------------
+# LPT on the device (the reference's lpt_assign_jax).
+# ---------------------------------------------------------------------------
+
+
+def lpt_assign_torch(loads, num_slots: int, speeds=None, *, device=None):
+    """Earliest-finish-time LPT as tensor ops: ``(assignment, slot_loads)``.
+
+    The reference's ``lpt_assign_jax``. ``loads``: ``(n,)``; ``speeds``:
+    optional ``(num_slots,)`` relative slot speeds (``None`` = all nominal;
+    a speed of exactly 0 is a dead slot, never chosen). Operations are
+    placed in ``argsort(-loads, stable=True)`` order, each on the slot whose
+    finish time ``(slot_load + w) / speed`` is least (the first such slot).
+    ``assignment`` is int32; ``slot_loads`` is in the compute type.
+
+    A tensor input stays on its own device; a numpy array or a list goes to
+    ``default_device(device)`` (the current CUDA device unless the caller
+    names one). float64 / int64 inputs compute in float32 / int32, and
+    integer loads with ``speeds`` in float32, as the reference does with
+    JAX's 64-bit types off. Nothing inside waits for the device (no
+    ``.item()``, no copy to the host): n placement steps of a few launches
+    each, so it suits a few thousand operations.
+    """
+    import torch
+
+    from repro_torch.device import default_device
+
+    if isinstance(loads, torch.Tensor):
+        if device is not None and torch.device(device) != loads.device:
+            raise ValueError(
+                f"loads lie on {loads.device}; device={device!r} places only "
+                "numpy or list loads")
+    else:
+        loads = torch.as_tensor(np.asarray(loads),
+                                device=default_device(device, "lpt_assign_torch"))
+    dev = loads.device
+    # The reference runs with JAX's 64-bit types off; the port computes in
+    # the same types, or its ties break differently.
+    x32 = {torch.float64: torch.float32, torch.int64: torch.int32}
+    dtype = x32.get(loads.dtype, loads.dtype)
+    loads = loads.to(dtype)
+    n = loads.shape[0]
+    if speeds is None:
+        alive = None
+        speeds_t = None
+    else:
+        # Fractional speeds must not truncate against integer loads.
+        dtype = torch.promote_types(loads.dtype, torch.float32)
+        loads = loads.to(dtype)
+        speeds_t = torch.as_tensor(speeds, device=dev).to(dtype)
+        alive = speeds_t > 0
+        speeds_t = torch.where(alive, speeds_t, torch.ones_like(speeds_t))
+    # Stability explicit: equal loads tie-break as the host LPT does.
+    order = torch.argsort(-loads, stable=True)
+    sorted_loads = loads[order]
+    slot_loads = torch.zeros(num_slots, dtype=dtype, device=dev)
+    slots_sorted = torch.empty(n, dtype=torch.int64, device=dev)
+    for i in range(n):
+        w = sorted_loads[i:i + 1]
+        finish = slot_loads + w
+        if speeds_t is not None:
+            finish = (finish / speeds_t).masked_fill_(~alive, float("inf"))
+        elif not finish.is_floating_point():
+            finish = finish.to(torch.float32)    # (load + w) / 1 in float32
+        torch.argmin(finish, dim=0, keepdim=True, out=slots_sorted[i:i + 1])
+        slot_loads.index_add_(0, slots_sorted[i:i + 1], w)
+    assignment = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
+        0, order, slots_sorted.to(torch.int32))
+    return assignment, slot_loads

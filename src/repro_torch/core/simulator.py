@@ -1,24 +1,53 @@
-"""Schedule cost model of a Hadoop-class cluster: the ``auto`` strategy picker.
+"""Discrete-event model of a Hadoop-class cluster running a MapReduce job.
 
-The reference's module also reproduces the paper's job-duration figures
-(``simulate_job`` and its PUMA calibration). The port carries only what
-its engines call: ``scheduler="auto"`` (:func:`pick_strategy`) and the
-reuse cost gate (:func:`estimate_replan_benefit`), both built on
-:func:`estimate_reduce_time` and :func:`scheduling_overhead`, and the
-serving engine's and the multi-job coordinator's admission order
-(:func:`wspt_order`, :func:`weighted_completion_time`).
+The reference's ``repro.core.simulator`` in full, on the host (numpy; no
+device code). Two parts:
 
-The model is the paper's cluster (§5): 8 worker VMs with measured
-bandwidths (network 37 MB/s, disk read 203 MB/s, disk write 121 MB/s) and
-4 Reduce slots per node. Each candidate schedule's Reduce phase is played
-through the copy→sort→run flow shop of :mod:`repro_torch.core.pipeline`.
+* **The paper's job simulator** (:func:`simulate_job`): the *duration*
+  figures of the paper (Figs 2, 7, 8, 9, 12, 13, 14, 15, 16 and Table 4)
+  come from 8 worker VMs with measured bandwidths (network 37 MB/s, disk
+  read 203 MB/s, disk write 121 MB/s), 4 Map + 4 Reduce slots per node,
+  64 MB HDFS blocks and a 500 MB task heap. This module models exactly
+  that cluster; its durations are model seconds of that cluster, never
+  times on a device.
+* **The schedule cost model** behind the engines: ``scheduler="auto"``
+  (:func:`pick_strategy`), the reuse cost gate
+  (:func:`estimate_replan_benefit`), and the serving engine's and the
+  multi-job coordinator's admission order (:func:`wspt_order`,
+  :func:`weighted_completion_time`).
+
+Job model:
+
+* A Map task reads its block from disk, applies the Map function (CPU rate
+  per benchmark), and writes ``block * shuffle_ratio`` of intermediate data.
+* **Hadoop mode**: Reduce copy begins as soon as the first Map wave ends and
+  shares each node's disk+network bandwidth with still-running Map tasks.
+  The contention multiplies Map I/O time by ``1 + c * f`` where ``f`` is the
+  fraction of Map output already produced (this reproduces the wave
+  pattern of Fig 2: 45 s → 86 s → very slow). The Reduce task then runs the
+  three phases sequentially (Fig 4a), with an external multi-pass sort when
+  its input exceeds the task heap.
+* **OS4M mode**: Maps run contention-free; Reduce starts after the last Map,
+  fetches per-operation-cluster bucket files, and streams clusters through
+  the copy→sort→run pipeline in increasing-load order (Fig 4b,
+  ``repro_torch.core.pipeline``). Small parts sort in memory.
+
+The per-Reduce-slot loads come from an actual :mod:`repro_torch.core.scheduler`
+schedule over a synthetic key distribution (zipf-like skew calibrated per
+benchmark to the skew the paper reports in Fig 1).
+
+:func:`synth_key_distribution` seeds its generator with
+``seed + hash(spec.name) % 65536``, as the reference does. Python salts
+``str`` hashes per process (``PYTHONHASHSEED``), so the distribution, and
+every :func:`simulate_job` result built on it, differs from one process to
+the next; within one process the port equals the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,7 +56,12 @@ from repro_torch.core import scheduler as sched_lib
 
 __all__ = [
     "ClusterSpec",
+    "BenchmarkSpec",
+    "SimResult",
     "PAPER_CLUSTER",
+    "PUMA_BENCHMARKS",
+    "synth_key_distribution",
+    "simulate_job",
     "estimate_reduce_time",
     "scheduling_overhead",
     "pick_strategy",
@@ -39,18 +73,178 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSpec:
-    """Per-node rates of the paper's cluster (§5) that the cost model reads.
+    """Paper §5: 8 worker VMs on IBM RC2; 9th VM runs JobTracker/NameNode."""
 
-    The reference's ``ClusterSpec`` also carries the Map-side and
-    contention knobs of its job simulator, which the port does not carry.
-    """
-
+    num_nodes: int = 8
+    map_slots_per_node: int = 4
     reduce_slots_per_node: int = 4
     net_bw: float = 37e6          # B/s per node (measured, paper §5)
     disk_read_bw: float = 203e6   # B/s per node
+    disk_write_bw: float = 121e6  # B/s per node
+    block_bytes: int = 64 * 2**20  # default HDFS block
+    heap_bytes: int = 500 * 2**20  # task JVM heap (paper §5 point 4)
+    # Hadoop map↔copy contention: wave slowdown = 1 + io_coeff * frac_output
+    # * min(shuffle_bytes_per_node / pressure_ref, pressure_cap), capped at
+    # factor_cap. io_coeff is per-benchmark (I/O intensity of the map task);
+    # the per-NODE pressure makes both bigger shuffles and smaller clusters
+    # contend harder (paper §5.5: "with fewer nodes, the data for each node
+    # is larger ... contention is more intensive").
+    pressure_ref: float = 0.75 * 2**30   # per node
+    pressure_cap: float = 3.0
+    factor_cap: float = 4.5
+
+    @property
+    def map_slots(self) -> int:
+        """Cluster-wide Map slot count."""
+        return self.num_nodes * self.map_slots_per_node
+
+    @property
+    def reduce_slots(self) -> int:
+        """Cluster-wide Reduce slot count."""
+        return self.num_nodes * self.reduce_slots_per_node
 
 
 PAPER_CLUSTER = ClusterSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class BenchmarkSpec:
+    """One PUMA benchmark (Table 2/3) with calibration knobs.
+
+    ``zipf_alpha`` / ``num_keys`` shape the intermediate key distribution
+    (Fig 1a showed 1 .. 1.97e6 pairs per operation for RII);
+    ``shuffle_ratio`` = intermediate bytes / input bytes;
+    ``map_cpu_bps`` / ``reduce_cpu_pps`` are the function costs.
+    """
+
+    name: str
+    sizes_gb: Tuple[float, float, float]  # S, M, L (paper Table 3)
+    zipf_alpha: float
+    num_keys: int
+    shuffle_ratio: float
+    map_cpu_bps: float      # map function throughput, bytes/s
+    reduce_cpu_pps: float   # reduce function throughput, pairs/s
+    bytes_per_pair: int
+    io_coeff: float         # map task I/O intensity (contention sensitivity)
+
+
+# The reference's calibration (its benchmarks/fig14_job_duration.py prints
+# the fit): Hadoop durations match Table 4, skew matches Fig 1/5/6
+# qualitatively (II the hardest to balance, SJ nearly uniform), gains
+# anchor Fig 14 (AL_L best ≈42 %, SJ_L worst ≈8 %).
+PUMA_BENCHMARKS: Dict[str, BenchmarkSpec] = {
+    "AL": BenchmarkSpec("AL", (5, 10, 15), 0.80, 60_000, 1.00, 3.9e5, 7.9e3, 96, 0.85),
+    "II": BenchmarkSpec("II", (5, 10, 15), 0.97, 120_000, 0.55, 5.6e5, 1.1e4, 48, 0.70),
+    "RII": BenchmarkSpec("RII", (10, 20, 30), 0.82, 90_000, 0.60, 8.4e5, 1.7e4, 64, 0.55),
+    "SC": BenchmarkSpec("SC", (5, 10, 15), 0.75, 250_000, 1.20, 3.6e5, 7.3e3, 72, 0.60),
+    "SJ": BenchmarkSpec("SJ", (10, 20, 30), 0.40, 150_000, 0.20, 1.2e6, 2.4e4, 56, 0.10),
+    "TV": BenchmarkSpec("TV", (5, 10, 15), 0.82, 80_000, 0.45, 6.6e5, 1.3e4, 40, 0.60),
+}
+
+
+def synth_key_distribution(spec: BenchmarkSpec, input_bytes: float, seed: int = 0) -> np.ndarray:
+    """Per-key pair counts with zipf skew, scaled to the job's shuffle volume."""
+    rng = np.random.default_rng(seed + hash(spec.name) % 65536)
+    ranks = np.arange(1, spec.num_keys + 1, dtype=np.float64)
+    weights = ranks ** (-spec.zipf_alpha)
+    # mild multiplicative noise so ties break realistically
+    weights *= np.exp(rng.normal(0.0, 0.25, size=weights.shape))
+    total_pairs = input_bytes * spec.shuffle_ratio / spec.bytes_per_pair
+    counts = weights / weights.sum() * total_pairs
+    return np.maximum(counts, 1.0)
+
+
+@dataclasses.dataclass
+class SimResult:
+    """Per-job simulation outputs (the quantities the paper's figures plot)."""
+
+    mode: str
+    job_duration: float
+    map_end: float
+    avg_map_duration: float
+    std_map_duration: float
+    avg_reduce_duration: float
+    std_reduce_duration: float
+    avg_sort_delay: float
+    avg_run_delay: float
+    balance_ratio: float
+    map_progress: List[Tuple[float, float]]     # (time, fraction complete)
+    reduce_finish: List[float]
+    phase_times: Dict[str, float]               # avg copy/sort/run busy per task
+
+
+def _map_phase(
+    cluster: ClusterSpec,
+    spec: BenchmarkSpec,
+    num_maps: int,
+    mode: str,
+    input_bytes: float,
+) -> Tuple[float, np.ndarray, List[Tuple[float, float]]]:
+    """Returns (map_end_time, per-task durations, progress trace).
+
+    Hadoop contention model: once any Map output exists, Reduce copy flows
+    share each node's disk and NIC with running Map tasks; a Map task stalls
+    on I/O in proportion to (a) how much output is available to copy
+    (``frac_output``, grows wave by wave — Fig 2's 45 s → 86 s → "extremely
+    slow") and (b) the job's copy pressure (total shuffle volume relative to
+    the cluster's drain capacity — Table 4's superlinear growth with size).
+    OS4M removes the overlap entirely (§4.1 step 6), so its waves are flat
+    (Fig 9's consistent progress rate).
+    """
+    base_io = (
+        cluster.block_bytes / (cluster.disk_read_bw / cluster.map_slots_per_node)
+        + (cluster.block_bytes * spec.shuffle_ratio)
+        / (cluster.disk_write_bw / cluster.map_slots_per_node)
+    )
+    base_cpu = cluster.block_bytes / spec.map_cpu_bps
+    base_wave = base_io + base_cpu
+    shuffle_bytes = input_bytes * spec.shuffle_ratio
+    pressure = min(shuffle_bytes / cluster.num_nodes / cluster.pressure_ref,
+                   cluster.pressure_cap)
+    waves = math.ceil(num_maps / cluster.map_slots)
+    durations = np.zeros(num_maps)
+    progress: List[Tuple[float, float]] = [(0.0, 0.0)]
+    t = 0.0
+    done = 0
+    for _ in range(waves):
+        tasks = min(cluster.map_slots, num_maps - done)
+        if mode == "hadoop":
+            frac_output = done / num_maps
+            factor = min(
+                1.0 + spec.io_coeff * frac_output * pressure, cluster.factor_cap
+            )
+        else:
+            factor = 1.0
+        wave_time = base_wave * factor
+        durations[done : done + tasks] = wave_time
+        t += wave_time
+        done += tasks
+        progress.append((t, done / num_maps))
+    return t, durations, progress
+
+
+def _reduce_loads(
+    spec: BenchmarkSpec,
+    input_bytes: float,
+    num_reduce: int,
+    num_clusters: int,
+    mode: str,
+    seed: int = 0,
+) -> Tuple[np.ndarray, sched_lib.Schedule, np.ndarray]:
+    """Key distribution → clusters → schedule → per-slot cluster load lists."""
+    key_counts = synth_key_distribution(spec, input_bytes, seed)
+    from repro_torch.core import clustering
+
+    key_ids = np.arange(key_counts.shape[0])
+    cids = clustering.cluster_ids_for_keys(
+        sched_lib._default_hash(key_ids).astype(np.int64), num_clusters
+    )
+    cl_loads = clustering.cluster_loads(key_counts, cids, num_clusters)
+    if mode == "hadoop":
+        schedule = sched_lib.schedule_hash(cl_loads, num_reduce, keys=np.arange(num_clusters))
+    else:
+        schedule = sched_lib.schedule_bss(cl_loads, num_reduce)
+    return cl_loads, schedule, key_counts
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +284,10 @@ def estimate_reduce_time(
     ``speeds`` (Q||C_max): per-slot relative speed factors. A slot at
     speed ``s`` runs *every* phase ``1/s`` slower — a straggler node's
     NIC share, disk, and CPU are all degraded together (noisy neighbour /
-    older generation). ``None`` falls back to the schedule's own recorded
-    speeds (nominal when those are unset).
+    older generation), which is the model
+    :mod:`repro_torch.core.slot_speeds` estimates against. ``None`` falls
+    back to the schedule's own recorded speeds (nominal when those are
+    unset).
 
     ``local_hist`` — the per-shard ``(m, n)`` K^(i) histogram of §4.1.
     When given, the copy phase charges each slot only for the pairs that
@@ -267,6 +463,110 @@ def estimate_replan_benefit(
         "fresh_strategy": name,
         "benefit": float(stale - fresh),
     }
+
+
+def simulate_job(
+    benchmark: str,
+    size: str,
+    mode: str,
+    cluster: ClusterSpec = PAPER_CLUSTER,
+    num_reduce: int = 30,           # paper §5: 0.95 * 8 * 4 ≈ 30
+    num_clusters: int = 240,        # paper §5: clustering kicks in above 240
+    pipeline_order: str = "increasing",
+    seed: int = 0,
+) -> SimResult:
+    """Simulate one (benchmark, dataset, mode) job. mode ∈ {hadoop, os4m}."""
+    spec = PUMA_BENCHMARKS[benchmark]
+    size_idx = {"S": 0, "M": 1, "L": 2}[size]
+    input_bytes = spec.sizes_gb[size_idx] * 2**30
+    num_maps = math.ceil(input_bytes / cluster.block_bytes)
+
+    map_end, map_durs, progress = _map_phase(
+        cluster, spec, num_maps, mode, input_bytes
+    )
+
+    cl_loads, schedule, _ = _reduce_loads(
+        spec, input_bytes, num_reduce, num_clusters, mode, seed
+    )
+
+    # Per-node bandwidth shares for Reduce-phase resources.
+    reduce_per_node = cluster.reduce_slots_per_node
+    net_share = cluster.net_bw / reduce_per_node
+    disk_r = cluster.disk_read_bw / reduce_per_node
+    disk_w = cluster.disk_write_bw / reduce_per_node
+
+    reduce_finish: List[float] = []
+    reduce_durations: List[float] = []
+    sort_delays: List[float] = []
+    run_delays: List[float] = []
+    busy = {"copy": 0.0, "sort": 0.0, "run": 0.0}
+
+    for slot in range(num_reduce):
+        members = np.nonzero(schedule.assignment == slot)[0]
+        loads = cl_loads[members]  # pairs per cluster on this slot
+        if loads.size == 0:
+            reduce_finish.append(map_end)
+            reduce_durations.append(0.0)
+            sort_delays.append(0.0)
+            run_delays.append(0.0)
+            continue
+        byte_loads = loads * spec.bytes_per_pair
+        copy_t = byte_loads / net_share
+        run_t = loads / spec.reduce_cpu_pps
+        if mode == "os4m":
+            # §4.4: per-cluster parts; parts under the heap sort in memory.
+            in_mem = byte_loads <= cluster.heap_bytes
+            mem_sort = byte_loads / (disk_r * 4.0)          # memory-speed sort
+            dsk_sort = byte_loads / disk_r + byte_loads / disk_w
+            sort_t = np.where(in_mem, mem_sort, dsk_sort)
+            res = pipe.run_pipelined(
+                pipe.PhaseTimes(copy_t, sort_t, run_t),
+                order=pipe.plan_order(loads, pipeline_order),
+                start=map_end,
+            )
+        else:
+            total_bytes = float(byte_loads.sum())
+            passes = 1 if total_bytes <= cluster.heap_bytes else (
+                2 if total_bytes <= 8 * cluster.heap_bytes else 3
+            )
+            whole_sort = passes * (total_bytes / disk_r + total_bytes / disk_w)
+            # Hadoop overlapped its copy phase with Maps: it has been copying
+            # since the first wave finished, at the contended rate.
+            first_wave_end = map_end / max(
+                1, math.ceil(num_maps / cluster.map_slots)
+            )
+            overlap_window = max(0.0, map_end - first_wave_end)
+            head_start = min(float(copy_t.sum()), overlap_window * 0.6)
+            res = pipe.run_sequential(
+                pipe.PhaseTimes(copy_t, np.zeros_like(copy_t), run_t),
+                start=map_end,
+                copy_head_start=head_start,
+                whole_task_sort=whole_sort,
+            )
+        reduce_finish.append(map_end + res.finish_time)
+        reduce_durations.append(res.finish_time)
+        sort_delays.append(res.sort_delay)
+        run_delays.append(res.run_delay)
+        busy["copy"] += res.copy_busy
+        busy["sort"] += res.sort_busy
+        busy["run"] += res.run_busy
+
+    nr = max(1, num_reduce)
+    return SimResult(
+        mode=mode,
+        job_duration=max(reduce_finish) if reduce_finish else map_end,
+        map_end=map_end,
+        avg_map_duration=float(map_durs.mean()),
+        std_map_duration=float(map_durs.std()),
+        avg_reduce_duration=float(np.mean(reduce_durations)),
+        std_reduce_duration=float(np.std(reduce_durations)),
+        avg_sort_delay=float(np.mean(sort_delays)),
+        avg_run_delay=float(np.mean(run_delays)),
+        balance_ratio=schedule.balance_ratio,
+        map_progress=progress,
+        reduce_finish=reduce_finish,
+        phase_times={k: v / nr for k, v in busy.items()},
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,11 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.launch.serve, repro_torch.launch.steps, repro_torch.launch.train, "
         "repro_torch.train.optim, repro_torch.train.compression, "
         "repro_torch.train.checkpoint, repro_torch.train.loop, repro_torch.data.synthetic, "
-        "repro_torch.data.packing\n"
+        "repro_torch.data.packing, repro_torch.analysis, repro_torch.analysis.__main__, "
+        "repro_torch.analysis.conventions, repro_torch.analysis.plan_checks, "
+        "repro_torch.analysis.targets, repro_torch.examples.quickstart, "
+        "repro_torch.examples.inverted_index, repro_torch.examples.serve_lm, "
+        "repro_torch.examples.moe_balance, repro_torch.examples.train_lm\n"
         "import repro_torch.configs as c\n"
         "[c.get_config(a) for a in c.ARCH_IDS]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "

@@ -172,9 +172,9 @@ def test_golden_assignments():
         loads = rng.zipf(1.3, case["n"]).clip(1, 20_000).astype(float)
         m = case["m"]
         for name, want in case["assignments"].items():
-            if name == "lpt_jax":  # JAX-only scheduler, not in the port
-                continue
-            if name == "brute":
+            if name == "lpt_jax":  # the on-device LPT, on the CPU
+                got = tsched.lpt_assign_torch(loads, m, device="cpu")[0].numpy()
+            elif name == "brute":
                 got = tsched.schedule_brute(loads[:12], min(m, 4)).assignment
             elif name == "hash":
                 got = tsched.schedule_hash(loads, m, keys=np.arange(case["n"])).assignment
