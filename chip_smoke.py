@@ -235,7 +235,7 @@ drives them (its serving engine refuses them):
   training steps (step 1's loss and gradient bounded);
 * the xlstm path: xlstm-1.3b (arXiv:2405.04517) at full width (d_model
   2048, 4 heads), its depth cut from 6 groups of 7 mLSTM + 1 sLSTM (2.02 G
-  parameters) to 3, the same measures (lr 3e-4), the mLSTM's and the
+  parameters) to 2, the same measures (lr 3e-4), the mLSTM's and the
   sLSTM's layer (its eager time loop) under the profiler, no kernel; its
   twin is 1 group of 7 mLSTM + 1 sLSTM.
 
@@ -270,7 +270,19 @@ Last, the user-facing entry points (the card freed first):
   the CPU runs. Each example's wall time, ``train_lm``'s tokens/s and
   peak memory and ``serve_lm``'s tokens/s are printed, and the examples'
   own launches of kernels 1 and 2 on a line of their own (they run in
-  other processes, so they are not in the kernels line).
+  other processes, so they are not in the kernels line);
+* the analysis phase: the traced contract checkers'
+  (``repro_torch.analysis``) twelve phase-B targets recorded with CUDA
+  tensors (kernels 2, 4, 6 and 7 launch), each one's node prims equal to
+  its CPU recording, no overlap or determinism finding, the 17 mutation
+  self-tests caught with their recorded mutants on the card, and kernel 2
+  on real-valued float32 rows at slab lengths 96 / 160 and 3,000 / 5,000
+  giving every shared segment the same bits; its launches are printed on
+  a line of their own, not in the kernels line;
+* the dry-run phase: ``repro_torch.launch.dryrun`` on ``meta`` at the
+  dense training leg's and the serve path's own shapes, its predicted
+  peaks within DRYRUN_PEAK_RTOL of the peaks those paths measured, and
+  nothing allocated on the card.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Any failed check raises, so the exit code is
@@ -425,8 +437,9 @@ STATE_F32_REL_TOL, STATE_F32_TOL, STATE_GRAD_REL_TOL = 1e-3, 2e-3, 5e-3
 STATE_TWIN_PROMPT, STATE_TWIN_DECODE, STATE_TWIN_STEPS = 48, 8, 2
 # Depth of the state paths, in groups (zamba2: 6 Mamba2 layers + the shared
 # block; xlstm: 7 mLSTM + 1 sLSTM), cut from 9 and 6 at full width so that
-# the whole script, with the examples phase after it, stays well inside its
-# 1,200 s (at full depth it took 1,059.8 s on the H100).
+# the whole script, with the examples phase after it, stays inside its
+# 1,200 s (at full depth it took 1,059.8 s on the H100; at 4 and 3 groups
+# 973.5 s on one card's host and 1,073.5 s on a slower one).
 STATE_GROUPS = {"zamba2-2.7b": 4, "xlstm-1.3b": 3}
 
 # The paths that serve a model (each launches kernel 9 and no other kernel).
@@ -444,6 +457,14 @@ EXAMPLE_HOST_KEYS = {"inverted_index": ("pairs", "clusters", "runs"),
                      "quickstart": ("schedulers", "wordcount", "pipelined", "reuse"),
                      "moe_balance": ("placement", "reuse")}
 EXAMPLE_TIMEOUT_S = 600
+# The dry-run's predicted peak memory must be within this fraction of the
+# peak the training and serve paths measure (the allocator's rounding,
+# cuBLAS workspaces and the kernels' own scratch are not modelled). Set
+# between the sound readings on the H100 (-0.50% smollm-360m training,
+# -0.15% Llama-3-8B serving) and the smallest fault worth catching: a
+# model that left out smollm-360m's bf16 gradients (0.82 GB, 5.4% of the
+# 15.25 GB peak).
+DRYRUN_PEAK_RTOL = 0.02
 LPT_SEED = 15                 # the LPT phase's expert and operation loads
 LPT_DEAD_SLOT = 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet, 700 W)
@@ -4162,6 +4183,128 @@ def examples_phase(smi) -> dict:
     return out
 
 
+def first_difference(a: list, b: list) -> dict:
+    """Where two prim sequences part: the index and a few prims around it."""
+    i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return {"index": i, "cpu": a[max(0, i - 3):i + 4], "card": b[max(0, i - 3):i + 4],
+            "lengths": [len(a), len(b)]}
+
+
+def analysis_phase(counters, dev, smi) -> dict:
+    """The traced contract checkers on the card (``repro_torch.analysis``):
+    every phase-B target recorded with CUDA tensors, where kernels 2, 4, 6
+    and 7 launch for real, its node prims equal to the same target's CPU
+    recording; the overlap and determinism checkers give no finding on the
+    card's recordings; all 17 mutation self-tests caught, their recorded
+    mutants on the card; and D3 at run time: kernel 2 on real-valued float32
+    rows at slab lengths 96 / 160 and 3,000 / 5,000 sums every shared
+    segment to the same bits. Its launches are its own: printed, not in the
+    kernels line."""
+    from repro_torch.analysis import determinism, mutations, overlap
+    from repro_torch.analysis import targets as tgt
+
+    t0 = time.perf_counter()
+    reset_launches(counters)
+    cpu = tgt.phase_b_targets("cpu")
+    card = tgt.phase_b_targets(dev)
+    torch.cuda.synchronize()
+    differ = {a.name: first_difference(a.graph.prims(), b.graph.prims())
+              for a, b in zip(cpu, card) if a.graph.prims() != b.graph.prims()}
+    check([t.name for t in cpu] == [t.name for t in card], "analysis: the same targets")
+    check(not differ, f"analysis: every card recording's prims == the CPU's ({differ})")
+    findings = overlap.check_overlap(card) + determinism.check_determinism(card)
+    check(not findings, "analysis: no overlap or determinism finding on the card: "
+          + "; ".join(f.render() for f in findings))
+    results = mutations.run_self_tests(device=dev)
+    missed = [r.name for r in results if not r.caught]
+    check(len(results) == 17 and not missed, f"analysis: 17/17 mutants caught ({missed})")
+    slab = determinism.runtime_slab_invariance(dev)
+    check(not slab, "analysis: kernel 2 bit-equal across slab lengths: "
+          + "; ".join(f.render() for f in slab))
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    check(all(launches[k] > 0 for k in ("fused_shuffle_reduce", "sketch_hist", "stamp_through",
+                                        "xor_words")),
+          f"analysis: the card's recordings launched kernels 2, 4, 6 and 7 ({launches})")
+    rec = {"targets": {t.name: {"nodes": len(t.graph.nodes),
+                                "kernel_nodes": sum(bool(n.attrs.get("kernel"))
+                                                    for n in t.graph.nodes),
+                                "all_to_all": len(t.graph.by_prim("all_to_all")),
+                                "host_callback": len(t.graph.by_prim("host_callback"))}
+                       for t in card},
+           "prims_equal_cpu": not differ, "findings": len(findings),
+           "mutants_caught": len(results) - len(missed), "mutants": len(results),
+           "slab_pairs": [list(p) for p in determinism.SLAB_PAIRS], "slab_bit_equal": not slab,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    print(f"analysis on the card: {len(card)} targets recorded with CUDA tensors, prims == "
+          f"CPU's, 0 findings, mutants {rec['mutants_caught']}/{rec['mutants']} caught, kernel 2 "
+          f"bit-equal at slab lengths {determinism.SLAB_PAIRS} | its own launches "
+          f"{json.dumps(launches)} | {rec['seconds']:.1f} s | {smi}", flush=True)
+    return rec
+
+
+def dryrun_phase(record, args, smi) -> dict:
+    """The one-card dry-run (``repro_torch.launch.dryrun``, on ``meta``) at
+    two of this script's own paths, its predicted peak beside the peak the
+    path measured with ``torch.cuda.max_memory_allocated``, within
+    DRYRUN_PEAK_RTOL:
+
+    * the dense training leg: smollm-360m at full width and depth, a step
+      of TRAIN_BATCH x TRAIN_SEQ with the leg's OptConfig. The leg also
+      keeps its step-10 copies of the weights and of the first moments
+      alive through the steps its peak covers (``at10``, ``m10``): they are
+      added to the step's peak;
+    * the serve path: Llama-3-8B's prefill of the longest prompt on
+      SERVE_LANES lanes against the engine's float32 cache of
+      SERVE_MAX_LEN positions (the engine prefills the prompt on every
+      lane, on a copy of the cache), attn_impl "pallas".
+
+    The dry-run allocates nothing on the card: the allocator's peak over
+    the phase stays at what was allocated before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import Shape
+    from repro_torch.train.optim import OptConfig
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    train = D.dry_run(get_config("smollm-360m"), Shape("chip", "train", TRAIN_SEQ, TRAIN_BATCH),
+                      opt_cfg=OptConfig(lr=TRAIN_LR, warmup_steps=5, decay_steps=TRAIN_STEPS))
+    kept = train["weights_bytes"] + train["moments_bytes"] // 2
+    cfg = dataclasses.replace(get_config("llama3-8b"), attn_impl="pallas")
+    longest = max(int(r.prompt.shape[0]) for r in serve_requests(cfg.vocab, args.seed))
+    serve = D.dry_run(cfg, Shape("chip", "prefill", longest, SERVE_LANES),
+                      max_len=SERVE_MAX_LEN, cache_dtype=torch.float32)
+    seconds = time.perf_counter() - t0
+    check(torch.cuda.max_memory_allocated() == before == torch.cuda.memory_allocated(),
+          "dry-run: nothing allocated on the card")
+    legs = {
+        "train_smollm_360m": {"predicted_gb": (train["peak_memory_bytes"] + kept) / 1e9,
+                              "step_peak_gb": train["peak_memory_bytes"] / 1e9,
+                              "kept_copies_gb": kept / 1e9,
+                              "measured_gb": record["train_path"]["dense"]["peak_gb"],
+                              "record": train},
+        "serve_llama3_8b": {"predicted_gb": serve["peak_memory_bytes"] / 1e9,
+                            "longest_prompt": longest,
+                            "measured_gb": record["serve_path"]["peak_gb"], "record": serve}}
+    for name, leg in legs.items():
+        leg["rel_err"] = (leg["predicted_gb"] - leg["measured_gb"]) / leg["measured_gb"]
+        print(f"dry-run {name}: predicted peak {leg['predicted_gb']:.3f} GB, measured "
+              f"{leg['measured_gb']:.3f} GB ({leg['rel_err']:+.4f}) | FLOPs "
+              f"{leg['record']['flops']:.4g}, bytes {leg['record']['hbm_bytes']:.4g}, bound "
+              f"{leg['record']['roofline']['step_time_lower_bound_s'] * 1e3:.3f} ms "
+              f"({leg['record']['roofline']['dominant']}), fits {leg['record']['fits_one_h100']}"
+              f" (deepest {leg['record']['max_layers_fit']} of {leg['record']['n_layers']})",
+              flush=True)
+    for name, leg in legs.items():
+        check(abs(leg["rel_err"]) <= DRYRUN_PEAK_RTOL,
+              f"dry-run {name}: predicted peak within {DRYRUN_PEAK_RTOL:.0%} of the measured")
+    print(f"dry-run: {seconds:.1f} s on the host, nothing on the card | {smi}", flush=True)
+    return {"legs": legs, "seconds": seconds, "rtol": DRYRUN_PEAK_RTOL}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4700,6 +4843,10 @@ def main(argv=None) -> int:
           flush=True)
     record["lpt"] = lpt_phase(ii_loads, dev, smi)
     record["examples"] = examples_phase(smi)
+    # ---- Item 13: the traced contract checkers on the card's recordings,
+    # and the one-card dry-run beside the peaks the paths above measured.
+    record["analysis"] = analysis_phase(counters, dev, smi)
+    record["dryrun"] = dryrun_phase(record, args, smi)
 
     # ---- Result lines. A kernel's launches are its counts over the paths
     # (each path read with the counts set to 0 just before it).

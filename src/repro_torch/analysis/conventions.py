@@ -1,7 +1,7 @@
 """AST convention lint over ``src/repro_torch`` — the source-level contract layer.
 
 The reference's lint (``repro.analysis.conventions``) carried to the
-port's idioms. Two rules:
+port's idioms. Three rules:
 
 * **capture-rng-time (C1)** — no ``time.*`` / ``random.*`` /
   ``np.random.*`` calls inside a function that is captured once and
@@ -21,11 +21,17 @@ port's idioms. Two rules:
   (``stable=`` or numpy's ``kind=``). The identical-sort contract must be
   visible in the source, not inherited from a default.
 
-The reference's third rule (C3, an ``# analysis: allow-callback`` marker
-at every ``io_callback`` / ``pure_callback`` site) has no counterpart: the
-port's device code calls back into Python nowhere, because its host code
-drives the device rather than being traced into it. Its allowlist module is
-not ported.
+* **callback-marker (C3)** — in the phase-B modules (``core/mapreduce.py``,
+  ``kernels/wave_timer``, ``kernels/coded_shuffle``), every call that
+  syncs with the host (``.item()``, ``.cpu()``, ``.tolist()``,
+  ``.numpy()``, ``.nonzero()``, ``.to("cpu")``, ``torch.cuda.synchronize``)
+  carries an ``# analysis: allow-callback`` marker on the call (or the
+  line above), and sits in a function decorated with
+  ``allowlist.allow_callback``. The marker and the decorator are the
+  source-level half of the :mod:`repro_torch.analysis.allowlist`
+  declaration that the determinism checker (D1) reads from the recorded
+  programs: greppable, reviewed in diffs, and checked here so it cannot
+  rot.
 
 The ``analysis`` package itself is excluded from tree scans, as in the
 reference.
@@ -48,6 +54,12 @@ _STABILITY_KWARGS = {"stable", "kind"}
 
 # Files whose sorts shape the shuffle wire (C2 scope).
 _WIRE_PARTS = ("core/mapreduce.py", "kernels/coded_shuffle")
+# Files of phase B whose host syncs must be declared (C3 scope).
+_CALLBACK_PARTS = ("core/mapreduce.py", "kernels/wave_timer", "kernels/coded_shuffle")
+# Calls that make the host wait for the device.
+_SYNC_ATTRS = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
+_MARKER = "# analysis: allow-callback"
+_DECLARE = "allow_callback"
 
 
 def _final_attr(func: ast.expr) -> Optional[str]:
@@ -269,13 +281,65 @@ class _ModuleLint:
         return findings
 
 
+    def _is_sync_call(self, node: ast.Call) -> bool:
+        attr = _final_attr(node.func)
+        if attr in _SYNC_ATTRS and isinstance(node.func, ast.Attribute):
+            return True
+        if attr == "to" and isinstance(node.func, ast.Attribute):
+            args = list(node.args) + [kw.value for kw in node.keywords if kw.arg == "device"]
+            return any(isinstance(a, ast.Constant) and a.value == "cpu" for a in args)
+        return False
+
+    def _declared(self, fn) -> bool:
+        return fn is not None and any(
+            _final_attr(d.func if isinstance(d, ast.Call) else d) == _DECLARE
+            for d in fn.decorator_list)
+
+    def check_callback_markers(self) -> List[Finding]:
+        posix = self.path.as_posix()
+        if not any(part in posix for part in _CALLBACK_PARTS):
+            return []
+        findings: List[Finding] = []
+        enclosing = {}
+        for fn in ast.walk(self.tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    enclosing[node] = fn          # innermost def wins (walk is outer first)
+        flagged = set()
+        for node in ast.walk(self.tree):
+            if not isinstance(node, ast.Call) or not self._is_sync_call(node) \
+                    or node.lineno in flagged:
+                continue
+            start = max(0, node.lineno - 2)          # line above the call
+            end = getattr(node, "end_lineno", node.lineno)
+            marked = any(_MARKER in line for line in self.lines[start:end])
+            fn = enclosing.get(node)
+            if marked and self._declared(fn):
+                continue
+            flagged.add(node.lineno)
+            why = ("without an '# analysis: allow-callback' marker" if not marked else
+                   f"in {fn.name if fn else 'module scope'}, which is not decorated "
+                   "with allowlist.allow_callback")
+            findings.append(Finding(
+                checker="conventions",
+                rule="callback-marker",
+                target=str(self.path),
+                summary=(
+                    f"host sync {_dotted(node.func) or 'call'}() {why} — syncs "
+                    "must be declared where they are made, not discovered"),
+                evidence=[self._excerpt(node)],
+            ))
+        return findings
+
+
 def lint_paths(paths: Iterable[pathlib.Path]) -> List[Finding]:
-    """Run both convention rules over the given Python files."""
+    """Run all three convention rules over the given Python files."""
     findings: List[Finding] = []
     for p in paths:
         lint = _ModuleLint(pathlib.Path(p))
         findings.extend(lint.check_capture_host_effects())
         findings.extend(lint.check_wire_sorts())
+        findings.extend(lint.check_callback_markers())
     return findings
 
 

@@ -3,15 +3,18 @@
 Every checker returns a list of :class:`Finding`; the CLI merges them
 into a :class:`Report` whose exit code is a *bitmask* with one bit per
 checker, so a red run names its checker(s) from the status alone. The
-bits are the reference analyzer's (whose ``overlap`` 1 and
-``determinism`` 2 the port does not carry yet)::
+bits are the reference analyzer's::
 
+    overlap      -> 1
+    determinism  -> 2
     plan         -> 4
     conventions  -> 8
+    (self-test failure adds 16)
 
-A finding always carries non-empty ``evidence`` — for plan checkers the
-violated invariant with the concrete values, for the AST lint the
-file:line source excerpt.
+A finding always carries non-empty ``evidence`` — for the recorded-program
+checkers the offending dependency chain, one op per line, for plan
+checkers the violated invariant with the concrete values, for the AST
+lint the file:line source excerpt.
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Sequence
 
-CHECKERS = ("plan", "conventions")
+CHECKERS = ("overlap", "determinism", "plan", "conventions")
 
 # Exit-code bit per checker (CLI contract, see module docstring).
 CHECKER_BITS: Dict[str, int] = {
+    "overlap": 1,
+    "determinism": 2,
     "plan": 4,
     "conventions": 8,
 }
+SELF_TEST_BIT = 16
 
 
 @dataclasses.dataclass(frozen=True)

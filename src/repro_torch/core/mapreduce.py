@@ -112,6 +112,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import allowlist
 from repro_torch.core import clustering
 from repro_torch.core import mesh_timing as mt
 from repro_torch.core import pipeline as pipe
@@ -430,10 +431,14 @@ def _copy_chunk(buckets):
     return tuple(_transpose_slots(t).flatten(1, 2) for t in buckets)
 
 
+@allowlist.exact_accumulate
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``(m, R, W)`` rows summed by ``seg (m, R)`` in ``[0, S]`` → ``(m, S, W)``.
 
-    Id ``S`` is the dump segment and is dropped.
+    Id ``S`` is the dump segment and is dropped. Every caller sums 0/1
+    indicators (pair counts): integer-valued sums, exact in any order of
+    additions while below the dtype's integer limit (2^24 in float32), so
+    the determinism checker takes its ``index_add_`` as declared exact.
     """
     m, _, w = data.shape
     flat = seg + torch.arange(m, device=seg.device)[:, None] * (num_segments + 1)
@@ -1651,6 +1656,7 @@ class MapReduceJob:
             return max(1e-6, self._last_wire[0] / self._last_wire[1])
         return 64.0
 
+    @allowlist.allow_callback
     def _wire_accounting(self, wire, values, replication: int) -> dict:
         """Convert the device row counters into bytes (static row sizes).
 
@@ -1661,6 +1667,7 @@ class MapReduceJob:
         (payload words + cluster word + position word); replica rows ship
         the raw record (payload + 4-byte key hash).
         """
+        # analysis: allow-callback
         rows, rep_rows, inexact, pairs = (int(x) for x in wire.tolist())
         quantize = self.cfg.quantize_shuffle
         v_dim = int(values.shape[-1])
@@ -1934,6 +1941,7 @@ class MapReduceJob:
         return (planned.stats_overestimate and planned.capacity == safe
                 and all(c == safe for c in planned.chunk_caps))
 
+    @allowlist.allow_callback
     def _needed_caps(self, intermediate, planned: sc.CachedSchedule):
         """Buffer sizes that run ``planned`` with the same drops, and no more.
 
@@ -1965,6 +1973,7 @@ class MapReduceJob:
                 per_group = torch.bincount(flat.reshape(-1), minlength=rows * (groups + 1))
                 per_group = per_group.view(rows, groups + 1)[:, :groups].reshape(
                     rows, chunks, m)
+                # analysis: allow-callback
                 need = np.maximum(need, torch.cat([
                     per_group.amax(dim=(0, 2)),
                     per_group.sum(dim=1).amax().reshape(1)]).cpu().numpy())
@@ -2048,6 +2057,7 @@ class MapReduceJob:
             wt_ops.tick_calibration(self.device).seconds_per_tick)
         return self._from_groups([res[:4] for res in results]), timings
 
+    @allowlist.allow_callback
     def _execute_measured_fenced(self, intermediate, planned: sc.CachedSchedule, caps=None):
         """Fenced fallback: per-wave steps + host-attributed clocks.
 
@@ -2089,7 +2099,7 @@ class MapReduceJob:
                     recv.append(self._wave_copy(j, sends, events, c))
             if self.device.type == "cuda":               # the fence
                 for dev in {d for _, d in groups}:
-                    torch.cuda.synchronize(dev)
+                    torch.cuda.synchronize(dev)      # analysis: allow-callback
             loads0 = _build.loads
             markers = []
             outs = []
@@ -2162,12 +2172,15 @@ class MapReduceJob:
             return _copy_chunk(sends[0][chunk])
         return self._copy_to(j, sends, events, chunk)
 
+    @allowlist.allow_callback
     def _host_merge(self, outs):
         """One wave's per-group ``(out, counts)`` → host ``(values (n, V),
         counts (n,))``, summed over slots (each cluster is reduced on one
         slot), as :meth:`run` merges a whole batch."""
         m, n = self.cfg.num_slots, self.cfg.num_clusters
+        # analysis: allow-callback
         values = self._gather([o[0] for o in outs]).cpu().numpy().reshape(m, n, -1).sum(axis=0)
+        # analysis: allow-callback
         counts = self._gather([o[1] for o in outs]).cpu().numpy().reshape(m, n).sum(axis=0)
         return values, counts
 
@@ -2221,8 +2234,10 @@ class MapReduceJob:
                 state["values"] = state["values"] + o
             state["counts"] = state["counts"] + ct
 
+        @allowlist.allow_callback
         def overflow_of(counts):
             """Sum of the groups' overflow scalars, pulled."""
+            # analysis: allow-callback
             return int(self._gather([c.reshape(1) for c in counts]).sum())
 
         def fire(due):
@@ -2231,10 +2246,12 @@ class MapReduceJob:
                 self._kill_at_wave.pop(slot, None)
                 self._mark_slot_dead(slot)
 
+        @allowlist.allow_callback
         def replay(cursor: int):
             """Re-plan + re-execute the unfinished waves on the survivors."""
             completed = (ckpt.completed_clusters if ckpt.completed_clusters is not None
                          else np.zeros(n, dtype=bool))
+            # analysis: allow-callback
             hist = self._gather(local_k).cpu().numpy().astype(np.float64)
             hist[:, completed] = 0.0
             replan = self._plan(hist, hist.sum(axis=0), k_per_shard, prev=None,
@@ -2289,6 +2306,7 @@ class MapReduceJob:
 
     # -- public API ----------------------------------------------------------
 
+    @allowlist.allow_callback
     def run(self, inputs) -> JobResult:
         """Execute the full job: phase A → {replay cached | host plan} → phase B.
 
@@ -2340,8 +2358,10 @@ class MapReduceJob:
             decision = cache.decide(fresh, fresh_speeds=self.current_speeds())
         local_hist = slot_sum = None
         if decision is None or decision.action == "replan":
+            # analysis: allow-callback
             local_hist = self._gather(local_k).cpu().numpy()
         else:
+            # analysis: allow-callback
             slot_sum = self._gather(local_k).sum(dim=0).cpu().numpy()
         t1 = time.perf_counter()
 
@@ -2377,9 +2397,9 @@ class MapReduceJob:
             key_dist = provider.key_dist(local_hist)
             prev = cache.snapshot if cache is not None else None
             if prefix_k is not None:
-                planned = self._plan_prefixed(local_hist,
-                                              self._gather(prefix_k).cpu().numpy(),
-                                              k_per_shard, prev=prev)
+                # analysis: allow-callback
+                prefix_hist = self._gather(prefix_k).cpu().numpy()
+                planned = self._plan_prefixed(local_hist, prefix_hist, k_per_shard, prev=prev)
             else:
                 planned = self._plan(local_hist, key_dist, k_per_shard, prev=prev)
             if cache is not None:
@@ -2394,6 +2414,7 @@ class MapReduceJob:
         if checkpointing:
             self.last_replay_plan = None
 
+        @allowlist.allow_callback
         def execute(plan, caps=None):
             """Phase B under ``plan``: ``(results, overflow, timings)``. The
             checkpointed walk's results are the host ``(values, counts)``,
@@ -2407,6 +2428,7 @@ class MapReduceJob:
             else:
                 results, timings = self._execute(intermediate, plan, caps), None
             results = self._as_groups(results)
+            # analysis: allow-callback
             return results, int(self._gather([r[2].reshape(1) for r in results]).sum()), timings
 
         # A reused escalated plan replays at the batch's cut caps, as the
@@ -2424,6 +2446,7 @@ class MapReduceJob:
         # clean checkpointed pass.
         if decision is not None and decision.action == "reuse" and overflow_total > 0:
             cache.capacity_fallbacks += 1
+            # analysis: allow-callback
             local_hist = self._gather(local_k).cpu().numpy()
             key_dist = provider.key_dist(local_hist)
             planned = self._plan(local_hist, key_dist, k_per_shard,

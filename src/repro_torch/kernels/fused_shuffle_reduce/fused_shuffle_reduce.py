@@ -4,13 +4,16 @@ and a Python mirror of the kernel's tile plan.
 The kernel cuts each segment's rows into tiles of :data:`TILE_ROWS` rows
 anchored at the segment's first row and hands each tile to the position
 block ``[b T, (b + 1) T)`` of its slot that holds the tile's first row.
-:func:`tile_plan` lists those tiles as the kernel walks them; the tests
+:func:`launch_geometry` is the launch's geometry, a pure function that the
+launch itself calls (and the determinism checker reads, D3);
+:func:`tile_plan` lists the tiles as the kernel walks them; the tests
 hold it to covering every valid row exactly once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Tuple
 
@@ -21,6 +24,24 @@ from repro_torch.kernels import _build
 
 # Rows a tile: a multiple of the warp's 32 lanes (each lane adds 64 rows).
 TILE_ROWS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    """Rows a tile, and position blocks (tiles) a slot, of one launch."""
+
+    tile_rows: int
+    tiles: int
+
+
+def launch_geometry(n: int, v: int) -> LaunchGeometry:
+    """The geometry of a launch over ``n`` rows of ``v``-wide values.
+
+    The tile is fixed: a segment's tiles, anchored at its first row, are
+    then the same whatever the slab's length, and so are its sums' bits.
+    """
+    del v
+    return LaunchGeometry(tile_rows=TILE_ROWS, tiles=-(-n // TILE_ROWS))
 
 
 @functools.cache
@@ -45,12 +66,13 @@ def fused_gather_segment_reduce_cuda(
     m, n, v = values.shape
     num_segments = out.shape[1]
     dev = values.device
+    geo = launch_geometry(n, v)
     starts = torch.empty((m, num_segments + 1), dtype=torch.int64, device=dev)
     arrivals = torch.empty((m, num_segments), dtype=torch.int32, device=dev)
-    partials = torch.empty((m, -(-n // TILE_ROWS), 2, v), dtype=torch.float32, device=dev)
+    partials = torch.empty((m, geo.tiles, 2, v), dtype=torch.float32, device=dev)
     rc = _entry()(values.data_ptr(), gather_idx.data_ptr(), seg_ids.data_ptr(),
                   out.data_ptr(), counts.data_ptr(), starts.data_ptr(), arrivals.data_ptr(),
-                  partials.data_ptr(), m, n, v, num_segments, TILE_ROWS,
+                  partials.data_ptr(), m, n, v, num_segments, geo.tile_rows,
                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused shuffle-reduce kernel launch failed: cudaError {rc}")

@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import allowlist
 from repro_torch.device import default_device
 from repro_torch.kernels.wave_timer import calibration as _cal
 from repro_torch.kernels.wave_timer import ref as wt_ref
@@ -160,12 +161,14 @@ def stamp_through(primary: torch.Tensor, *anchors: torch.Tensor, streams: Sequen
     return out, ticks
 
 
+@allowlist.allow_callback
 def ticks_numpy(words: torch.Tensor) -> np.ndarray:
     """Stamp words (uint32, any leading shape) → a numpy uint32 array.
 
     Pulled through their int32 view: the bits are the same, and every
     PyTorch copy takes int32.
     """
+    # analysis: allow-callback
     return words.view(torch.int32).cpu().numpy().view(np.uint32)
 
 

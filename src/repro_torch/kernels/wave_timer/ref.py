@@ -19,6 +19,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis import allowlist
+
 __all__ = ["read_ticks_ref", "split_ticks", "combine_ticks", "stamp_through_ref"]
 
 _WORD = np.uint64(0xFFFFFFFF)
@@ -49,11 +51,13 @@ def combine_ticks(words) -> np.ndarray:
     return ((w[..., 0] | (w[..., 1] << _SHIFT))).astype(np.int64)
 
 
+@allowlist.allow_callback
 def read_ticks_plain() -> torch.Tensor:
     """The plain ``read_ticks``: one host stamp as a ``(2,)`` uint32 tensor."""
     return torch.from_numpy(read_ticks_ref())
 
 
+@allowlist.allow_callback
 def stamp_through_ref(primary: torch.Tensor):
     """The plain ``stamp_through``: ``(primary.clone(), host stamp)``."""
     return primary.clone(), read_ticks_plain()

@@ -1,26 +1,78 @@
-"""The train step of the port (the reference's ``repro.launch.steps.
-build_train_step``).
+"""Step builders and input specs for training and serving (the reference's
+``repro.launch.steps``) on one card.
 
-The reference's step is one jitted program over sharded parameters; here
-it is a function that runs the forward and the backward on the model's
-device and applies AdamW in place. The reference's sharding specs
-(``param_specs``, ``opt_specs``, ``input_specs``) and its prefill and
-decode steps are XLA-only: they wait for the multi-device slice
-(ROADMAP item 13).
+``build_train_step`` returns a function that runs the forward and the
+backward on the model's device and applies AdamW in place (the
+reference's step is one jitted program over sharded parameters).
+``build_prefill_step`` / ``build_decode_step`` / ``build_step_for_shape``
+return ``(step_fn, example_args)`` as the reference's do, with the example
+arguments built on PyTorch's ``meta`` device: every parameter, optimizer
+moment, cache leaf and input has its real shape and dtype and no storage,
+so ``step_fn(*example_args)`` runs the whole step without allocating
+anything (the dry-run, :mod:`repro_torch.launch.dryrun`). The reference's
+``NamedSharding``s have no counterpart: one card holds every tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.models import model as MDL
 from repro_torch.models.config import ModelConfig, Shape
-from repro_torch.train.optim import OptConfig, adamw_step
+from repro_torch.train.optim import OptConfig, adamw_step, init_opt
 
-__all__ = ["build_train_step"]
+__all__ = ["param_specs", "opt_specs", "cache_specs", "input_specs", "build_train_step",
+           "build_prefill_step", "build_decode_step", "build_step_for_shape"]
+
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# Shapes and dtypes on the meta device (no allocation)
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: ModelConfig) -> MDL.DecoderModel:
+    """The model with every weight on ``meta``: its real shapes and dtypes,
+    no storage (``named_parameters()`` are the specs)."""
+    return MDL.DecoderModel(cfg, device=META)
+
+
+def opt_specs(params: Dict[str, torch.Tensor], opt_cfg: OptConfig) -> dict:
+    """AdamW's state for ``params`` on ``meta``. The step counter is a host
+    scalar: the update reads it on the host (the bias corrections)."""
+    state = init_opt(params, opt_cfg)
+    state["step"] = torch.zeros((), dtype=torch.int32)
+    return state
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16) -> dict:
+    """The serving cache of ``batch`` sequences of ``max_len`` on ``meta``."""
+    return MDL.init_cache(cfg, batch, max_len, dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: Shape) -> Dict[str, Any]:
+    """Every model input of ``shape`` on ``meta``: the tokens (the text part
+    of a vlm's sequence), a vlm's patch embeddings or whisper's frames (bf16,
+    as the reference's), one token a lane for a decode."""
+    b = shape.global_batch
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = torch.empty((b, shape.seq_len - (cfg.n_patches or 0)),
+                                    dtype=torch.int32, device=META)
+        if cfg.n_patches:
+            out["extra_embed"] = torch.empty((b, cfg.n_patches, cfg.d_model),
+                                             dtype=torch.bfloat16, device=META)
+        if cfg.enc_dec:
+            out["extra_embed"] = torch.empty((b, cfg.enc_len, cfg.d_model),
+                                             dtype=torch.bfloat16, device=META)
+    else:
+        out["tokens"] = torch.empty((b, 1), dtype=torch.int32, device=META)
+    return out
 
 
 def build_train_step(cfg: ModelConfig, shape: Shape, opt_cfg: OptConfig = OptConfig(), *,
@@ -85,3 +137,71 @@ def build_train_step(cfg: ModelConfig, shape: Shape, opt_cfg: OptConfig = OptCon
         return model, opt_state, metrics
 
     return train_step
+
+
+def _train_example(cfg: ModelConfig, shape: Shape, opt_cfg: OptConfig):
+    model = param_specs(cfg).requires_grad_(True)
+    params = {k: p for k, p in model.named_parameters()}
+    placements = MDL.default_placements(cfg, 1, device=META)
+    return model, opt_specs(params, opt_cfg), input_specs(cfg, shape), placements
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def build_prefill_step(cfg: ModelConfig, shape: Shape, cache_dtype=torch.bfloat16, *,
+                       max_len: Optional[int] = None):
+    """Prefill: run the prompt, return ``(last-token logits, filled cache)``.
+
+    Returns ``(prefill_step, (model, batch, cache))`` with the example
+    arguments on ``meta``; the cache holds ``max_len`` positions (default
+    ``shape.seq_len``).
+    """
+    moe_cap = MDL.moe_capacity_for_shape(cfg, shape.global_batch, shape.seq_len, 1)
+
+    def prefill_step(model, batch, cache):
+        with torch.inference_mode():            # as the serving engine runs
+            out = MDL.forward(model, cfg, tokens=batch["tokens"],
+                              extra_embed=batch.get("extra_embed"), mode="prefill",
+                              cache=cache, cache_pos=0, moe_capacity=moe_cap)
+            return out.logits[:, -1:], out.cache
+
+    cache = cache_specs(cfg, shape.global_batch, max_len or shape.seq_len, cache_dtype)
+    return prefill_step, (param_specs(cfg), input_specs(cfg, shape), cache)
+
+
+def build_decode_step(cfg: ModelConfig, shape: Shape, cache_dtype=torch.bfloat16):
+    """One new token a lane against a cache of ``shape.seq_len`` positions.
+
+    Returns ``(decode_step, (model, cache, batch, pos))`` on ``meta``, with
+    ``pos`` the last position of every lane; the decode writes its step
+    into the cache in place, as the engine's does.
+    """
+    moe_cap = MDL.moe_capacity_for_shape(cfg, shape.global_batch, 1, 1)
+
+    def decode_step(model, cache, batch, pos):
+        with torch.inference_mode():
+            out = MDL.forward(model, cfg, tokens=batch["tokens"], mode="decode", cache=cache,
+                              cache_pos=pos, moe_capacity=moe_cap)
+            return out.logits, out.cache
+
+    cache = cache_specs(cfg, shape.global_batch, shape.seq_len, cache_dtype)
+    # One position a lane, as the engine's decode passes them (a scalar
+    # position would be read on the host).
+    pos = torch.full((shape.global_batch,), shape.seq_len - 1, dtype=torch.int32, device=META)
+    return decode_step, (param_specs(cfg), cache, input_specs(cfg, shape), pos)
+
+
+def build_step_for_shape(cfg: ModelConfig, shape: Shape, *, opt_cfg: OptConfig = OptConfig(),
+                         microbatches: int = 1, cache_dtype=torch.bfloat16,
+                         max_len: Optional[int] = None):
+    """``(step_fn, example_args)`` of ``shape``'s kind, the example on ``meta``
+    (an MoE config's experts on one expert slot)."""
+    if shape.kind == "train":
+        step = build_train_step(cfg, shape, opt_cfg, microbatches=microbatches)
+        return step, _train_example(cfg, shape, opt_cfg)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, cache_dtype, max_len=max_len)
+    return build_decode_step(cfg, shape, cache_dtype)

@@ -157,8 +157,10 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections,
     if sum(sections) != d // 2:
         raise ValueError(f"mrope sections {tuple(sections)} must sum to D/2 = {d // 2}")
     inv = rope_freqs(d, theta, device=x.device)
+    # output_size: the length is known on the host, so nothing is read back.
     sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.as_tensor(sections, device=x.device))
+                                     torch.as_tensor(sections, device=x.device),
+                                     output_size=d // 2)
     index = sec_id.expand(positions_3d.shape[:-1] + (d // 2,))
     pos = torch.gather(positions_3d.float(), -1, index)   # (..., T, D/2)
     ang = pos * inv

@@ -15,8 +15,10 @@
   flagged C2 (``wire-sort-stability``); a clock or RNG in a function given
   to ``torch.compile`` / ``make_graphed_callables`` or in a
   ``torch.cuda.graph`` body is flagged C1 (``capture-rng-time``).
-* ``TestReport`` / ``TestCLI`` as the reference's, with the port's two
-  checkers (bits 4 and 8).
+* ``TestReport`` / ``TestCLI`` as the reference's, with its four checkers'
+  bits (1, 2, 4, 8) and the self-test bit 16. The recorded-program
+  checkers and the mutation self-tests have their own file,
+  ``tests/test_torch_analysis_traced.py``.
 """
 
 import copy
@@ -33,7 +35,7 @@ from hypothesis import given, settings, strategies as st
 from repro_torch.analysis import conventions, plan_checks
 from repro_torch.analysis import targets as tgt
 from repro_torch.analysis.__main__ import run as run_analysis
-from repro_torch.analysis.report import CHECKER_BITS, Finding, Report
+from repro_torch.analysis.report import CHECKER_BITS, SELF_TEST_BIT, Finding, Report
 from repro_torch.core import mapreduce as mr
 from repro_torch.core.schedule_cache import CachedSchedule
 
@@ -264,9 +266,12 @@ class TestReport:
     def test_bits_are_the_reference_bits(self):
         from repro.analysis.report import CHECKER_BITS as REF_BITS
 
-        assert CHECKER_BITS == {k: REF_BITS[k] for k in ("plan", "conventions")}
+        from repro.analysis.report import SELF_TEST_BIT as REF_SELF_TEST
 
-    @pytest.mark.parametrize("checker", ["typo", "overlap"])
+        assert CHECKER_BITS == REF_BITS
+        assert SELF_TEST_BIT == REF_SELF_TEST == 16
+
+    @pytest.mark.parametrize("checker", ["typo", "self-test"])
     def test_unknown_checker_rejected(self, checker):
         with pytest.raises(ValueError):
             Finding(checker, "r", "t", "s")
@@ -290,7 +295,7 @@ class TestCLI:
 
     def test_run_rejects_unknown_checker(self):
         with pytest.raises(ValueError):
-            run_analysis(check="overlap")
+            run_analysis(check="self-test")
 
     def test_main_exits_with_bitmask_zero(self):
         from repro_torch.analysis.__main__ import main

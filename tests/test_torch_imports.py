@@ -39,7 +39,11 @@ def test_import_pulls_in_no_jax_repro_or_triton():
         "repro_torch.train.checkpoint, repro_torch.train.loop, repro_torch.data.synthetic, "
         "repro_torch.data.packing, repro_torch.analysis, repro_torch.analysis.__main__, "
         "repro_torch.analysis.conventions, repro_torch.analysis.plan_checks, "
-        "repro_torch.analysis.targets, repro_torch.examples.quickstart, "
+        "repro_torch.analysis.targets, repro_torch.analysis.allowlist, "
+        "repro_torch.analysis.op_graph, repro_torch.analysis.overlap, "
+        "repro_torch.analysis.determinism, repro_torch.analysis.mutations, "
+        "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+        "repro_torch.examples.quickstart, "
         "repro_torch.examples.inverted_index, repro_torch.examples.serve_lm, "
         "repro_torch.examples.moe_balance, repro_torch.examples.train_lm\n"
         "import repro_torch.configs as c\n"

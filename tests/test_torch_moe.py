@@ -8,10 +8,10 @@ inputs, with assignments, placements, permutations and reports equal.
 Layer (``nn/moe.py``): the reference's parameters (``init_moe`` with a JAX
 key, as numpy float32) in the port's ``MoE`` module, the same numpy
 activations through both ``moe``s. One expert slot against the reference's
-``moe(mesh=None)``; four stacked slots against the reference's ``(1, 4)``
-mesh, in a subprocess with four forced host devices (the test run does not
-set ``XLA_FLAGS``). Outputs allclose at float32 ``atol=rtol=1e-5``; expert
-counts and overflow equal; the auxiliary loss allclose.
+``moe(mesh=None)`` here; four stacked slots against the reference's
+``(1, 4)`` mesh in ``tests/test_torch_moe_mesh.py``. Outputs allclose at
+float32 ``atol=rtol=1e-5``; expert counts and overflow equal; the
+auxiliary loss allclose.
 
 Model and engine: the grok-1 smoke config's prefill and decode with a cache
 against the reference's ``forward`` (expert counts equal, logits within
@@ -23,7 +23,6 @@ import dataclasses
 import os
 import subprocess
 import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -306,88 +305,6 @@ def test_capacity_and_placement_helpers():
     assert moe_capacity_for_shape(cfg, 8, 1, 4) == min(PM.capacity_for(cfg.moe, 8, 4), 8 * 2)
     with pytest.raises(ValueError, match="TP regime"):
         PM.MoE(dataclasses.replace(args, d_ff=31), 3, device="cpu")
-
-
-# ---------------------------------------------------------------------------
-# The layer at four slots, against the reference on a (1, 4) mesh
-# ---------------------------------------------------------------------------
-
-
-_CASES4 = {
-    "a2a": dict(num_experts=8, strategy="a2a", t=8, capacity=None),
-    "a2a-chunked": dict(num_experts=8, strategy="a2a", pipeline_chunks=2, t=8, capacity=None),
-    "a2a-drops": dict(num_experts=8, strategy="a2a", pipeline_chunks=2, t=8, capacity=2),
-    "broadcast": dict(num_experts=8, strategy="broadcast", t=8, capacity=None),
-    "decode": dict(num_experts=8, strategy="a2a", t=1, capacity=None),
-    "decode-drops": dict(num_experts=8, strategy="a2a", t=1, capacity=1),
-    "tp-regime": dict(num_experts=6, strategy="a2a", t=8, capacity=None),
-    "shared": dict(num_experts=8, strategy="a2a", t=8, capacity=None, shared_experts=1),
-}
-
-_REFERENCE_M4 = textwrap.dedent('''
-    import sys
-    import numpy as np
-    import jax, jax.numpy as jnp
-    from jax.sharding import Mesh
-    from repro.nn import layers as RL
-    from repro.nn.moe import MoEArgs, init_moe, moe
-
-    cases, out = eval(sys.argv[1]), sys.argv[2]
-    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(1, 4), ("data", "model"))
-    saved = {}
-    for name, case in cases.items():
-        case = dict(case)
-        t, cap = case.pop("t"), case.pop("capacity")
-        args = MoEArgs(top_k=2, d_model=16, d_ff=32, capacity_factor=2.0, **case)
-        vals, _ = RL.split(init_moe(jax.random.PRNGKey(0), args, mesh))
-        x = np.random.default_rng(1).standard_normal((2, t, 16)).astype(np.float32)
-        y, st = moe(vals, jnp.asarray(x), args=args, mesh=mesh, capacity=cap)
-        saved[name + "/y"] = np.asarray(y)
-        for key in ("counts", "overflow", "aux_loss"):
-            saved[name + "/" + key] = np.asarray(st[key])
-        for key in ("router", "up", "down", "gate"):
-            saved[name + "/w/" + key] = np.asarray(vals[key]["w"])
-        if "shared" in vals:
-            for key in ("up", "gate", "down"):
-                saved[name + "/w/shared/" + key] = np.asarray(vals["shared"][key]["w"])
-    np.savez(out, **saved)
-''')
-
-
-@pytest.fixture(scope="module")
-def reference_m4(tmp_path_factory):
-    out = tmp_path_factory.mktemp("moe_m4") / "ref.npz"
-    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    proc = subprocess.run([sys.executable, "-c", _REFERENCE_M4, repr(_CASES4), str(out)],
-                          env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(out) as data:
-        return {key: data[key] for key in data.files}
-
-
-@pytest.mark.parametrize("name", list(_CASES4))
-def test_four_slot_moe_equals_reference_mesh(reference_m4, name):
-    case = dict(_CASES4[name])
-    t, capacity = case.pop("t"), case.pop("capacity")
-    args = PM.MoEArgs(top_k=2, d_model=16, d_ff=32, capacity_factor=2.0, **case)
-    module = PM.MoE(args, 4, device="cpu")
-    with torch.no_grad():
-        for key in ("router", "up", "down", "gate"):
-            getattr(module, key).copy_(torch.from_numpy(reference_m4[f"{name}/w/{key}"]))
-        if module.shared is not None:
-            for key in ("up", "gate", "down"):
-                module.shared[key].w.copy_(
-                    torch.from_numpy(reference_m4[f"{name}/w/shared/{key}"]))
-    x = np.random.default_rng(1).standard_normal((2, t, 16)).astype(np.float32)
-    y, st = PM.moe(module, torch.from_numpy(x), capacity=capacity)
-    np.testing.assert_allclose(y.numpy(), reference_m4[f"{name}/y"], atol=ATOL, rtol=RTOL)
-    np.testing.assert_array_equal(st["counts"].numpy(), reference_m4[f"{name}/counts"])
-    assert int(st["overflow"]) == int(reference_m4[f"{name}/overflow"])
-    np.testing.assert_allclose(float(st["aux_loss"]), float(reference_m4[f"{name}/aux_loss"]),
-                               rtol=1e-5)
-    if name.endswith("drops"):
-        assert int(st["overflow"]) > 0
 
 
 # ---------------------------------------------------------------------------
