@@ -97,9 +97,11 @@ Then it frees the card and adds the serving side:
   ``scaled_dot_product_attention`` (device time from a burst behind a spin,
   and CUDA events around one call); and at the family paths' shapes, each
   timed beside ``scaled_dot_product_attention``: MLA's prefill (8, 128, 128,
-  512, 512, 192) causal on the simt instance, whisper's encoder (8, 8, 8,
-  1500, 1500, 64) and cross-attention (8, 8, 8, 32, 1500, 64) non-causal and
-  qwen2-vl's (8, 28, 4, 512, 512, 128) causal on the wgmma instance;
+  512, 512, 192) and zamba2's shared block (8, 32, 32, 1000, 1000, 80),
+  causal, also beside the simt instance they left, whisper's encoder (8, 8,
+  8, 1500, 1500, 64) and cross-attention (8, 8, 8, 32, 1500, 64)
+  non-causal and qwen2-vl's (8, 28, 4, 512, 512, 128) causal, all on the
+  wgmma instance;
 * kernel phase 8: the dispatch-rank kernel at T = 2^20 tokens and E = 64,
   160 and 1,024 Zipf-skewed destinations with 2% padding, ranks and counts
   equal to the plain version exactly (its own entry point: no engine path
@@ -164,8 +166,8 @@ Then it frees the card and adds the serving side:
   the default placement, the balancer's re-plan with the weights moved and
   the OS4M placement (logits bit-equal, overflow 0, slot balance printed);
   MLA's compressed cache beside the GQA cache it replaces; ``Engine`` on 4
-  lanes, 8 requests (absorbed decode), kernel 9's simt instance at D = 192
-  in every prefill layer; 20 decode steps under the profiler; a 2-layer
+  lanes, 8 requests (absorbed decode), kernel 9's wgmma instance at D =
+  192 in every prefill layer; 20 decode steps under the profiler; a 2-layer
   float32 twin on the card and the CPU with equal token streams.
 
 Last, the training path (``repro_torch.train``), which launches none of
@@ -228,8 +230,8 @@ drives them (its serving engine refuses them):
   decode steps and one Mamba2 layer at 8 x 1024 under the profiler, 3
   ``Trainer`` steps of 8 x 1024 os4m-packed tokens (blocked attention,
   remat, float32 moments, lr 3e-5; finite losses, the last below the
-  first, step ms, tokens/s, peak GB); kernel 9's simt instance once a
-  group in every prefill and full forward (bf16 and float32); a float32
+  first, step ms, tokens/s, peak GB); kernel 9 once a group in every
+  prefill and full forward (wgmma in bf16, simt in float32); a float32
   twin (2 groups) on the card and the CPU: prefill and teacher-forced
   decode logits within 2e-3 of each other and of the full forward, then 2
   training steps (step 1's loss and gradient bounded);
@@ -656,9 +658,10 @@ def ptxas_phase(build) -> dict:
     the sorted segment-sum's two launches each, the histogram's and the
     sketch's mask and float instances, the dispatch ranks' single pass),
     one line a kernel. The XOR, fused, segment-sum, histogram, sketch and
-    dispatch kernels must not spill. The wgmma instance must not spill, must enter with the 168
-    registers a thread that its setmaxnreg split needs (384 x 168 = 128 x 40
-    + 256 x 232), and its SASS must hold HGMMA (cuobjdump). The histogram's
+    dispatch kernels must not spill. The wgmma instance (at D = 64, 80, 128
+    and 192) must not spill, must enter with the 168 registers a thread
+    that its setmaxnreg split needs (384 x 168 = 128 x 40 + 256 x 232), and
+    its SASS must hold HGMMA (cuobjdump). The histogram's
     and the sketch's SASS: the count of each kind of atomic a kernel holds;
     the mask instances (template arguments <uint8, uint32>, ``Ihj``) must
     add with native integer shared atomics and hold no compare-and-swap."""
@@ -675,20 +678,21 @@ def ptxas_phase(build) -> dict:
         check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
                   for v in out[name].values()), f"{name}.cu's kernels do not spill")
     wgmma = {k: v for k, v in out["flash_attention"].items() if "flash_fwd_wgmma" in k}
-    check(len(wgmma) == 2, "ptxas reported both wgmma instances (D = 64, 128)")
+    check(len(wgmma) == 4, "ptxas reported the four wgmma instances (D = 64, 80, 128, 192)")
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0 for v in wgmma.values()),
           "the wgmma instance does not spill")
     check(all(v["registers"] * 384 >= 128 * 40 + 256 * 232 for v in wgmma.values()),
           "the wgmma instance enters with the registers its setmaxnreg split needs")
-    # MLA's prefill (bf16, D = 192) runs the simt instance compiled for any
-    # D (template argument 0), whose dynamic shared memory is the q tile,
-    # a key and a value tile in float32 and the probabilities.
+    # The f32 twins at D = 80 and 192 run the simt instance compiled for any
+    # D (template argument 0), as bf16 at those D did before the wgmma
+    # instance took them; its dynamic shared memory is the q tile, a key and
+    # a value tile in float32 and the probabilities.
     generic = {k: v for k, v in out["flash_attention"].items()
                if "flash_fwd" in k and "wgmma" not in k and "Li0E" in k}
     check(len(generic) == 2, "ptxas reported the simt instance of any D (f32, bf16)")
     smem_192 = (64 * 193 + 32 * 193 + 32 * 192 + 64 * 33) * 4
     out["simt_any_d"] = {"kernels": generic, "dynamic_smem_bytes_d192": smem_192}
-    print(f"flash simt instance of any D: {generic}; at D = 192 (MLA's prefill) "
+    print(f"flash simt instance of any D: {generic}; at D = 192 "
           f"{smem_192} bytes of dynamic shared memory a CTA", flush=True)
     sass = "".join(sass_functions(build, "flash_attention").values())
     out["hgmma_in_sass"] = sass.count("HGMMA")
@@ -1991,27 +1995,30 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
     (B = 8 lanes, Hq = 32, Hkv = 8, T = S = the longest prompt, D = 128,
     bf16) and at more shapes of both instances. ``admit[path]`` is the
     (shortest, longest) prompt of the path's engine (:func:`admission_lens`).
-    The wgmma instance (bf16, D = 64 or 128): ragged T < S, T > S (rows
-    that see no key give exact 0), GQA groups 1, 4 and 8, D = 64,
+    The wgmma instance (bf16, D = 64, 80, 128 or 192): ragged T < S, T > S
+    (rows that see no key give exact 0), GQA groups 1, 4 and 8, D = 64,
     non-causal, and grok-1's head layout on the MoE path (Hq = 48, Hkv = 8:
     a GQA group of 6) at its engine's longest admission (B = 1), at a
     ragged T and at its placement prefills (B = 8, T = S = 512). The simt
     instance: f32 with T < S, f32 at the smollm twin's D = 20, f32 with
     T > S, bf16 at D = 256. The family paths' shapes, each on the instance
-    its path runs: MLA's placement prefill (D = 192, simt), whisper's
-    encoder (T = S = 1500) and cross-attention (T = the longest prompt,
-    S = 1500), both non-causal at D = 64, and qwen2-vl's GQA group of 7
-    (wgmma), each timed beside SDPA (device time from a burst behind a
-    spin) under ``res["family"]``; and the engines' shortest and longest
-    admissions of each family: qwen2-vl at B = 8 lanes, T = S = 256
-    patches + the prompt; MLA at B = 4 lanes, D = 192 (simt); whisper's
-    causal decoder self-attention (T = S = the prompt) and its
-    cross-attention at the shortest prompt (T < 32 against S = 1500); and
-    zamba2's shared block at D = 80 (simt): its prefill (B = 8, T = S =
-    STATE_PROMPT) and full forward (T = S = STATE_PROMPT + STATE_DECODE),
-    both timed beside SDPA, its float32 check's prefill, its warm-up
-    prefill (T = 64) and its f32 twin's prefill. Each
-    case checks that it went through the instance ``fa_ops.design`` names.
+    its path runs: MLA's placement prefill (D = 192), whisper's encoder
+    (T = S = 1500) and cross-attention (T = the longest prompt, S = 1500),
+    both non-causal at D = 64, and qwen2-vl's GQA group of 7 (all wgmma),
+    each timed beside SDPA (device time from a burst behind a spin) under
+    ``res["family"]``; and the engines' shortest and longest admissions of
+    each family: qwen2-vl at B = 8 lanes, T = S = 256 patches + the
+    prompt; MLA at B = 4 lanes, D = 192 (wgmma); whisper's causal decoder
+    self-attention (T = S = the prompt) and its cross-attention at the
+    shortest prompt (T < 32 against S = 1500); and zamba2's shared block at
+    D = 80: its prefill (B = 8, T = S = STATE_PROMPT) and full forward (T =
+    S = STATE_PROMPT + STATE_DECODE), both timed beside SDPA, and its
+    warm-up prefill (T = 64) on the wgmma instance, its float32 check's
+    prefill and its f32 twin's prefill on the simt one. The timed cases at
+    D = 192 and 80 are also timed on the simt instance (``simt_ms``, called
+    directly, not counted): the time the wgmma instance replaces there.
+    Each case checks that it went through the instance ``fa_ops.design``
+    names.
 
     Tolerance: 3e-2 in bf16, 2e-5 in f32 (the reference's own kernel tests;
     the two sum in other orders). At the serve shape the kernel and
@@ -2070,13 +2077,13 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
              "zamba_twin": (2, 32, 32, STATE_TWIN_PROMPT, STATE_TWIN_PROMPT, 80, f32, True)}
     # The shapes the family paths give the kernel and the instance each path
     # runs; ``timed`` are timed beside SDPA.
-    family_design = {"mla_prefill": "simt", "whisper_encoder": "wgmma",
+    family_design = {"mla_prefill": "wgmma", "whisper_encoder": "wgmma",
                      "whisper_cross": "wgmma", "vlm_prefill": "wgmma", "vlm_engine": "wgmma",
-                     "vlm_engine_short": "wgmma", "mla_engine": "simt",
-                     "mla_engine_short": "simt", "whisper_decoder": "wgmma",
+                     "vlm_engine_short": "wgmma", "mla_engine": "wgmma",
+                     "mla_engine_short": "wgmma", "whisper_decoder": "wgmma",
                      "whisper_decoder_short": "wgmma", "whisper_cross_short": "wgmma",
-                     "zamba_prefill": "simt", "zamba_full": "simt",
-                     "zamba_f32_prefill": "simt", "zamba_warmup": "simt",
+                     "zamba_prefill": "wgmma", "zamba_full": "wgmma",
+                     "zamba_f32_prefill": "simt", "zamba_warmup": "wgmma",
                      "zamba_twin": "simt"}
     timed = ("serve", "mla_prefill", "whisper_encoder", "whisper_cross", "vlm_prefill",
              "zamba_prefill", "zamba_full")
@@ -2121,6 +2128,9 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
 
+        def simt():
+            fa_cuda(q, k, v, torch.empty_like(q), causal, d ** -0.5, "simt")
+
         if name != "serve":
             check(float((library().float() - want.float()).abs().max()) <= 3e-2,
                   f"scaled_dot_product_attention yardstick == plain within 3e-2 at {name}")
@@ -2131,10 +2141,15 @@ def flash_phase(fa_ops, flash_ref, fa_cuda, admit, dev) -> dict:
                 ms=ms, host_ms=host_ms, library_ms=library_ms, tflops=flops / ms / 1e9,
                 plain_ms=cuda_ms(lambda: flash_ref(q, k, v, causal=causal), reps=3,
                                  warmup=1))
+            if d in (80, 192):
+                simt_out = torch.empty_like(q)
+                fa_cuda(q, k, v, simt_out, causal, d ** -0.5, "simt")
+                simt_err = float((simt_out.float() - want.float()).abs().max())
+                check(simt_err <= 3e-2, f"the simt instance == plain within 3e-2 at {name}: "
+                      f"{simt_err:.3g}")
+                res["family"][name].update(simt_ms=device_ms(simt, launches=5, reps=3)[0],
+                                           simt_max_abs_err=simt_err)
             continue
-
-        def simt():
-            fa_cuda(q, k, v, torch.empty_like(q), True, d ** -0.5, "simt")
 
         check(float((library().float() - want.float()).abs().max()) <= 3e-2,
               "scaled_dot_product_attention yardstick == plain within 3e-2")
@@ -2846,7 +2861,7 @@ def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
     balancer's re-plan (BSS with cardinality 40) with the weights moved,
     the OS4M placement (logits ``torch.equal``, overflow 0 in both). Then
     ``Engine`` on MLA_LANES lanes (MLA's compressed cache, absorbed decode),
-    kernel 9's simt instance at D = 192 in every prefill layer; 20 decode
+    kernel 9's wgmma instance at D = 192 in every prefill layer; 20 decode
     steps under the profiler; a 2-layer float32 twin on the card and the
     CPU. Returns ``(record, launches)``."""
     import dataclasses
@@ -2935,8 +2950,8 @@ def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
           and torch.equal(after.logits, before.logits),
           "mla path: logits after the re-plan bit-equal to the default placement's")
     prefill_design = {k: fa_ops.launches_by_design[k] - flash0[k] for k in flash0}
-    check(prefill_design == {"wgmma": 0, "simt": 7 * MLA_LAYERS},
-          f"mla path: every prefill layer ran kernel 9's simt instance at D = "
+    check(prefill_design == {"wgmma": 7 * MLA_LAYERS, "simt": 0},
+          f"mla path: every prefill layer ran kernel 9's wgmma instance at D = "
           f"{mla.qk_nope + mla.qk_rope} ({prefill_design})")
     load_before = slot_loads(counts, base_place.cpu().numpy(), MLA_EP_SLOTS)
     load_after = slot_loads(counts, placements, MLA_EP_SLOTS)
@@ -2985,9 +3000,9 @@ def mla_path(counters, fa_ops, args, dev, smi) -> tuple:
     eng = Engine(cfg, model, ecfg, device=dev)
     reqs = serve_requests(cfg.vocab, args.seed, MLA_REQUESTS)
     rec["serve"] = family_serve("mla serve", eng, reqs, None, fa_ops, smi)
-    check(rec["serve"]["flash_launches_by_design"] == {"wgmma": 0,
-                                                       "simt": MLA_LAYERS * len(reqs)},
-          f"mla serve: kernel 9's simt instance ran in every prefill layer "
+    check(rec["serve"]["flash_launches_by_design"] == {"wgmma": MLA_LAYERS * len(reqs),
+                                                       "simt": 0},
+          f"mla serve: kernel 9's wgmma instance ran in every prefill layer "
           f"({MLA_LAYERS} x {len(reqs)})")
     rec["serve"]["profile_20_decode_steps"] = decode_profile(
         "mla", eng, int(np.median(rec["serve"]["prompt_lens"])))
@@ -3798,8 +3813,8 @@ def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
     Mamba2 layers in full, d_model
     2560, d_inner 5120 in 80 heads of 64, state 64; the shared attention +
     MLP block after every 6, 32 heads of 80, with attn_impl="pallas":
-    kernel 9's simt instance once a group in every prefill and full
-    forward) or xlstm-1.3b (arXiv:2405.04517: 48 layers in full, 6 groups of 7
+    kernel 9 once a group in every prefill and full forward: wgmma in
+    bf16, simt in float32) or xlstm-1.3b (arXiv:2405.04517: 48 layers in full, 6 groups of 7
     mLSTM + 1 sLSTM, d_model 2048, 4 heads, the mLSTM's head dim 1024; no
     kernel). Model level (:func:`state_decode_vs_full`): a prefill of
     STATE_BATCH x STATE_PROMPT, STATE_DECODE greedy decode steps against the
@@ -3968,12 +3983,14 @@ def state_path(arch, counters, fa_ops, args, dev, smi) -> tuple:
     if cfg.ssm is not None:
         # One launch a group in every prefill (the warm-up's, bf16's and
         # float32's) and full forward (bf16 and float32), and in the twin's
-        # on the card; none in decode or training.
-        want = 5 * groups + 2 * (twin.n_layers // twin.attn_every)
-        check(rec["launches_by_design"] == {"wgmma": 0, "simt": want}
-              and twin_flash["simt"] == 2 * (twin.n_layers // twin.attn_every),
-              f"{label}: kernel 9's simt instance once a shared block in every prefill and "
-              f"full forward ({want}; {rec['launches_by_design']})")
+        # on the card; none in decode or training. bf16 runs the wgmma
+        # instance, float32 the simt one.
+        want = {"wgmma": 3 * groups, "simt": 2 * groups + 2 * (twin.n_layers // twin.attn_every)}
+        check(rec["launches_by_design"] == want
+              and twin_flash == {"wgmma": 0, "simt": 2 * (twin.n_layers // twin.attn_every)},
+              f"{label}: kernel 9 once a shared block in every prefill and full forward, bf16 "
+              f"on the wgmma instance and float32 on the simt one ({want}; "
+              f"{rec['launches_by_design']})")
     check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
           f"{label}: no kernel but kernel 9 on this path ({launches})")
     return rec, launches
@@ -4800,7 +4817,9 @@ def main(argv=None) -> int:
               f"({c['design']} instance): err {c['max_abs_err']:.3g} | device (burst): kernel "
               f"{c['ms']:.4f} ms ({c['tflops']:.1f} TFLOP/s), scaled_dot_product_attention "
               f"{c['library_ms']:.4f} ms | plain {c['plain_ms']:.4f} ms | bound "
-              f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
+              + (f" | simt instance on the same inputs {c['simt_ms']:.4f} ms" if "simt_ms" in c
+                 else ""), flush=True)
     record["flash_attention"] = flash
     # At the path's E = 64, and at the largest MoE configuration's 160
     # experts and the wrapper's limit of 1,024 destinations.
@@ -4962,10 +4981,11 @@ def main(argv=None) -> int:
          "library_ms": st["library_ms"], "library_event_ms": st["library_event_ms"]},
         # Launched in every attention of every prefill of the serve, MoE and
         # family paths and in zamba2's shared block (launches_by_path), bf16
-        # through the wgmma instance but MLA's D = 192 and zamba2's D = 80
-        # through the simt one; its times are at the serve
+        # through the wgmma instance (MLA's D = 192 and zamba2's D = 80 too),
+        # float32 through the simt one; its times are at the serve
         # path's longest prefill, device time a call from a burst behind a
-        # spin, and family_cases holds the family paths' shapes; its error is
+        # spin, and family_cases holds the family paths' shapes (at D = 192
+        # and 80 with the simt instance's time, simt_ms); its error is
         # the largest over every case of its phase. The library call is
         # scaled_dot_product_attention (GQA, causal).
         {"name": "flash_attention", "route": "cuda",
@@ -4978,7 +4998,8 @@ def main(argv=None) -> int:
          "launches_by_path": {p: launches[p]["flash_attention"] for p in ATTENTION_PATHS},
          "family_cases": {
              name: {key: c[key] for key in ("shape", "design", "causal", "max_abs_err", "ms",
-                                            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                                            "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                            "simt_ms") if key in c}
              for name, c in flash["family"].items()},
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"].values()),
          "ms": flash["ms"], "event_ms": flash["event_ms"], "plain_ms": flash["plain_ms"],

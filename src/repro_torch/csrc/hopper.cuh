@@ -89,6 +89,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A 3-D tile at `src` in shared memory to `map`'s coordinates (c0, c1, c2),
+// innermost first, in the current bulk group; elements past the map's
+// bounds are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy
+// (a TMA or bulk store that reads them); call before the barrier that
+// orders them with the store.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
 // shared memory; completes `bytes` of `bar`'s transactions.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,

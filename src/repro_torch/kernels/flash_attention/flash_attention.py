@@ -12,8 +12,9 @@ from repro_torch.kernels import _build
 # Element types the kernel takes, by its dtype code.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# Head dims of the wgmma instance (bfloat16 only).
-WGMMA_HEAD_DIMS = (64, 128)
+# Head dims of the wgmma instance (bfloat16 only): the full-width configs'
+# 64 and 128, zamba2's shared block's 80 and MLA's 192.
+WGMMA_HEAD_DIMS = (64, 80, 128, 192)
 
 # b, hq, hkv, t, s, d, causal, scale, stream: the tail of both C entries.
 _SHAPE_ARGS = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]

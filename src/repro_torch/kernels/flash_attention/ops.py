@@ -32,9 +32,9 @@ launches_by_design = {"wgmma": 0, "simt": 0}
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel instance for q, k, v of ``dtype`` at ``head_dim``:
-    ``"wgmma"`` (tensor cores, TMA) for bfloat16 at D = 64 or 128,
-    ``"simt"`` (float32 FMAs) for everything else. float32 stays off the
-    tensor cores, where it would be TF32."""
+    ``"wgmma"`` (tensor cores, TMA) for bfloat16 at D = 64, 80, 128 or
+    192, ``"simt"`` (float32 FMAs) for everything else. float32 stays off
+    the tensor cores, where it would be TF32."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "simt"
 
 

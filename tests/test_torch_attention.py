@@ -166,10 +166,12 @@ def test_run_attention_routes_like_reference(impl):
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 20, "simt"),
     (torch.bfloat16, 20, "simt"), (torch.bfloat16, 200, "simt"), (torch.bfloat16, 256, "simt"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 192, "wgmma"),   # zamba2's, MLA's
+    (torch.float32, 80, "simt"), (torch.float32, 192, "simt"),
 ])
 def test_flash_design_by_dtype_and_head_dim(dtype, d, want):
-    """bf16 at D = 64 and 128 take the tensor-core instance; float32 (TF32
-    there) and every other D take the float32 SIMT one."""
+    """bf16 at D = 64, 80, 128 and 192 take the tensor-core instance;
+    float32 (TF32 there) and every other D take the float32 SIMT one."""
     assert fa_ops.design(dtype, d) == want
 
 
@@ -206,6 +208,18 @@ GPU_CASES = [
     (2, 8, 2, 70, 30, 64, True, torch.bfloat16),       # D = 64, T > S
     (2, 4, 2, 130, 700, 128, False, torch.bfloat16),   # non-causal, T < S
     (1, 4, 1, 1000, 1000, 128, True, torch.bfloat16),  # many key tiles
+    # The wgmma instance at MLA's D = 192 (64-key tiles) and zamba2's D = 80
+    # (a second panel half zero fill).
+    (1, 4, 4, 300, 300, 192, True, torch.bfloat16),    # MLA-like
+    (2, 4, 4, 65, 300, 192, True, torch.bfloat16),     # ragged T < S
+    (2, 4, 4, 130, 60, 192, True, torch.bfloat16),     # T > S: rows that see no key
+    (2, 4, 4, 130, 700, 192, False, torch.bfloat16),   # non-causal
+    (2, 8, 4, 200, 200, 192, True, torch.bfloat16),    # GQA group 2
+    (1, 4, 4, 1000, 1000, 80, True, torch.bfloat16),   # zamba2-like
+    (2, 4, 4, 65, 300, 80, True, torch.bfloat16),      # ragged T < S
+    (2, 4, 4, 130, 60, 80, True, torch.bfloat16),      # T > S: rows that see no key
+    (2, 4, 4, 130, 700, 80, False, torch.bfloat16),    # non-causal
+    (2, 8, 4, 200, 200, 80, True, torch.bfloat16),     # GQA group 2
 ]
 
 
@@ -225,6 +239,24 @@ def test_flash_kernel_matches_plain_on_gpu(b, hq, hkv, t, s, d, causal, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     if t > s and causal:
         assert torch.all(got[:, :, :t - s] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [192, 80])
+def test_flash_simt_instance_still_right_in_bf16(d):
+    """The simt instance, called directly in bf16 at the head dims the wgmma
+    instance took from it, against the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+
+    dev = _cuda()
+    q, k, v = (x.to(dev) for x in _to_torch(_qkv(d, 2, 4, 2, 130, 300, d), torch.bfloat16))
+    got = torch.empty_like(q)
+    before = dict(fa_ops.launches_by_design)
+    flash_attention_cuda(q, k, v, got, True, d ** -0.5, "simt")
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_design == before     # the wrapper counts, not the binding
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL, rtol=0)
 
 
 @pytest.mark.gpu
