@@ -120,6 +120,7 @@ from repro_torch.core import schedule_cache as sc
 from repro_torch.core import scheduler as sched_lib
 from repro_torch.core import simulator as sim
 from repro_torch.core import slot_speeds as ss
+from repro_torch.core import spans
 from repro_torch.core import stats_provider as sp
 from repro_torch.device import default_device
 from repro_torch.kernels import _build
@@ -428,7 +429,8 @@ def _copy_chunk(buckets):
     whose groups hold at most one pair) the reshape alone would be a
     strided view.
     """
-    return tuple(_transpose_slots(t).flatten(1, 2) for t in buckets)
+    with spans.stage("phase_b.copy"):
+        return tuple(_transpose_slots(t).flatten(1, 2) for t in buckets)
 
 
 @allowlist.exact_accumulate
@@ -499,7 +501,8 @@ def _reduce_chunk(rv, rc, rm, rank_of_cluster, num_clusters: int, reduce_op: str
     """
     if reduce_op != "sum":
         return _segment_reduce(rc, rv, rm, num_clusters, reduce_op)
-    order, rank_sorted = _rank_order(rc, rm, rank_of_cluster, num_clusters)
+    with spans.stage("phase_b.rank_sort"):
+        order, rank_sorted = _rank_order(rc, rm, rank_of_cluster, num_clusters)
     out_by_rank, counts_by_rank = fused_ops.fused_shuffle_reduce(
         rv, order, rank_sorted, num_clusters)
     by_cluster = rank_of_cluster.long()
@@ -667,7 +670,10 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
     magnitude = None
     if quantize == "int8":
         magnitude = yield ("pmax", _quantize_magnitude(values, valid))
-    scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize, magnitude)
+    with spans.stage("phase_b.spill"):
+        scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize, magnitude)
+        send, overflow, wire_rows = _spill(intermediate, assignment, chunk_of_cluster,
+                                           static, me, send_vals)
 
     def _deliver(rv):
         return _quantize_decode(rv, scale, values.dtype, quantize) if quantize else rv
@@ -675,19 +681,19 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
     def _wire(wire_rows):
         return torch.stack([wire_rows, torch.zeros_like(wire_rows), inexact, wire_rows])
 
-    send, overflow, wire_rows = _spill(intermediate, assignment, chunk_of_cluster,
-                                       static, me, send_vals)
     yield ("spill", send)
     del send
 
     if not pipelined or num_chunks <= 1:
         rv, rc, rm = yield ("copy", 0)
-        rv = _deliver(rv)
+        with spans.stage("phase_b.reduce"):
+            rv = _deliver(rv)
+            if timed:
+                rc, start = stamp_through(rc)          # start: produces the reduce's ids
+            out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+            if timed:
+                out, end = stamp_through(out, counts)  # end: re-emits the outputs
         if timed:
-            rc, start = stamp_through(rc)          # start: produces the reduce's ids
-        out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
-        if timed:
-            out, end = stamp_through(out, counts)  # end: re-emits the outputs
             return out, counts, overflow, _wire(wire_rows), _tick_pairs([start, end])
         return out, counts, overflow, _wire(wire_rows)
 
@@ -705,16 +711,17 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
         rv, rc, rm = recv
         if c + 1 < num_chunks:
             recv = yield ("copy", c + 1)
-        rv = _deliver(rv)
-        if timed:
-            rc, b = stamp_through(rc, *prev_out)
-            boundaries.append(b)
-        out_c, cnt_c = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
-        if timed and c + 1 == num_chunks:
-            out_c, b = stamp_through(out_c, cnt_c)
-            boundaries.append(b)
-        prev_out = (out_c, cnt_c)
-        acc, cnt = _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op)
+        with spans.stage("phase_b.reduce"):
+            rv = _deliver(rv)
+            if timed:
+                rc, b = stamp_through(rc, *prev_out)
+                boundaries.append(b)
+            out_c, cnt_c = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+            if timed and c + 1 == num_chunks:
+                out_c, b = stamp_through(out_c, cnt_c)
+                boundaries.append(b)
+            prev_out = (out_c, cnt_c)
+            acc, cnt = _merge_chunk(acc, cnt, out_c, cnt_c, reduce_op)
     if timed:
         return acc, cnt, overflow, _wire(wire_rows), _tick_pairs(boundaries)
     return acc, cnt, overflow, _wire(wire_rows)
@@ -982,16 +989,17 @@ def _phase_b_coded(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
         # receiver must break equal keys alike, so the sort is stable.
         order = torch.argsort(torch.where(sok, skey, big), dim=1, stable=True)
         del skey
-        out_c, cnt_c = _reduce_chunk(
-            sv.gather(1, order[..., None].expand_as(sv)), scl.gather(1, order),
-            sok.gather(1, order), rank_of_cluster, n, reduce_op)
-        del sv, scl, sok, order
-        if chunks == 1:
-            # As the uncoded sequential branch: the reduce output is the
-            # result (shape included — count yields (rows, n, 1)).
-            acc, cnt_acc = out_c, cnt_c
-        else:
-            acc, cnt_acc = _merge_chunk(acc, cnt_acc, out_c, cnt_c, reduce_op)
+        with spans.stage("phase_b.reduce"):
+            out_c, cnt_c = _reduce_chunk(
+                sv.gather(1, order[..., None].expand_as(sv)), scl.gather(1, order),
+                sok.gather(1, order), rank_of_cluster, n, reduce_op)
+            del sv, scl, sok, order
+            if chunks == 1:
+                # As the uncoded sequential branch: the reduce output is the
+                # result (shape included — count yields (rows, n, 1)).
+                acc, cnt_acc = out_c, cnt_c
+            else:
+                acc, cnt_acc = _merge_chunk(acc, cnt_acc, out_c, cnt_c, reduce_op)
 
     overflow = ovf_send + ovf_rep + ovf_own
     wire = torch.stack([wire_rows, rows_rep, inexact, pairs_nonlocal])
@@ -1022,10 +1030,14 @@ class MapReduceJob:
     slice of every tensor of ``inputs`` (a tensor, or tuples, lists and
     dicts of them, with a leading ``(m,)`` axis), on that slot's device
     and stream.
+
+    ``trace=True`` records the spans inside every run (as a running
+    ``torch.profiler`` does): ``last_spans``, and a key a span in
+    ``last_phase_ms`` (:mod:`repro_torch.core.spans`).
     """
 
     def __init__(self, map_fn: Callable, config: MapReduceConfig, device=None,
-                 backend: str = "stacked", devices=None):
+                 backend: str = "stacked", devices=None, trace: bool = False):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
         self.backend = backend
@@ -1041,6 +1053,8 @@ class MapReduceJob:
             self.devices = self.streams = None
         self.map_fn = map_fn
         self.cfg = config
+        self.trace = trace
+        self._spans = spans.Spans()
         self._measure_timings = _resolve_measure(config, backend)
         _validate_wire(config, self._measure_timings)
         if config.reduce_op not in REDUCE_OPS:
@@ -1098,14 +1112,20 @@ class MapReduceJob:
         # Last measured (wire bytes, non-local pairs): turns the cost
         # model's modeled bytes/pair into a measured rate on the next plan.
         self._last_wire: Optional[Tuple[int, int]] = None
-        # Host-clock milliseconds of the last run() per phase: "phase_a"
-        # (map + statistics + the reuse decision, ending with the pull of
-        # the statistics the host needs), "plan" (cost gate and host
-        # scheduler; ~0 on a reused batch), "phase_b" (shuffle + reduce,
-        # with any overflow re-plan and re-execution, ending with the
-        # output pull). Each phase ends in a device→host copy, so on CUDA
-        # the device work is inside its phase.
+        # Milliseconds of the last run(). Always the host clock of its
+        # three phases: "phase_a" (map + statistics + the reuse decision,
+        # ending with the pull of the statistics the host needs), "plan"
+        # (cost gate and host scheduler; ~0 on a reused batch), "phase_b"
+        # (shuffle + reduce, with any overflow re-plan and re-execution,
+        # ending with the output pull). Each phase ends in a device→host
+        # copy, so on CUDA the device work is inside its phase. With spans
+        # on (trace=True, or a profiler recording), also one key a span
+        # inside them, "phase_a.map_stats" ... "phase_b.pull": the
+        # stream's elapsed ms over a device stage (the card's idle inside
+        # it included), host ms of a host span. last_spans holds the run's
+        # span records then, and is empty with spans off.
         self.last_phase_ms: Optional[dict] = None
+        self.last_spans: list = []
         # The plan the last run() executed (telemetry for benches and tests).
         self.last_plan: Optional[sc.CachedSchedule] = None
         # Elastic-mesh state: which slots have vanished (speed pinned to
@@ -1526,8 +1546,9 @@ class MapReduceJob:
     def _copy_to(self, dst: int, sends, events, chunk: int):
         """The chunk "copy" of slot ``dst``: bucket ``[src, dst]`` of every
         sender, in sender order, after each sender's spill event."""
-        return tuple(t.flatten(1, 2) for t in self._exchange_to(
-            dst, [send[chunk] for send in sends], events))
+        with spans.stage("phase_b.copy"):
+            return tuple(t.flatten(1, 2) for t in self._exchange_to(
+                dst, [send[chunk] for send in sends], events))
 
     def _exchange_to(self, dst: int, parts, events):
         """What slot ``dst`` receives in an all-to-all: for each tensor of
@@ -1632,11 +1653,12 @@ class MapReduceJob:
         S)`` statistics."""
         n = self.cfg.num_clusters
         if self.backend == "stacked":
-            return _phase_a(inputs, self.map_fn, n, self._stats.collect, prefix_fraction)
+            with spans.stage("phase_a.map_stats"):
+                return _phase_a(inputs, self.map_fn, n, self._stats.collect, prefix_fraction)
         self._fork()
         intermediate, state = [], []
         for j, (_, dev) in enumerate(self._groups()):
-            with self._on_slot(j):
+            with self._on_slot(j), spans.stage("phase_a.map_stats"):
                 inter, st = _phase_a(_slot_slice(inputs, j, dev), self.map_fn, n,
                                      self._stats.collect, prefix_fraction)
             intermediate.append(inter)
@@ -1667,8 +1689,9 @@ class MapReduceJob:
         (payload words + cluster word + position word); replica rows ship
         the raw record (payload + 4-byte key hash).
         """
-        # analysis: allow-callback
-        rows, rep_rows, inexact, pairs = (int(x) for x in wire.tolist())
+        with spans.host("phase_b.pull"):
+            # analysis: allow-callback
+            rows, rep_rows, inexact, pairs = (int(x) for x in wire.tolist())
         quantize = self.cfg.quantize_shuffle
         v_dim = int(values.shape[-1])
         if replication > 1:
@@ -1993,9 +2016,10 @@ class MapReduceJob:
 
     def _plan_tensors(self, planned: sc.CachedSchedule, dev):
         """The plan's assignment, pipeline ranks and chunk map on ``dev``."""
-        return tuple(torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (
-            planned.schedule.assignment, planned.waves.rank_of_cluster,
-            planned.waves.chunk_of_cluster))
+        with spans.host("phase_b.upload"):
+            return tuple(torch.as_tensor(a, dtype=torch.int32, device=dev) for a in (
+                planned.schedule.assignment, planned.waves.rank_of_cluster,
+                planned.waves.chunk_of_cluster))
 
     def _execute(self, intermediate, planned: sc.CachedSchedule, caps=None,
                  stamp_through=None):
@@ -2105,7 +2129,7 @@ class MapReduceJob:
             outs = []
             t0 = time.perf_counter()
             for j, (rv, rc, rm) in enumerate(recv):
-                with self._on_slot(j):
+                with self._on_slot(j), spans.stage("phase_b.reduce"):
                     outs.append(_reduce_chunk(rv, rc, rm, plans[j][1], n, reduce_op))
                 markers.append(self._mark(j) if self.device.type == "cuda"
                                else time.perf_counter())
@@ -2138,8 +2162,9 @@ class MapReduceJob:
             with self._on_slot(j):
                 plans.append(self._plan_tensors(planned, dev))
                 me = torch.as_tensor(slots, device=dev)
-                send, ovf, wire_rows = _spill(inter, plans[j][0], plans[j][2], static, me,
-                                              inter[1])
+                with spans.stage("phase_b.spill"):
+                    send, ovf, wire_rows = _spill(inter, plans[j][0], plans[j][2], static, me,
+                                                  inter[1])
                 sends.append(send)
                 overflow.append(ovf)
                 rows.append(wire_rows)
@@ -2178,10 +2203,12 @@ class MapReduceJob:
         counts (n,))``, summed over slots (each cluster is reduced on one
         slot), as :meth:`run` merges a whole batch."""
         m, n = self.cfg.num_slots, self.cfg.num_clusters
-        # analysis: allow-callback
-        values = self._gather([o[0] for o in outs]).cpu().numpy().reshape(m, n, -1).sum(axis=0)
-        # analysis: allow-callback
-        counts = self._gather([o[1] for o in outs]).cpu().numpy().reshape(m, n).sum(axis=0)
+        with spans.host("phase_b.pull"):
+            # analysis: allow-callback
+            values = self._gather([o[0] for o in outs]).cpu().numpy().reshape(m, n, -1).sum(
+                axis=0)
+            # analysis: allow-callback
+            counts = self._gather([o[1] for o in outs]).cpu().numpy().reshape(m, n).sum(axis=0)
         return values, counts
 
     def _execute_checkpointed(self, intermediate, planned: sc.CachedSchedule, local_k,
@@ -2237,8 +2264,9 @@ class MapReduceJob:
         @allowlist.allow_callback
         def overflow_of(counts):
             """Sum of the groups' overflow scalars, pulled."""
-            # analysis: allow-callback
-            return int(self._gather([c.reshape(1) for c in counts]).sum())
+            with spans.host("phase_b.pull"):
+                # analysis: allow-callback
+                return int(self._gather([c.reshape(1) for c in counts]).sum())
 
         def fire(due):
             """Mark the due slots dead (pops their armed kills)."""
@@ -2289,8 +2317,10 @@ class MapReduceJob:
                 outs = []
                 for j in range(len(plans)):
                     with self._on_slot(j):
-                        outs.append(_reduce_chunk(*self._wave_copy(j, sends, events, c),
-                                                  plans[j][1], n, reduce_op))
+                        recv = self._wave_copy(j, sends, events, c)
+                        with spans.stage("phase_b.reduce"):
+                            outs.append(_reduce_chunk(*recv, plans[j][1], n, reduce_op))
+                        del recv
                 o, ct = self._host_merge(outs)
                 del outs
                 absorb(o, ct)
@@ -2306,7 +2336,6 @@ class MapReduceJob:
 
     # -- public API ----------------------------------------------------------
 
-    @allowlist.allow_callback
     def run(self, inputs) -> JobResult:
         """Execute the full job: phase A → {replay cached | host plan} → phase B.
 
@@ -2317,11 +2346,24 @@ class MapReduceJob:
         scheduler and replays the cached plan. With ``estimate_speeds``
         the batch's wave timings (measured on the sharded backend,
         synthetic on the stacked one) update the speeds the next plan
-        uses.
+        uses. ``last_phase_ms`` and ``last_spans`` then time the run (see
+        :mod:`repro_torch.core.spans`).
         """
+        on = spans.enabled(self.trace)
+        with self._spans.run(on, self._span_stream() if on else None):
+            return self._run(inputs)
+
+    def _span_stream(self):
+        """Where a run's device stages record their events (``Spans.run``)."""
+        if self.device.type != "cuda":
+            return None
+        return spans.CURRENT if self.backend == "sharded" else self._main_stream()
+
+    @allowlist.allow_callback
+    def _run(self, inputs) -> JobResult:
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
-        t0 = time.perf_counter()
+        self._spans.phase("phase_a")
 
         # ---- Phase A: map + statistics (all Maps finish before any Reduce).
         intermediate, state = self._map_phase(inputs, cfg.stream_prefix)
@@ -2355,15 +2397,17 @@ class MapReduceJob:
         decision = None
         if cache is not None:
             fresh = local_k if self.backend == "sharded" else local_k[0]
-            decision = cache.decide(fresh, fresh_speeds=self.current_speeds())
+            with spans.host("phase_a.decide"):
+                decision = cache.decide(fresh, fresh_speeds=self.current_speeds())
         local_hist = slot_sum = None
-        if decision is None or decision.action == "replan":
-            # analysis: allow-callback
-            local_hist = self._gather(local_k).cpu().numpy()
-        else:
-            # analysis: allow-callback
-            slot_sum = self._gather(local_k).sum(dim=0).cpu().numpy()
-        t1 = time.perf_counter()
+        with spans.host("phase_a.pull"):
+            if decision is None or decision.action == "replan":
+                # analysis: allow-callback
+                local_hist = self._gather(local_k).cpu().numpy()
+            else:
+                # analysis: allow-callback
+                slot_sum = self._gather(local_k).sum(dim=0).cpu().numpy()
+        self._spans.phase("plan")
 
         benefit = None
         if (decision is not None and decision.action == "replan"
@@ -2404,7 +2448,7 @@ class MapReduceJob:
                 planned = self._plan(local_hist, key_dist, k_per_shard, prev=prev)
             if cache is not None:
                 cache.store(planned)
-        t2 = time.perf_counter()
+        self._spans.phase("phase_b")
 
         # ---- Phase B: measured (sharded + estimation: per-slot wave stamps,
         # host-fenced clocks only without a tick source), untimed, or (the
@@ -2428,8 +2472,10 @@ class MapReduceJob:
             else:
                 results, timings = self._execute(intermediate, plan, caps), None
             results = self._as_groups(results)
-            # analysis: allow-callback
-            return results, int(self._gather([r[2].reshape(1) for r in results]).sum()), timings
+            with spans.host("phase_b.pull"):
+                # analysis: allow-callback
+                overflow = int(self._gather([r[2].reshape(1) for r in results]).sum())
+            return results, overflow, timings
 
         # A reused escalated plan replays at the batch's cut caps, as the
         # escape hatch's re-execution below does.
@@ -2497,12 +2543,8 @@ class MapReduceJob:
                                          planned.waves.replication)
             self._last_wire = (acct["shuffle_bytes"], acct["shuffle_pairs"])
             inexact = acct.pop("inexact")
-        t3 = time.perf_counter()
-        self.last_phase_ms = {
-            "phase_a": (t1 - t0) * 1e3,
-            "plan": (t2 - t1) * 1e3,
-            "phase_b": (t3 - t2) * 1e3,
-        }
+        self._spans.phase(None)
+        self.last_phase_ms, self.last_spans = self._spans.finish()
 
         # One Map operation per shard (paper footnote 1: Map task == operation).
         net = clustering.network_cost_bytes(
