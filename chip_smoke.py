@@ -907,7 +907,9 @@ def segment_phase(seg_ops, seg_ref, fused, values, gather_idx, seg_ids, num_segm
         "plain_ms": cuda_ms(lambda: seg_ref(rows_sorted, seg_ids, num_segments),
                             reps=5, warmup=1),
         "index_add_ms": cuda_ms(index_add, reps=5, warmup=1),
-        "segment_reduce_ms": cuda_ms(segment_reduce, reps=5, warmup=1),
+        # Seconds a call on the stacked engine's long padded streams; the
+        # check's call above warmed it up.
+        "segment_reduce_ms": cuda_ms(segment_reduce, reps=1, warmup=0),
         "bound_ms": b, "bound_by": by,
     }
     res["library_ms"] = min(res["index_add_ms"], res["segment_reduce_ms"])
@@ -1069,7 +1071,7 @@ class FusedProbe:
         # bincount of the sorted ids the counts.
         seg_of_row = torch.full((m, n), num_segments, dtype=torch.long,
                                 device=values.device)
-        seg_of_row.scatter_(1, gather_idx.long(), seg_ids.long().clamp(0, num_segments))
+        seg_of_row.scatter_(1, gather_idx.long(), torch.where(ok, seg_ids.long(), num_segments))
         seg_of_row += torch.arange(m, device=values.device)[:, None] * (num_segments + 1)
         seg_flat = seg_of_row.reshape(-1)
         vals_flat = values.reshape(-1, v)

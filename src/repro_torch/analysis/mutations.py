@@ -9,11 +9,11 @@ evidence. The catalog is the reference's (``repro.analysis.mutations``),
 case for case, under its names:
 
 * phase-B bodies recorded like the real ones (the engine's ``_spill`` and
-  ``_reduce_chunk`` under the engine's runner): a chunk-``c+1`` copy fed
-  from reduce(``c``)'s output (the §4.4 overlap killer); a reduce that
-  reads the original ids instead of the stamped ones, and a stamp taken
-  before any copy; ``argsort(stable=False)`` on the spill's group key;
-  a ``.item()`` from an unregistered function;
+  ``_reduce_received`` under the engine's stacked runner): a chunk-``c+1``
+  copy fed from reduce(``c``)'s output (the §4.4 overlap killer); a
+  reduce that reads the original segment row instead of the stamped one,
+  and a stamp taken before any copy; ``argsort(stable=False)`` on the
+  spill's input; a ``.item()`` from an unregistered function;
 * a launch geometry whose tile rows derive from the slab length;
 * plans with a duplicated rank, an out-of-range chunk id, a double-placed
   cluster, a loaded dead slot, undersized chunk caps (exact *and*
@@ -72,19 +72,25 @@ def _mutant_target(name: str, body, timed: bool = False, device="cpu"):
                       timed=timed)
 
 
+def _spilled(intermediate, plan, static, me):
+    """The engine's spill of ``intermediate`` on the exact wire."""
+    send, _, _ = mr._spill(intermediate, *plan, static, me, intermediate[1], intermediate[1])
+    return send
+
+
 def _chain_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static, me,
                 stamp_through=None):
     """Pipelined walk whose copy of chunk c+1 waits on reduce(c)'s output."""
     (_, n, _, _, reduce_op, _, num_chunks, _) = static
-    send, _, _ = mr._spill(intermediate, assignment, chunk_of_cluster, static, me,
-                           intermediate[1])
+    plan = (assignment, rank_of_cluster, chunk_of_cluster)
+    send = _spilled(intermediate, plan, static, me)
     yield ("spill", send)
     acc = cnt = None
     for c in range(num_chunks):
-        rv, rc, rm = yield ("copy", c)
-        out_c, cnt_c = mr._reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+        recv = yield ("copy", c)
+        out_c, cnt_c = mr._reduce_received(send, recv, plan, n, reduce_op)
         if c + 1 < num_chunks:
-            send[c + 1][0].add_(out_c.sum() * 0)      # BUG: the next copy reads reduce(c)
+            send.keys.add_((out_c.sum() * 0).to(send.keys.dtype))  # BUG: copy(c+1) reads it
         acc = out_c if acc is None else acc + out_c
         cnt = cnt_c if cnt is None else cnt + cnt_c
     return acc, cnt
@@ -94,12 +100,12 @@ def _dropped_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
                   stamp_through=None):
     """Timed single wave whose reduce reads the original ids, not the stamped."""
     (_, n, _, _, reduce_op, _, _, _) = static
-    send, _, _ = mr._spill(intermediate, assignment, chunk_of_cluster, static, me,
-                           intermediate[1])
+    plan = (assignment, rank_of_cluster, chunk_of_cluster)
+    send = _spilled(intermediate, plan, static, me)
     yield ("spill", send)
-    rv, rc, rm = yield ("copy", 0)
-    _stamped, start = stamp_through(rc)
-    out, counts = mr._reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)   # BUG: rc
+    seg = yield ("copy", 0)
+    _stamped, start = stamp_through(seg)
+    out, counts = mr._reduce_received(send, seg, plan, n, reduce_op)   # BUG: seg
     out, end = stamp_through(out, counts)
     return out, counts, mr._tick_pairs([start, end])
 
@@ -108,13 +114,13 @@ def _unanchored_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster
                      stamp_through=None):
     """Timed single wave with a stamp taken before any copy."""
     (_, n, _, _, reduce_op, _, _, _) = static
+    plan = (assignment, rank_of_cluster, chunk_of_cluster)
     key_hashes, values, valid = intermediate
     key_hashes, early = stamp_through(key_hashes)      # BUG: no wave's data exists yet
-    send, _, _ = mr._spill((key_hashes, values, valid), assignment, chunk_of_cluster, static,
-                           me, values)
+    send = _spilled((key_hashes, values, valid), plan, static, me)
     yield ("spill", send)
-    rv, rc, rm = yield ("copy", 0)
-    out, counts = mr._reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+    seg = yield ("copy", 0)
+    out, counts = mr._reduce_received(send, seg, plan, n, reduce_op)
     out, end = stamp_through(out, counts)
     return out, counts, mr._tick_pairs([early, end])
 
@@ -123,15 +129,16 @@ def _unstable_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, 
                    stamp_through=None):
     """Single wave whose spill input is ordered by an unstable sort."""
     (_, n, _, _, reduce_op, _, _, _) = static
+    plan = (assignment, rank_of_cluster, chunk_of_cluster)
     key_hashes, values, valid = intermediate
     group = mr._cluster_ids(key_hashes, n)
     order = torch.argsort(group, dim=1, stable=False)   # BUG: ties reorder freely
     ordered = (key_hashes.gather(1, order),
                values.gather(1, order[..., None].expand_as(values)), valid.gather(1, order))
-    send, _, _ = mr._spill(ordered, assignment, chunk_of_cluster, static, me, ordered[1])
+    send = _spilled(ordered, plan, static, me)
     yield ("spill", send)
-    rv, rc, rm = yield ("copy", 0)
-    return mr._reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+    seg = yield ("copy", 0)
+    return mr._reduce_received(send, seg, plan, n, reduce_op)
 
 
 def _rogue_peek(x: torch.Tensor) -> float:
@@ -143,12 +150,12 @@ def _rogue_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, sta
                 stamp_through=None):
     """Single wave that reads a value back to the host mid-program."""
     (_, n, _, _, reduce_op, _, _, _) = static
-    send, _, _ = mr._spill(intermediate, assignment, chunk_of_cluster, static, me,
-                           intermediate[1])
+    plan = (assignment, rank_of_cluster, chunk_of_cluster)
+    send = _spilled(intermediate, plan, static, me)
     yield ("spill", send)
-    rv, rc, rm = yield ("copy", 0)
-    _rogue_peek(rv)                                     # BUG: undeclared host sync
-    return mr._reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+    seg = yield ("copy", 0)
+    _rogue_peek(seg)                                    # BUG: undeclared host sync
+    return mr._reduce_received(send, seg, plan, n, reduce_op)
 
 
 def _mutant_a2a_chain(device="cpu"):

@@ -18,7 +18,12 @@ reference traces, under its names and flags:
   wave's spill + copy (``MapReduceJob._wave_copy``) and its reduce + host
   merge, as ``_execute_checkpointed`` runs them;
 * ``sharded-pipelined``: one slot's program on ``backend="sharded"``
-  (the counterpart of the reference's ``shard_map-pipelined``);
+  (the counterpart of the reference's ``shard_map-pipelined``).
+
+The stacked targets record the program the stacked backend runs, whose
+spill keeps the kept pairs as indices (``mr._Kept``) and whose copy
+moves nothing; ``sharded-pipelined`` records the padded bucket file and
+its copies between slots.
 * ``phase-a-sketch``: phase A with the count-min provider, which carries
   no collective, host sync or wire sort.
 
@@ -132,17 +137,18 @@ def _checkpointed_wave(device) -> List[TracedTarget]:
     inter, plan = shard_inputs(device)
     static = static_of(True)
     me = torch.arange(M, device=device)
+    spilled = []
 
     def copy_program(rec):
-        send, overflow, rows = mr._spill(inter, plan[0], plan[2], static, me, inter[1])
-        send = rec.collective("spill", lambda s: s, send)
-        return job._wave_copy(0, [send], [None], 1)
+        send, overflow, rows = mr._spill(inter, *plan, static, me, inter[1], inter[1])
+        spilled.append(rec.collective("spill", lambda s: s, send))
+        return job._wave_copy(0, spilled, [None], 1)
 
     copied = record("checkpointed-wave-copy", copy_program, pipelined=True)
 
     def run_program(rec):
-        rv, rc, rm = (t.clone() for t in copied.result)
-        out, counts = mr._reduce_chunk(rv, rc, rm, plan[1], N_CLUSTERS, "sum")
+        seg = copied.result.clone()
+        out, counts = mr._reduce_received(spilled[0], seg, plan, N_CLUSTERS, "sum")
         job._host_merge([(out, counts)])
         return out, counts
 

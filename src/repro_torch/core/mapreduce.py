@@ -14,9 +14,10 @@ Two backends run the ``m`` Reduce slots:
 
 * ``backend="stacked"`` — the slots are a leading ``(m,)`` axis of every
   tensor on one device, the counterpart of the reference's
-  ``backend="vmap"``: one launch serves every slot, the all-to-all "copy"
-  of a chunk is a transpose of its ``(src, dst, cap)`` bucket tensor, and
-  the reference's ``psum`` over slots is a sum over that axis.
+  ``backend="vmap"``: one launch serves every slot, and the reference's
+  ``psum`` over slots is a sum over that axis. No copy leaves the device,
+  so phase B keeps only the kept pairs, as indices into the Map output,
+  and the all-to-all "copy" of a chunk moves nothing.
 * ``backend="sharded"`` — the counterpart of ``backend="shard_map"``: one
   controller (this process) plans once and runs one program per slot,
   each on its own device (``devices=``) and CUDA stream, on a ``(1, K)``
@@ -41,12 +42,18 @@ bit-identical to an unmeasured one by construction.
 Phase A maps the input and builds every slot's ``K^(i)`` histogram in one
 launch of the histogram kernel (one a slot on the sharded backend). The host pulls the ``(m, n)`` float32
 statistics and plans: the schedule, the §4.4 waves (chunks of clusters in
-increasing-load order) and the statistics-sized send capacities. Phase B
-writes every chunk's bucket file in one counting-sort spill, then walks
+increasing-load order) and the statistics-sized send capacities, which
+decide the pairs kept. Phase B spills every chunk in one sort, then walks
 the chunks: the "copy" of chunk ``c+1`` is issued before the reduce of
-chunk ``c``, and each chunk's "sort" + "run" is one launch of the fused
-gather + segment-sum kernel over all slots, on pairs ordered by pipeline
-rank. Sums accumulate in float32 (the CUDA kernel takes float32 values).
+chunk ``c``, and each chunk's "run" is one launch of the fused gather +
+segment-sum kernel, on pairs ordered by pipeline rank. On the stacked
+backend the spill stable-sorts the kept pairs by (chunk, rank) once and
+the kernel gathers them straight from the Map output; the sharded
+backend lays out each chunk's padded bucket file, copies bucket ``[src,
+dst]`` between devices and sorts what it received by rank. Each cluster's
+pairs reach the kernel in sender order, then stream order, on both, so
+they agree bit for bit. Sums accumulate in float32 (the CUDA kernel takes
+float32 values).
 
 Statistics are pluggable (``stats``): the exact ``(m, n)`` histogram
 (the histogram kernel) or a count-min sketch of ``depth x width`` cells
@@ -107,7 +114,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -240,6 +247,11 @@ class JobResult:
     shuffle_pairs: Optional[int] = None   # non-local pairs the wire carried
     replication_bytes: int = 0            # coded replica-exchange bytes (not shuffle)
     quantize_exact: Optional[bool] = None  # quantized round trip lossless? (None = off)
+    # Rows phase B laid out and sorted for the reduce, from shapes (no
+    # sync), summed over the run's executions: each pair once where one
+    # device holds every slot, the padded bucket files otherwise; None for
+    # a coded plan, whose wire has a layout of its own.
+    bucket_rows: Optional[int] = None
 
 
 def _resolve_measure(cfg: MapReduceConfig, backend: str) -> bool:
@@ -394,21 +406,6 @@ def _ragged_counting_sort_to_buckets(
     return bucket_values, bucket_clusters, bucket_valid, overflow
 
 
-def _counting_sort_to_buckets(dest, values, payload, num_slots: int, capacity: int):
-    """Bucket every slot's pairs by destination into ``(m, m, cap, ...)`` buffers.
-
-    The "bucket file per operation cluster" layout of §4.4, bounded by
-    the schedule's capacity: the uniform-capacity case of the ragged sort.
-    """
-    m = dest.shape[0]
-    caps = np.full(num_slots, capacity, np.int64)
-    bv, bc, bm, overflow = _ragged_counting_sort_to_buckets(
-        dest, values, payload, caps, num_slots * capacity)
-    return (bv.reshape(m, num_slots, capacity, values.shape[-1]),
-            bc.reshape(m, num_slots, capacity),
-            bm.reshape(m, num_slots, capacity), overflow)
-
-
 def _wire_rows(bucket_valid: torch.Tensor, me: torch.Tensor) -> torch.Tensor:
     """Rows crossing the network: all bucketed rows but each sender's own.
 
@@ -420,17 +417,80 @@ def _wire_rows(bucket_valid: torch.Tensor, me: torch.Tensor) -> torch.Tensor:
     return bucket_valid.sum() - own.sum()
 
 
-def _copy_chunk(buckets):
-    """The "copy" of one chunk: slot ``j`` receives bucket ``[i, j]`` of every ``i``.
+def _key_dtype(num_keys: int) -> torch.dtype:
+    """int16 where it holds keys ``[0, num_keys]``, else int32: a radix sort
+    makes one pass a byte of its keys."""
+    return torch.int16 if num_keys < 2 ** 15 else torch.int32
 
-    ``(m_src, m_dst, cap, ...)`` → ``(m_dst, m_src · cap, ...)``: the
-    all-to-all of the reference is a transpose on one device. The result
-    is contiguous, as the fused kernel takes it: at ``cap == 1`` (a wave
-    whose groups hold at most one pair) the reshape alone would be a
-    strided view.
+
+def _kept_places(group: torch.Tensor, group_caps: np.ndarray):
+    """Which pairs their group's capacity keeps, every slot at once, with
+    no bucket file: the placement of the :class:`_Kept` spill.
+
+    ``group (rows, K)`` int32 in ``[0, G]`` (``G`` = invalid), ``group_caps``
+    the ``(G,)`` static capacities. One stable sort orders the pairs by
+    their ``(row, group)`` key, ``row · (G + 1) + group``, so each group's
+    pairs form a run in stream order; the group keeps the first ``cap``
+    of its run and the rest overflow (drop-newest), as
+    :func:`_ragged_counting_sort_to_buckets` drops them. Returns ``(kept
+    (rows, K) bool in stream order, kept_of (rows, G) the pairs each
+    (row, group) keeps, overflow)``, the last a device scalar.
+    """
+    rows, k = group.shape
+    dev = group.device
+    span = group_caps.shape[0] + 1
+    dtype = _key_dtype(rows * span)
+    row_key = torch.arange(rows, device=dev, dtype=dtype)[:, None] * span
+    key, order = torch.sort((group.to(dtype) + row_key).view(-1), stable=True)
+    start = torch.searchsorted(key, torch.arange(rows * span + 1, device=dev, dtype=dtype))
+    fill = start[1:] - start[:-1]
+    caps = torch.as_tensor(np.append(group_caps, 0), device=dev).repeat(rows)
+    kept = torch.minimum(fill, caps)
+    # Each run keeps its first `kept` places: +1 where a kept stretch
+    # starts and -1 where it ends, summed along the sorted places.
+    edge = torch.zeros(rows * k + 1, dtype=torch.int32, device=dev)
+    edge.index_add_(0, torch.cat([start[:-1], start[:-1] + kept]),
+                    torch.cat([torch.ones_like(kept), -torch.ones_like(kept)]).to(torch.int32))
+    ok = torch.cumsum(edge[:-1], 0, dtype=torch.int32) > 0
+    overflow = (fill - kept).view(rows, span)[:, :-1].sum()
+    in_stream = torch.empty_like(ok).scatter_(0, order, ok).view(rows, k)
+    return in_stream, kept.view(rows, span)[:, :-1], overflow
+
+
+class _Kept(NamedTuple):
+    """Phase B's spill where one device holds every sender: the kept pairs
+    as indices into the Map output, with no bucket file.
+
+    ``values`` is the ``(1, rows · K, V)`` delivered values, sender-major.
+    ``keys`` gives each pair ``chunk · (n + 1) + rank`` of its cluster, or
+    ``chunks · (n + 1)`` where it is invalid or dropped. For ``sum``,
+    ``order`` is the int32 stable sort of the keys and ``keys`` are sorted:
+    each chunk's kept pairs are then contiguous, in rank order, and each
+    cluster's in sender order, then stream order, the order in which a
+    copy to its slot and a stable sort by rank deliver them. For ``max``
+    and ``count``, which no order changes, ``order`` is ``None`` and
+    ``keys`` are in stream order. ``me`` holds the rows' slots.
+    """
+
+    values: torch.Tensor
+    keys: torch.Tensor
+    order: Optional[torch.Tensor]
+    me: torch.Tensor
+    num_clusters: int
+
+
+def _copy_chunk(kept: _Kept, chunk: int) -> torch.Tensor:
+    """The "copy" of chunk ``chunk`` where one device holds every sender.
+
+    Nothing moves: the chunk's kept pairs are in ``kept`` already. Returns
+    the ``(1, rows · K)`` int32 segment row of the reduce: ``-1`` before the
+    chunk's keys, each pair's rank inside them and ``n`` after them. On
+    sorted keys the row is non-decreasing, as kernel 2 takes it; ids
+    outside ``[0, n)`` are padding.
     """
     with spans.stage("phase_b.copy"):
-        return tuple(_transpose_slots(t).flatten(1, 2) for t in buckets)
+        n = kept.num_clusters
+        return (kept.keys - chunk * (n + 1)).clamp_(-1, n).to(torch.int32)
 
 
 @allowlist.exact_accumulate
@@ -509,6 +569,41 @@ def _reduce_chunk(rv, rc, rm, rank_of_cluster, num_clusters: int, reduce_op: str
     return out_by_rank[:, by_cluster], counts_by_rank[:, by_cluster]
 
 
+def _reduce_kept(kept: _Kept, seg, rank_of_cluster, assignment, reduce_op: str):
+    """The "run" of one chunk of a :class:`_Kept` spill, every slot at once.
+
+    ``seg`` is the chunk's segment row (:func:`_copy_chunk`). ``sum``:
+    kernel 2 gathers each kept pair straight from the Map output through
+    ``kept.order``; its sums depend only on each segment's rows in stream
+    order, which are those a bucket file gives it, so the bits are the
+    same. ``max`` / ``count``: :func:`_segment_reduce` over the chunk's
+    pairs by rank. Results are un-permuted to cluster ids and put on the
+    row of each cluster's slot (a ``where``, so a value that is not a
+    number stays on its own row), ``(rows, n, V)`` and ``(rows, n)`` as
+    :func:`_reduce_chunk` gives them.
+    """
+    n = kept.num_clusters
+    if reduce_op == "sum":
+        out, counts = fused_ops.fused_shuffle_reduce(kept.values, kept.order, seg, n)
+    else:
+        out, counts = _segment_reduce(seg, kept.values, (seg >= 0) & (seg < n), n, reduce_op)
+    by_cluster = rank_of_cluster.long()
+    mine = assignment.long() == kept.me[:, None]
+    return (torch.where(mine[..., None], out[:, by_cluster], 0),
+            torch.where(mine, counts[:, by_cluster], 0))
+
+
+def _reduce_received(send, recv, plan, num_clusters: int, reduce_op: str):
+    """The reduce of chunk ``recv`` of the spill ``send`` on the exact wire,
+    in either form: a :class:`_Kept` spill's segment row, or the ``(rv, rc,
+    rm)`` buckets a slot received. ``plan`` is ``(assignment,
+    rank_of_cluster, chunk_of_cluster)`` on the rows' device."""
+    assignment, rank_of_cluster, _ = plan
+    if isinstance(send, _Kept):
+        return _reduce_kept(send, recv, rank_of_cluster, assignment, reduce_op)
+    return _reduce_chunk(*recv, rank_of_cluster, num_clusters, reduce_op)
+
+
 def _wire_payload_dtype(quantize: Optional[str], value_dtype: torch.dtype) -> torch.dtype:
     """The dtype the shuffle wire carries: int8, fp8 as its uint8 bit
     patterns (every PyTorch op that moves data takes uint8), or the values'."""
@@ -577,40 +672,83 @@ def _quantize_wire(values, valid, quantize: Optional[str], magnitude=None):
     return scale, wire, delivered, inexact
 
 
-def _spill(intermediate, assignment, chunk_of_cluster, static, me, send_vals):
-    """Phase B's spill: every chunk's bucket file of these rows in one sort.
+def _send_caps(static) -> Tuple[int, ...]:
+    """Each chunk's capacity a (sender, receiver) group: the plan's chunk
+    caps, or one chunk of ``capacity`` when phase B is sequential."""
+    (_, _, capacity, chunk_caps, _, pipelined, num_chunks, _) = static
+    return tuple(chunk_caps) if pipelined and num_chunks > 1 else (capacity,)
+
+
+def _bucket_rows(static, rows: int, k: int) -> int:
+    """Rows that the spill of ``rows`` slots of ``k`` pairs lays out and
+    sorts for the reduce, from shapes: each pair once where the rows hold
+    every slot (:class:`_Kept`), else the padded bucket file, one group a
+    (row, chunk, receiver) at the chunk's cap."""
+    m = static[0]
+    return rows * k if rows == m else rows * m * sum(_send_caps(static))
+
+
+def _spill(intermediate, assignment, rank_of_cluster, chunk_of_cluster, static, me,
+           send_vals, deliv_vals):
+    """Phase B's spill: every chunk's pairs of these rows in one sort.
 
     Groups are ``(chunk, dest)`` pairs with statistics-derived capacities,
-    laid out chunk-major, so each chunk's send buckets are a contiguous
-    slab (one chunk of capacity ``capacity`` when phase B is sequential).
-    ``send_vals`` is the wire payload of the values. Returns ``(send,
-    overflow, wire_rows)``: ``send[c]`` is chunk ``c``'s ``(bv (rows, m,
-    cap, V), bc (rows, m, cap), bm (rows, m, cap))`` buckets, the other two
-    device scalars over these rows.
+    which decide the pairs kept: each group's first pairs in stream order
+    (drop-newest). The form follows the rows:
+
+    * Rows that hold every slot (``rows == m``: the stacked backend) need
+      no static buckets, since no copy leaves the device. The spill keeps
+      the kept pairs as indices into the Map output, ``deliv_vals`` (the
+      delivered values), and for ``sum`` stable-sorts them by (chunk,
+      rank) once: ``send`` is a :class:`_Kept`.
+    * Otherwise (one slot a device) every chunk's bucket file is laid out
+      chunk-major, so each chunk's send buckets are a contiguous slab of
+      the wire payload ``send_vals``, as a copy between devices takes it:
+      ``send[c]`` is chunk ``c``'s ``(bv (rows, m, cap, V), bc (rows, m,
+      cap), bm (rows, m, cap))`` buckets.
+
+    Returns ``(send, overflow, wire_rows)``, the other two device scalars
+    over these rows (``wire_rows``: the kept pairs whose slot is not their
+    sender's).
     """
-    (m, n, capacity, chunk_caps, _, pipelined, num_chunks, _) = static
+    (m, n, _, _, reduce_op, _, _, _) = static
     key_hashes, _, valid = intermediate
-    rows, v_dim = key_hashes.shape[0], send_vals.shape[-1]
+    rows, k = key_hashes.shape
+    caps = _send_caps(static)
     cluster_ids = _cluster_ids(key_hashes, n)
-    cid = cluster_ids.long()
-    if not pipelined or num_chunks <= 1:
-        dest = torch.where(valid, assignment[cid], m).to(torch.int32)
-        bv, bc, bm, overflow = _counting_sort_to_buckets(
-            dest, send_vals, cluster_ids, m, capacity)
-        return [(bv, bc, bm)], overflow, _wire_rows(bm, me)
-    group = torch.where(valid, chunk_of_cluster[cid] * m + assignment[cid],
-                        num_chunks * m).to(torch.int32)
-    group_caps = np.repeat(np.asarray(chunk_caps, np.int64), m)
+    flat_ids = cluster_ids.view(-1)
+    group_of_cluster = (chunk_of_cluster * m + assignment if len(caps) > 1 else assignment)
+    group = torch.where(valid, group_of_cluster.index_select(0, flat_ids).view(rows, k),
+                        len(caps) * m)
+    group_caps = np.repeat(np.asarray(caps, np.int64), m)
+    if rows == m:
+        kept, kept_of, overflow = _kept_places(group, group_caps)
+        # Group g's receiver is g % m: the pairs a row keeps for its own
+        # slot cross no wire.
+        dest = torch.arange(len(group_caps), device=group.device) % m
+        wire_rows = torch.where(dest != me[:, None], kept_of, 0).sum()
+        span = n + 1
+        key_of_cluster = (chunk_of_cluster * span + rank_of_cluster if len(caps) > 1
+                          else rank_of_cluster).to(_key_dtype(len(caps) * span))
+        keys = torch.where(kept, key_of_cluster.index_select(0, flat_ids).view(rows, k),
+                           len(caps) * span).view(1, rows * k)
+        sort = None
+        if reduce_op == "sum":
+            with spans.stage("phase_b.rank_sort"):
+                keys, sort = torch.sort(keys[0], stable=True)
+                keys, sort = keys[None], sort.to(torch.int32)[None]
+        values = deliv_vals.reshape(1, rows * k, deliv_vals.shape[-1])
+        return _Kept(values, keys, sort, me, n), overflow, wire_rows
     total = int(group_caps.sum())
     fv, fc, fm, overflow = _ragged_counting_sort_to_buckets(
         group, send_vals, cluster_ids, group_caps, total)
     send = []
     wire_rows = torch.zeros((), dtype=torch.int64, device=send_vals.device)
     off = 0
-    for cap in chunk_caps:
+    for cap in caps:
         size = m * cap
         slab_m = fm[:, off:off + size].reshape(rows, m, cap)
-        send.append((fv[:, off:off + size].reshape(rows, m, cap, v_dim),
+        send.append((fv[:, off:off + size].reshape(rows, m, cap, fv.shape[-1]),
                      fc[:, off:off + size].reshape(rows, m, cap), slab_m))
         wire_rows = wire_rows + _wire_rows(slab_m, me)
         off += size
@@ -636,28 +774,31 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
 
     * ``("pmax", x)`` → the maximum of ``x`` over every slot (the int8
       wire's scale);
-    * ``("spill", send)`` → ``None``: the bucket slabs of every chunk, as
+    * ``("spill", send)`` → ``None``: every chunk's spilled pairs, as
       :func:`_spill` returns them, are ready;
-    * ``("copy", c)`` → ``(rv, rc, rm)``: this slot's received chunk ``c``,
-      bucket ``[src, me]`` of every sender in sender order.
+    * ``("copy", c)`` → this slot's received chunk ``c``: bucket ``[src,
+      me]`` of every sender in sender order, ``(rv, rc, rm)``; or, where
+      the rows hold every slot and ``send`` is a :class:`_Kept`, the
+      chunk's segment row (:func:`_copy_chunk`).
 
     ``pipelined=False`` (or a single chunk) is the Hadoop-style barrier:
     one bulk all-to-all of every pair, then one reduce. The pipelined path
-    spills every chunk's bucket file at once and walks the chunks in
+    spills every chunk's pairs at once and walks the chunks in
     increasing-load order, issuing the copy of chunk ``c+1`` before the
     reduce of chunk ``c`` — the reference's double-buffered order. A
     quantized wire spills and copies the encoded payload and decodes each
-    received chunk.
+    received chunk; a :class:`_Kept` spill holds the delivered values.
 
     ``stamp_through`` is the measured executor's tick hook
     (``kernels/wave_timer.ops.stamp_through``): when set, per-wave
     boundary stamps are threaded through THIS body — the stamp before
-    each reduce produces the ids the reduce reads, the final one re-emits
-    the last wave's outputs — and ``(W, 2, 2)`` tick words are appended to
-    the result. ``None`` runs the identical untimed program, so measured
-    and unmeasured runs agree bit for bit by construction. On one stream
-    a slot's copy of a later chunk falls inside the wave in whose interval
-    it is enqueued; every wave is the slot's own stream time.
+    each reduce produces the ids the reduce reads (``rc``, or the segment
+    row), the final one re-emits the last wave's outputs — and ``(W, 2,
+    2)`` tick words are appended to the result. ``None`` runs the
+    identical untimed program, so measured and unmeasured runs agree bit
+    for bit by construction. On one stream a slot's copy of a later chunk
+    falls inside the wave in whose interval it is enqueued; every wave is
+    the slot's own stream time.
 
     Returns ``(out (rows, n, V), counts (rows, n), overflow, wire[,
     ticks])``, device tensors over these rows: the overflow count and the
@@ -671,12 +812,26 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
     if quantize == "int8":
         magnitude = yield ("pmax", _quantize_magnitude(values, valid))
     with spans.stage("phase_b.spill"):
-        scale, send_vals, _, inexact = _quantize_wire(values, valid, quantize, magnitude)
-        send, overflow, wire_rows = _spill(intermediate, assignment, chunk_of_cluster,
-                                           static, me, send_vals)
+        scale, send_vals, deliv_vals, inexact = _quantize_wire(values, valid, quantize,
+                                                               magnitude)
+        send, overflow, wire_rows = _spill(intermediate, assignment, rank_of_cluster,
+                                           chunk_of_cluster, static, me, send_vals, deliv_vals)
+    kept = send if isinstance(send, _Kept) else None
 
-    def _deliver(rv):
-        return _quantize_decode(rv, scale, values.dtype, quantize) if quantize else rv
+    def _reduce(recv, *anchors):
+        """One received chunk's reduce, and the stamp its ids passed when
+        timed (``None`` untimed)."""
+        stamp = None
+        if kept is not None:
+            if timed:
+                recv, stamp = stamp_through(recv, *anchors)
+            return _reduce_kept(kept, recv, rank_of_cluster, assignment, reduce_op), stamp
+        rv, rc, rm = recv
+        if quantize:
+            rv = _quantize_decode(rv, scale, values.dtype, quantize)
+        if timed:
+            rc, stamp = stamp_through(rc, *anchors)
+        return _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op), stamp
 
     def _wire(wire_rows):
         return torch.stack([wire_rows, torch.zeros_like(wire_rows), inexact, wire_rows])
@@ -685,12 +840,9 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
     del send
 
     if not pipelined or num_chunks <= 1:
-        rv, rc, rm = yield ("copy", 0)
+        recv = yield ("copy", 0)
         with spans.stage("phase_b.reduce"):
-            rv = _deliver(rv)
-            if timed:
-                rc, start = stamp_through(rc)          # start: produces the reduce's ids
-            out, counts = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
+            (out, counts), start = _reduce(recv)       # start: produces the reduce's ids
             if timed:
                 out, end = stamp_through(out, counts)  # end: re-emits the outputs
         if timed:
@@ -708,15 +860,13 @@ def _phase_b_body(intermediate, assignment, rank_of_cluster, chunk_of_cluster, s
     prev_out = ()
     recv = yield ("copy", 0)
     for c in range(num_chunks):
-        rv, rc, rm = recv
+        chunk = recv
         if c + 1 < num_chunks:
             recv = yield ("copy", c + 1)
         with spans.stage("phase_b.reduce"):
-            rv = _deliver(rv)
+            (out_c, cnt_c), b = _reduce(chunk, *prev_out)
             if timed:
-                rc, b = stamp_through(rc, *prev_out)
                 boundaries.append(b)
-            out_c, cnt_c = _reduce_chunk(rv, rc, rm, rank_of_cluster, n, reduce_op)
             if timed and c + 1 == num_chunks:
                 out_c, b = stamp_through(out_c, cnt_c)
                 boundaries.append(b)
@@ -731,9 +881,10 @@ def _drive_stacked(body):
     """Run a phase-B body over all m stacked slots.
 
     Every collective is local: the rows already hold every slot, so
-    ``pmax`` is the value itself, the copy of a chunk is the transpose of
-    its ``(src, dst, cap)`` buckets, and the coded body's replica and
-    packet exchanges are transposes of their ``(src, dst, ...)`` axes.
+    ``pmax`` is the value itself, the copy of a chunk is its segment row
+    over the spill's kept pairs (:func:`_copy_chunk`), and the coded
+    body's replica and packet exchanges are transposes of their ``(src,
+    dst, ...)`` axes.
     """
     send = reply = None
     while True:
@@ -746,7 +897,7 @@ def _drive_stacked(body):
         elif kind == "spill":
             send, reply = arg, None
         elif kind == "copy":
-            reply = _copy_chunk(send[arg])
+            reply = _copy_chunk(send, arg)
         elif kind == "replicas":
             reply = tuple(_transpose_slots(t) for t in arg)
         else:   # packets
@@ -1126,6 +1277,8 @@ class MapReduceJob:
         # span records then, and is empty with spans off.
         self.last_phase_ms: Optional[dict] = None
         self.last_spans: list = []
+        # The rows phase B laid out in the run in progress: JobResult.bucket_rows.
+        self._run_bucket_rows: Optional[int] = None
         # The plan the last run() executed (telemetry for benches and tests).
         self.last_plan: Optional[sc.CachedSchedule] = None
         # Elastic-mesh state: which slots have vanished (speed pinned to
@@ -1545,7 +1698,11 @@ class MapReduceJob:
 
     def _copy_to(self, dst: int, sends, events, chunk: int):
         """The chunk "copy" of slot ``dst``: bucket ``[src, dst]`` of every
-        sender, in sender order, after each sender's spill event."""
+        sender, in sender order, after each sender's spill event. A job of
+        one slot holds every sender, so its spill is a :class:`_Kept`, and
+        nothing is exchanged."""
+        if isinstance(sends[dst], _Kept):
+            return _copy_chunk(sends[dst], chunk)
         with spans.stage("phase_b.copy"):
             return tuple(t.flatten(1, 2) for t in self._exchange_to(
                 dst, [send[chunk] for send in sends], events))
@@ -2040,6 +2197,7 @@ class MapReduceJob:
             raise ValueError(
                 "a coded plan cannot run with measured timings — the coded"
                 " decode is not stamp-instrumented; set measure_timings=False")
+        self._count_bucket_rows(intermediate, static, coded)
         bodies = []
         for j, (inter, (slots, dev)) in enumerate(zip(self._as_groups(intermediate),
                                                       self._groups())):
@@ -2128,9 +2286,9 @@ class MapReduceJob:
             markers = []
             outs = []
             t0 = time.perf_counter()
-            for j, (rv, rc, rm) in enumerate(recv):
+            for j, got in enumerate(recv):
                 with self._on_slot(j), spans.stage("phase_b.reduce"):
-                    outs.append(_reduce_chunk(rv, rc, rm, plans[j][1], n, reduce_op))
+                    outs.append(_reduce_received(sends[j], got, plans[j], n, reduce_op))
                 markers.append(self._mark(j) if self.device.type == "cuda"
                                else time.perf_counter())
             timings.record(c, mt.shard_ready_seconds(markers, t0))
@@ -2151,11 +2309,23 @@ class MapReduceJob:
                     acc[j], cnt[j] = _merge_chunk(acc[j], cnt[j], out_c, cnt_c, reduce_op)
         return list(zip(acc, cnt, overflow, wire)), timings
 
+    def _count_bucket_rows(self, intermediate, static, coded: bool = False) -> None:
+        """Add one execution's laid-out rows (:func:`_bucket_rows`) to the
+        run's ``bucket_rows``; a coded plan's leaves it ``None``."""
+        if self._run_bucket_rows is None:
+            return
+        if coded:
+            self._run_bucket_rows = None
+            return
+        self._run_bucket_rows += sum(_bucket_rows(static, *inter[0].shape)
+                                     for inter in self._as_groups(intermediate))
+
     def _spill_groups(self, intermediate, planned: sc.CachedSchedule, static):
         """Every group's spill for a fenced walk. Per group: the plan's
-        tensors on its device, the chunks' send buckets, an event after the
-        spill, and :func:`_spill`'s overflow and wire-row scalars; returns
-        the five lists."""
+        tensors on its device, the chunks' spilled pairs, an event after
+        the spill, and :func:`_spill`'s overflow and wire-row scalars;
+        returns the five lists."""
+        self._count_bucket_rows(intermediate, static)
         plans, sends, events, overflow, rows = [], [], [], [], []
         for j, (inter, (slots, dev)) in enumerate(zip(self._as_groups(intermediate),
                                                       self._groups())):
@@ -2163,7 +2333,7 @@ class MapReduceJob:
                 plans.append(self._plan_tensors(planned, dev))
                 me = torch.as_tensor(slots, device=dev)
                 with spans.stage("phase_b.spill"):
-                    send, ovf, wire_rows = _spill(inter, plans[j][0], plans[j][2], static, me,
+                    send, ovf, wire_rows = _spill(inter, *plans[j], static, me, inter[1],
                                                   inter[1])
                 sends.append(send)
                 overflow.append(ovf)
@@ -2191,10 +2361,10 @@ class MapReduceJob:
 
     def _wave_copy(self, j: int, sends, events, chunk: int):
         """Group ``j``'s received chunk ``chunk``: the stacked backend's
-        transpose of every slot's buckets, or the sharded copy of slot
+        segment row (:func:`_copy_chunk`), or the sharded copy of slot
         ``j`` (:meth:`_copy_to`)."""
         if self.backend == "stacked":
-            return _copy_chunk(sends[0][chunk])
+            return _copy_chunk(sends[0], chunk)
         return self._copy_to(j, sends, events, chunk)
 
     @allowlist.allow_callback
@@ -2319,7 +2489,8 @@ class MapReduceJob:
                     with self._on_slot(j):
                         recv = self._wave_copy(j, sends, events, c)
                         with spans.stage("phase_b.reduce"):
-                            outs.append(_reduce_chunk(*recv, plans[j][1], n, reduce_op))
+                            outs.append(_reduce_received(sends[j], recv, plans[j], n,
+                                                         reduce_op))
                         del recv
                 o, ct = self._host_merge(outs)
                 del outs
@@ -2364,6 +2535,7 @@ class MapReduceJob:
         cfg = self.cfg
         m, n = cfg.num_slots, cfg.num_clusters
         self._spans.phase("phase_a")
+        self._run_bucket_rows = 0
 
         # ---- Phase A: map + statistics (all Maps finish before any Reduce).
         intermediate, state = self._map_phase(inputs, cfg.stream_prefix)
@@ -2566,6 +2738,7 @@ class MapReduceJob:
             slot_speeds=planned.schedule.slot_speeds,
             speed_drift=decision.speed_drift if decision is not None else None,
             quantize_exact=(inexact == 0) if cfg.quantize_shuffle else None,
+            bucket_rows=self._run_bucket_rows,
             **acct,
         )
 

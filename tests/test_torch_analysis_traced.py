@@ -144,13 +144,17 @@ def test_recorded_checkpointed_wave_equals_the_fused_walk(targets):
     unrecorded pipeline (each cluster lives in one chunk)."""
     inter, plan = tgt.shard_inputs("cpu")
     static = tgt.static_of(True)
-    send, _, _ = mr._spill(inter, plan[0], plan[2], static, torch.arange(tgt.M), inter[1])
-    rv, rc, rm = mr._copy_chunk(send[1])
-    for a, b in zip(targets["checkpointed-wave-copy"].result, (rv, rc, rm)):
-        assert torch.equal(a, b)
-    out, counts = mr._reduce_chunk(rv, rc, rm, plan[1], tgt.N_CLUSTERS, "sum")
+    send, _, _ = mr._spill(inter, *plan, static, torch.arange(tgt.M), inter[1], inter[1])
+    seg = mr._copy_chunk(send, 1)
+    assert torch.equal(targets["checkpointed-wave-copy"].result, seg)
+    out, counts = mr._reduce_received(send, seg, plan, tgt.N_CLUSTERS, "sum")
     got = targets["checkpointed-wave-run"].result
     assert torch.equal(got[0], out) and torch.equal(got[1], counts)
+    # Chunk 1's clusters only, as the pipelined walk reduces them.
+    acc, cnt = _unrecorded("pipelined")[:2]
+    in_chunk = (plan[2] == 1)[None, :]
+    assert torch.equal(out, torch.where(in_chunk[..., None], acc, 0))
+    assert torch.equal(counts, torch.where(in_chunk, cnt, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -472,16 +472,24 @@ def test_kill_and_measured_sharded_errors():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("wave", [None, 2], ids=["clean", "kill-at-2"])
-def test_sharded_checkpointed_run_equals_stacked(wave):
+@pytest.mark.parametrize("wave,cut", [(None, {}), (2, {}), (2, dict(capacity_send=24))],
+                         ids=["clean", "kill-at-2", "kill-at-2-overflow"])
+def test_sharded_checkpointed_run_equals_stacked(wave, cut):
+    """The stacked walk (its kept pairs as indices) equals the sharded one
+    (padded bucket files); ``-overflow`` cuts every cap below the hottest
+    group, in the walk and in the replay."""
     batch = _batch(1)
-    stacked = _port(pipeline_chunks=4, checkpoint_waves=True)
-    sharded = _sharded(pipeline_chunks=4, checkpoint_waves=True)
+    stacked = _port(pipeline_chunks=4, checkpoint_waves=True, **cut)
+    sharded = _sharded(pipeline_chunks=4, checkpoint_waves=True, **cut)
     if wave is not None:
         for j in (stacked, sharded):
             j.set_slot_failure(4, at_wave=wave)
     want, got = stacked.run(_torch(batch)), sharded.run(_torch(batch))
     _assert_same_outputs(got, want)
+    if cut:
+        # The replay plans the residue anew, so its drops are its own.
+        assert got.overflow > 0 and sharded.last_replayed_waves > 0
+        return
     np.testing.assert_array_equal(got.schedule.assignment, want.schedule.assignment)
     assert sharded.last_checkpoint_wave == stacked.last_checkpoint_wave
     assert sharded.last_replayed_waves == stacked.last_replayed_waves
@@ -575,20 +583,31 @@ def test_reused_escalated_plan_walks_checkpointed_at_cut_caps():
 
 @pytest.mark.parametrize("cap", [1, 3])
 def test_stacked_chunk_copy_is_contiguous(cap):
-    """A residue wave whose groups hold at most one pair has ``cap == 1``;
-    the copy's reshape of the transposed buckets would then be a strided
-    view, which the CUDA fused kernel refuses. The copy hands it
-    contiguous tensors at every cap."""
-    m, v = 4, 3
-    fv = torch.arange(m * (m * cap + 1) * v, dtype=torch.float32).view(m, m * cap + 1, v)
-    slab = (fv[:, :m * cap].reshape(m, m, cap, v),
-            torch.zeros((m, m, cap), dtype=torch.int32), torch.ones((m, m, cap), dtype=torch.bool))
-    rv, rc, rm = tmr._copy_chunk(slab)
-    assert rv.is_contiguous() and rc.is_contiguous() and rm.is_contiguous()
-    assert rv.shape == (m, m * cap, v)
-    np.testing.assert_array_equal(rv.numpy(), slab[0].transpose(0, 1).reshape(m, m * cap, v))
-
-
+    """A residue wave whose groups hold at most one pair has ``cap == 1``.
+    At every cap the stacked copy hands the fused kernel contiguous int32
+    ids: each chunk's segment row, non-decreasing, holding every pair its
+    caps keep once, over contiguous values and gather order."""
+    m, k, n, v = 4, 24, 8, 3
+    rng = np.random.default_rng(cap)
+    keys = torch.from_numpy(rng.integers(0, n, (m, k)).astype(np.int32))
+    vals = torch.arange(m * k * v, dtype=torch.float32).view(m, k, v)
+    valid = torch.ones((m, k), dtype=torch.bool)
+    rank = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    plan = (torch.arange(n, dtype=torch.int32) % m, rank, rank // (n // 2))
+    static = (m, n, cap, (cap, cap), "sum", True, 2, None)
+    send, overflow, _ = tmr._spill((keys, vals, valid), *plan, static, torch.arange(m), vals,
+                                   vals)
+    assert send.values.is_contiguous() and send.order.is_contiguous()
+    assert send.order.dtype == torch.int32
+    kept = 0
+    for c in range(2):
+        seg = tmr._copy_chunk(send, c)
+        assert seg.is_contiguous() and seg.dtype == torch.int32 and seg.shape == (1, m * k)
+        assert bool((seg[0, 1:] >= seg[0, :-1]).all())
+        inside = (seg >= 0) & (seg < n)
+        kept += int(inside.sum())
+        assert int(inside.sum()) <= m * m * cap
+    assert kept + int(overflow) == m * k
 # ---------------------------------------------------------------------------
 # On the card.
 # ---------------------------------------------------------------------------

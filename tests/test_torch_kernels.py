@@ -340,6 +340,13 @@ def test_fused_kernel_matches_plain(n_rows, num_segments, v, pad):
             again = fused_ops.fused_shuffle_reduce(
                 *_repadded(values, idx, seg, num_segments, lead, extra), num_segments)
             assert torch.equal(again[0], got) and torch.equal(again[1], counts)
+        # One slot's stream amid many blocks of padding on both sides, as a
+        # chunk's segment row over every sender's pairs gives it (m = 1).
+        for i in range(values.shape[0]):
+            again = fused_ops.fused_shuffle_reduce(*_repadded(
+                values[i:i + 1], idx[i:i + 1], seg[i:i + 1], num_segments,
+                40 * TILE_ROWS + 5, 60 * TILE_ROWS + 9), num_segments)
+            assert torch.equal(again[0], got[i:i + 1]) and torch.equal(again[1], counts[i:i + 1])
 
 
 @pytest.mark.gpu

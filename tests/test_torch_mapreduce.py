@@ -151,6 +151,46 @@ def test_port_pipelined_equals_sequential(kind):
     np.testing.assert_array_equal(runs[0].counts, runs[1].counts)
 
 
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_kept_order_is_sender_then_stream_order(pipelined):
+    """The stacked spill's sort gives each cluster its kept pairs in sender
+    order, then stream order, as a copy to its slot and a stable sort by
+    rank do; the pairs kept are each (sender, chunk, slot) group's first
+    ``cap``, and the rest count as overflow (drop-newest)."""
+    m, k, n, cap = 4, 96, 12, 5
+    rng = np.random.default_rng(11)
+    keys = rng.integers(-50, 50, (m, k)).astype(np.int32)
+    valid = rng.random((m, k)) > 0.1
+    assign = rng.integers(0, m, n).astype(np.int32)
+    rank = rng.permutation(n).astype(np.int32)
+    chunk = (rank // 3).astype(np.int32) if pipelined else np.zeros(n, np.int32)
+    chunks = 4 if pipelined else 1
+    static = (m, n, cap, (cap,) * chunks, "sum", pipelined, chunks, None)
+    vals = torch.zeros((m, k, 1))
+    send, overflow, wire_rows = tmr._spill(
+        (torch.from_numpy(keys), vals, torch.from_numpy(valid)),
+        *(torch.from_numpy(a) for a in (assign, rank, chunk)), static, torch.arange(m),
+        vals, vals)
+    cid = np.abs(keys.astype(np.int64)) % n
+    filled, kept, nonlocal_ = {}, {c: [] for c in range(n)}, 0
+    for i in range(m):
+        for t in range(k):
+            if not valid[i, t]:
+                continue
+            group = (i, chunk[cid[i, t]], assign[cid[i, t]])
+            filled[group] = filled.get(group, 0) + 1
+            if filled[group] <= cap:
+                kept[cid[i, t]].append(i * k + t)
+                nonlocal_ += int(assign[cid[i, t]] != i)
+    assert int(overflow) == valid.sum() - sum(map(len, kept.values())) > 0
+    assert int(wire_rows) == nonlocal_
+    order, keys_sorted = send.order[0].numpy(), send.keys[0].numpy()
+    assert (np.diff(keys_sorted.astype(np.int64)) >= 0).all()
+    for c in range(n):
+        rows = keys_sorted == chunk[c] * (n + 1) + rank[c]
+        assert order[rows].tolist() == kept[c]
+
+
 def test_cluster_ids_keep_int32_semantics():
     import jax.numpy as jnp
 

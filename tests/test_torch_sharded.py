@@ -76,6 +76,7 @@ def _assert_same_result(a, b, plans=True):
     if plans:
         np.testing.assert_array_equal(a.schedule.assignment, b.schedule.assignment)
         assert a.shuffle_bytes == b.shuffle_bytes and a.shuffle_pairs == b.shuffle_pairs
+        assert a.shuffle_rows == b.shuffle_rows
 
 
 def _assert_same_plan(a, b):
@@ -86,9 +87,13 @@ def _assert_same_plan(a, b):
 
 
 # ---------------------------------------------------------------------------
-# Sharded ≡ stacked ≡ reference vmap.
+# Sharded ≡ stacked ≡ reference vmap. The stacked backend carries the kept
+# pairs as indices into the Map output, the sharded one padded bucket
+# files; the ``-overflow`` cases cut every cap below the hottest group, so
+# both drop the newest pairs of the same groups.
 # ---------------------------------------------------------------------------
 
+_CUT = dict(capacity_send=40)
 
 _CONFIGS = {
     "sum": dict(),
@@ -108,6 +113,12 @@ _CONFIGS = {
     "coded-max": dict(shuffle_replication=2, reduce_op="max"),
     "coded-int8": dict(shuffle_replication=2, quantize_shuffle="int8"),
     "coded-fp8": dict(shuffle_replication=2, quantize_shuffle="fp8"),
+    "sum-overflow": dict(**_CUT),
+    "sum-sequential-overflow": dict(pipelined=False, **_CUT),
+    "max-overflow": dict(reduce_op="max", **_CUT),
+    "count-overflow": dict(reduce_op="count", **_CUT),
+    "int8-overflow": dict(quantize_shuffle="int8", **_CUT),
+    "fp8-overflow": dict(quantize_shuffle="fp8", **_CUT),
 }
 
 
@@ -140,6 +151,9 @@ def test_sharded_equals_stacked_and_reference_vmap(name):
         assert b.shuffle_bytes == want.shuffle_bytes
         assert b.replication_bytes == want.replication_bytes
         assert b.quantize_exact == want.quantize_exact
+        assert b.shuffle_rows == want.shuffle_rows and b.shuffle_pairs == want.shuffle_pairs
+        if "overflow" in name:
+            assert b.overflow > 0
         _assert_same_plan(sharded.last_plan, ref_plans[-1])
         _assert_same_plan(sharded.last_plan, stacked.last_plan)
 
@@ -151,6 +165,28 @@ def test_sharded_equals_stacked_at_other_slot_counts(m):
         a = _stacked(m, 17).run(_torch(batch))
         b = _sharded(m, 17).run(_torch(batch))
         _assert_same_result(a, b)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_bucket_rows_count_the_layout_from_shapes(pipelined):
+    """``JobResult.bucket_rows``: every pair once on the stacked backend (m ·
+    K), each slot's padded bucket file on the sharded one (m · m · the
+    caps), summed over a run's executions; a coded plan reports none."""
+    m, k = 4, 512
+    batch = _torch(_batch(0, m, k=k))
+    stacked, sharded = _stacked(m, pipelined=pipelined), _sharded(m, pipelined=pipelined)
+    assert stacked.run(batch).bucket_rows == m * k
+    got = sharded.run(batch)
+    plan = sharded.last_plan
+    caps = plan.chunk_caps if pipelined and plan.waves.num_chunks > 1 else (plan.capacity,)
+    assert got.bucket_rows == m * m * sum(caps) > m * k
+    assert _stacked(m, pipelined=pipelined, shuffle_replication=2).run(batch).bucket_rows is None
+    # A reused plan that overflows runs phase B again: both count.
+    job = _stacked(m, reuse=tsc.ReusePolicy(max_drift=10.0))
+    job.run(_torch(_batch(0, m, k=k)))
+    hot = _batch(1, m, k=k, key_mod=2)
+    again = job.run(_torch(hot))
+    assert again.plan_reason == "overflow" and again.bucket_rows == 2 * m * k
 
 
 def test_sharded_map_fn_runs_per_slot_on_its_slice():
@@ -668,6 +704,26 @@ def test_cuda_sharded_equals_cuda_stacked(name):
     for seed in range(2):
         batch = _torch(_batch(seed, m, k=4096), device=dev)
         _assert_same_result(stacked.run(batch), sharded.run(batch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sum-overflow", "sum-sequential"])
+def test_cuda_stacked_equals_sharded_on_float_pairs(name):
+    """On normals, kernel 2's sums over the stacked kept pairs (gathered
+    from the Map output) equal its sums over the sharded bucket files bit
+    for bit: each cluster's pairs arrive in the same order."""
+    dev = _cuda()
+    m, cfg = 6, _CONFIGS[name]
+    sharded = tmr.MapReduceJob(_identity, tmr.MapReduceConfig(num_slots=m, num_clusters=24,
+                                                              **cfg), backend="sharded")
+    stacked = _stacked(m, device="cuda", **cfg)
+    for seed in range(2):
+        keys, _, valid = _batch(seed, m, k=8192)
+        vals = np.random.default_rng(seed).standard_normal((m, 8192, 3)).astype(np.float32)
+        batch = _torch((keys, vals, valid), device=dev)
+        got, want = stacked.run(batch), sharded.run(batch)
+        _assert_same_result(got, want)
+        assert (got.overflow > 0) == ("overflow" in name)
 
 
 @pytest.mark.gpu

@@ -99,8 +99,10 @@ def test_on_records_one_tree_per_run():
         assert span.name.startswith(phase.name + ".")
         assert (span.device_ms is not None) == (span.name in DEVICE_STAGES)
         assert span.ms >= 0
-    assert records["phase_b.rank_sort"].parent == "phase_b.reduce"
-    for name in ("phase_b.copy", "phase_b.rank_sort", "phase_b.reduce"):
+    # Stacked, the rank sort is one sort of the kept pairs, inside the spill.
+    assert records["phase_b.rank_sort"].parent == "phase_b.spill"
+    assert records["phase_b.rank_sort"].count == 1
+    for name in ("phase_b.copy", "phase_b.reduce"):
         assert records[name].count == 4
     phases = [records[p] for p in PHASES]
     assert all(a.host_end == b.host_start for a, b in zip(phases, phases[1:]))
