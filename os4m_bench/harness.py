@@ -210,7 +210,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 def host_spans(jobs: List[Job]) -> list:
     """``(label, start_s, end_s)`` of each job's phases, as the program
     times them (phase A ends where the statistics reach the host, the plan
-    follows, then phase B to the end of the job)."""
+    follows, then phase B, which holds the host's merge), and the return
+    from ``MapReduceJob.run`` after them."""
     spans = []
     for j in jobs:
         t = j.start_s
@@ -220,5 +221,5 @@ def host_spans(jobs: List[Job]) -> list:
                 continue
             spans.append((phase, t, t + ms / 1e3))
             t += ms / 1e3
-        spans.append(("host merge and return", t, j.end_s))
+        spans.append(("return", t, j.end_s))
     return spans

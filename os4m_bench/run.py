@@ -2,7 +2,10 @@
 
     python3 -m os4m_bench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout that holds ``src/repro_torch``. The kernels
+from the root of a checkout that holds ``src/repro_torch``. A cell whose
+configuration has ``"kind": "serve"`` runs ``serve_harness.run_cell``
+(``repro_torch.serve.engine.Engine``), any other ``harness.run_cell``
+(``MapReduceJob``). The kernels
 build into ``build/repro_torch/`` of the checkout at their first use and
 load from there afterwards. With ``--trace 0`` the line holds the cell's
 end-to-end metrics, with ``--trace 1`` its per-layer metrics, the
@@ -47,9 +50,10 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = parser.parse_args(argv)
 
-    from os4m_bench import harness, spec
+    from os4m_bench import harness, serve_harness, spec
 
     cell = spec.load_cell(args.workload)
+    run_cell = serve_harness.run_cell if cell.config.get("kind") == "serve" else harness.run_cell
     if not torch.cuda.is_available():
         print("os4m_bench: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
@@ -59,8 +63,7 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device,
-                           SETUP_START)
+    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, SETUP_START)
     found = harness.forbidden_modules(sys.modules)
     if found:
         print(f"os4m_bench: the run loaded {found}; no result", file=sys.stderr)

@@ -57,8 +57,13 @@ def test_metric_entries():
 def test_cell_found_by_name(cell):
     c = spec.load_cell(cell)
     assert c.chips == 1
-    assert c.config["backend"] == "stacked"
-    assert {"pool", "shape_seed", "warmup_jobs", "reuse"} <= set(c.traffic)
+    if c.config.get("kind") == "serve":
+        assert c.traffic["kind"] == "serve"
+        assert {"pool", "shape_seed", "requests_per_batch", "prompt_len", "output_len",
+                "token_zipf", "warmup_new", "check_requests"} <= set(c.traffic)
+    else:
+        assert c.config["backend"] == "stacked"
+        assert {"pool", "shape_seed", "warmup_jobs", "reuse"} <= set(c.traffic)
     e2e = [m.name for m in c.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
     assert all(callable(m.read) for m in c.end_to_end + c.per_layer)
@@ -98,7 +103,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert len(files) > 10
     for path in files:
         assert harness.forbidden_modules(imports_of(path)) == [], path
-    for name in ("reference.py", "traffic.py", "roofline.py"):
+    for name in ("reference.py", "traffic.py", "roofline.py", "reference_dsv2.py",
+                 "serve_traffic.py", "dsv2_weights.py", "serve_work.py"):
         tops = {m.split(".")[0] for m in imports_of(spec.BENCH_DIR / name)}
         assert not tops & {"repro_torch", "repro"}, name
 

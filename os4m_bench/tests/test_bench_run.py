@@ -30,7 +30,8 @@ def run_small(cell, trace=False, job_factory=harness.make_job):
                             job_factory=job_factory)
 
 
-CELLS = [w["name"] for w in spec.load_json(spec.BENCHMARK_JSON)["workloads"]]
+CELLS = [w["name"] for w in spec.load_json(spec.BENCHMARK_JSON)["workloads"]
+         if spec.load_cell(w["name"]).config.get("kind") != "serve"]   # MapReduce cells
 
 
 @pytest.mark.parametrize("cell_name", CELLS)
